@@ -1,0 +1,97 @@
+"""'vanilla' SAGAN generator, port of ``sagan_tpu/models/vanilla.py``
+(the Discriminator comes with the training slice).
+
+  z[B, z_dim] (+ one-hot label) -> SN-Dense -> [B, 4, 4, 16 gf] (NHWC, as
+  the JAX stem reshapes it) -> NCHW -> log2(img/4) stages of
+  SN-ConvT 4x4/2 (no bias) -> (conditional) BN -> LeakyReLU 0.1
+  [-> self-attention where the side is in attn_dim_G] -> Conv 4x4 ->
+  tanh in fp32 -> [B, 3, S, S] in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.attention import SelfAttention
+from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
+                         Dense, leaky_relu)
+
+
+def _power(img_size: int) -> int:
+    """Number of up-sampling stages: 64 -> 4, 128 -> 5."""
+    p = int(math.log2(img_size / 4))
+    if 4 * 2 ** p != img_size:
+        raise ValueError(f"img_size must be 4*2^k, got {img_size}")
+    return p
+
+
+class Generator(nn.Module):
+    """Eval-mode generator; built in eval mode, since train-mode BatchNorm
+    is not ported yet.  ``rng`` (a CPU ``torch.Generator``) draws the
+    initial weights."""
+
+    def __init__(self, config, rng: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        self.z_dim = c["z_dim"]
+        self.img_size = c["img_size"]
+        self.use_label = c.get("use_label", False)
+        self.num_classes = c.get("num_classes", 1)
+        self.use_cond_bn = c.get("use_cond_bn", False) and self.use_label
+        self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        gf = c["gf_dim"]
+        sn_iters = c.get("sn_iters", 1)
+        attn_at = set(c.get("attn_dim_G", [])) if c.get("use_attention") \
+            else set()
+
+        in_dim = self.z_dim + (self.num_classes if self.use_label else 0)
+        self.gf0 = gf * 16
+        self.stem = Dense(in_dim, 4 * 4 * self.gf0, sn=True,
+                          sn_iters=sn_iters, dtype=self.dtype, rng=rng)
+        self.blocks = []  # (convT, bn, attn or None), registered below
+        cin, side = self.gf0, 4
+        for p in reversed(range(_power(self.img_size))):
+            cout = gf * 2 ** p
+            side *= 2
+            convt = ConvTranspose(cin, cout, kernel=4, stride=2,
+                                  use_bias=False, sn=True, sn_iters=sn_iters,
+                                  dtype=self.dtype, rng=rng)
+            bn = (ConditionalBatchNorm(cout, self.num_classes,
+                                       dtype=self.dtype)
+                  if self.use_cond_bn else BatchNorm(cout, dtype=self.dtype))
+            self.add_module(f"up{side}_conv", convt)
+            self.add_module(f"up{side}_bn", bn)
+            attn = None
+            if side in attn_at:
+                attn = SelfAttention(
+                    cout, sn_iters=sn_iters,
+                    downsample=c.get("attn_downsample", True),
+                    dtype=self.dtype, use_pallas=c.get("use_pallas"),
+                    qk_dim=c.get("attn_qk_dim"), v_dim=c.get("attn_v_dim"),
+                    rng=rng)
+                self.add_module(f"attn{side}", attn)
+            self.blocks.append((convt, bn, attn))
+            cin = cout
+        self.to_rgb = Conv(cin, 3, kernel=4, stride=1, use_bias=False,
+                           dtype=self.dtype, rng=rng)
+        self.eval()
+
+    def forward(self, z, labels=None):
+        x = z.to(self.dtype)
+        if self.use_label:
+            one_hot = F.one_hot(labels.long(), self.num_classes)
+            x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
+        x = self.stem(x)
+        x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
+        for convt, bn, attn in self.blocks:
+            x = convt(x)
+            x = bn(x, labels) if self.use_cond_bn else bn(x)
+            x = leaky_relu(x, 0.1)
+            if attn is not None:
+                x = attn(x)
+        x = self.to_rgb(x)
+        return torch.tanh(x.float()).to(self.dtype)

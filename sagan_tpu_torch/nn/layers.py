@@ -1,0 +1,176 @@
+"""Core layers with inline spectral normalization, and (conditional)
+BatchNorm: the eval forwards of ``sagan_tpu/nn/layers.py``.
+
+Layouts: activations NCHW; Dense weights ``[in, out]`` (as in JAX), conv
+weights OIHW, transposed-conv weights IOHW (``F.conv_transpose2d``'s
+layout).  Parameters and norm statistics are fp32; products run in the
+layer's ``dtype``.  Names of parameters and buffers follow the JAX
+variable tree, so ``params/<path>/w`` is the state-dict key ``<path>.w``
+and ``aux/<path>/u`` the buffer ``<path>.u`` (``convert.py``).
+
+Spectral normalization runs ``sn_iters`` power iterations from the stored
+``u`` on every forward; only a module in training mode stores the new
+``u`` (``sagan_tpu/nn/layers.py:33-46``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.spectral import spectral_normalize
+from . import initializers as init
+
+BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
+TRAIN_BN_ITEM = ("train-mode BatchNorm (batch moments and running-stat "
+                 "updates) comes with the training step, ROADMAP.md Queue 1 "
+                 "item 5")
+
+
+class _SNLayer(nn.Module):
+    """A layer with weight ``w`` and, when ``sn``, its SN vector ``u``
+    over the output-channel axis ``out_dim`` of ``w``."""
+
+    out_dim = -1
+
+    def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng):
+        super().__init__()
+        self.sn, self.sn_iters, self.dtype = sn, sn_iters, dtype
+        self.w = nn.Parameter(init.glorot_uniform(w_shape, rng))
+        self.b = nn.Parameter(init.zeros((cout,))) if use_bias else None
+        if sn:
+            self.register_buffer("u", init.l2_normal((cout,), rng))
+
+    def weight(self) -> torch.Tensor:
+        """The kernel this forward uses, spectrally normalized if asked."""
+        if not self.sn:
+            return self.w
+        w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
+                                          out_dim=self.out_dim)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u_new)
+        return w_bar
+
+    def _bias(self, y: torch.Tensor) -> torch.Tensor:
+        # fp32 bias on a dtype product promotes to fp32, then back to dtype
+        if self.b is not None:
+            shape = (-1,) if y.dim() == 2 else (-1, 1, 1)
+            y = y + self.b.view(shape)
+        return y.to(self.dtype)
+
+
+class Dense(_SNLayer):
+    """y = x @ W (+ b), W [in, out]."""
+
+    def __init__(self, cin, cout, use_bias=True, sn=False, sn_iters=1,
+                 dtype=torch.float32, rng=None):
+        super().__init__((cin, cout), cout, use_bias, sn, sn_iters, dtype, rng)
+
+    def forward(self, x):
+        return self._bias(x.to(self.dtype) @ self.weight().to(self.dtype))
+
+
+def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF/XLA 'SAME': the output is ceil(size / stride); an odd total pad
+    puts the extra row on the high side (a 4x4 stride-1 conv pads 1, 2)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(_SNLayer):
+    """NCHW conv with 'SAME' padding, weight OIHW."""
+
+    out_dim = 0
+
+    def __init__(self, cin, cout, kernel=3, stride=1, use_bias=True,
+                 sn=False, sn_iters=1, dtype=torch.float32, rng=None):
+        super().__init__((cout, cin, kernel, kernel), cout, use_bias, sn,
+                         sn_iters, dtype, rng)
+        self.kernel, self.stride = kernel, stride
+
+    def forward(self, x):
+        top, bottom = _same_padding(x.shape[2], self.kernel, self.stride)
+        left, right = _same_padding(x.shape[3], self.kernel, self.stride)
+        x = F.pad(x.to(self.dtype), (left, right, top, bottom))
+        return self._bias(F.conv2d(x, self.weight().to(self.dtype),
+                                   stride=self.stride))
+
+
+class ConvTranspose(_SNLayer):
+    """NCHW 4x4 stride-2 transposed conv ('SAME': 2x upsampling), weight
+    IOHW.  Equals the JAX layer's ``lax.conv_transpose(...,
+    transpose_kernel=True)`` of the HWIO kernel ``w.permute(2, 3, 0, 1)``
+    with no spatial flip."""
+
+    out_dim = 1
+
+    def __init__(self, cin, cout, kernel=4, stride=2, use_bias=True,
+                 sn=False, sn_iters=1, dtype=torch.float32, rng=None):
+        if (kernel, stride) != (4, 2):
+            raise NotImplementedError(
+                f"ConvTranspose is ported for kernel 4 stride 2 (the vanilla "
+                f"G), got kernel {kernel} stride {stride}; other 'SAME' "
+                f"paddings come with the resnet family, ROADMAP.md Queue 1 "
+                f"item 7")
+        super().__init__((cin, cout, kernel, kernel), cout, use_bias, sn,
+                         sn_iters, dtype, rng)
+
+    def forward(self, x):
+        return self._bias(F.conv_transpose2d(
+            x.to(self.dtype), self.weight().to(self.dtype), stride=2,
+            padding=1))
+
+
+class BatchNorm(nn.Module):
+    """Eval BatchNorm: running stats, eps ``BN_EPS``, fp32 math, result
+    cast to ``dtype``."""
+
+    def __init__(self, c, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gamma = nn.Parameter(init.ones((c,)))
+        self.beta = nn.Parameter(init.zeros((c,)))
+        self.register_buffer("mean", init.zeros((c,)))
+        self.register_buffer("var", init.ones((c,)))
+
+    def forward(self, x):
+        return _bn_eval(self, x, self.gamma.view(-1, 1, 1),
+                        self.beta.view(-1, 1, 1))
+
+
+class ConditionalBatchNorm(nn.Module):
+    """Class-conditional eval BN: per-class gamma/beta tables."""
+
+    def __init__(self, c, num_classes, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.gamma = nn.Parameter(init.ones((num_classes, c)))
+        self.beta = nn.Parameter(init.zeros((num_classes, c)))
+        self.register_buffer("mean", init.zeros((c,)))
+        self.register_buffer("var", init.ones((c,)))
+
+    def forward(self, x, labels):
+        labels = labels.long()
+        return _bn_eval(self, x, self.gamma[labels][:, :, None, None],
+                        self.beta[labels][:, :, None, None])
+
+
+def _bn_eval(layer, x, gamma, beta):
+    if layer.training:
+        raise NotImplementedError(TRAIN_BN_ITEM)
+    mean = layer.mean.view(-1, 1, 1)
+    inv = torch.rsqrt(layer.var + BN_EPS).view(-1, 1, 1)
+    y = (x.float() - mean) * inv * gamma + beta
+    return y.to(layer.dtype)
+
+
+def leaky_relu(x, alpha=0.1):
+    return F.leaky_relu(x, negative_slope=alpha)
+
+
+def max_pool(x):
+    """2x2 stride-2 VALID max pool (the attention K/V downsample)."""
+    return F.max_pool2d(x, kernel_size=2, stride=2)

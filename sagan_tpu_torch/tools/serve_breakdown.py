@@ -1,0 +1,184 @@
+"""Where a served request's time goes, on one GPU.
+
+    python -m sagan_tpu_torch.tools.serve_breakdown [--reps 10]
+
+Serves the church64 generator (``example_configs/church64_attn.py`` at full
+width, bf16, seeded random weights with nonzero attention ``sigma``) from
+``GeneratorService(batch=64, ladder=(1, 8))`` behind ``make_server`` and,
+for each ladder rung n, reports medians over ``--reps`` runs of:
+
+* ``device_ms``: one generator forward through the serve function, between
+  two CUDA events (device time including the gaps the host leaves);
+* ``forward_ms``: the same forward on the host clock, to the end of its
+  device work, on this script's thread, and ``fresh_thread_ms``: the same
+  on a new thread for each call, as a forward on each HTTP handler's
+  thread would run (PyTorch keeps cuDNN's execution plans per thread,
+  which is why the service runs every forward on one inference thread);
+* ``sample_ms``: ``GeneratorService.sample(n)`` on the host clock (latents,
+  forward, uint8 fetch);
+* ``http_ms``: ``GET /sample?n=<n>&format=raw`` on the host clock;
+* from one ``torch.profiler`` trace of a forward: the summed kernel time,
+  the attention kernel's part of it, and the kernels by time; the
+  device's busy share is the summed kernel time over ``device_ms``.
+
+``GET /healthz`` (no model work) gives the HTTP round trip alone.  Prints
+one line per measurement and, last, one JSON object of all of them.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import threading
+import time
+import urllib.request
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..generate import build_serve_fn
+from ..models import get_generator
+from ..nn.attention import SelfAttention
+from ..serve import GeneratorService, make_server
+from ..utils.config import load_config_file, resolve_config
+from ..utils.device import resolve_device
+
+RUNGS = (1, 8, 64)
+
+
+def _get_ms(url: str) -> float:
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=120) as r:
+        r.read()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _device_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _fresh_thread_ms(fn) -> float:
+    """``_host_ms(fn)`` on a thread started for this one call."""
+    box = []
+    thread = threading.Thread(target=lambda: box.append(_host_ms(fn)))
+    thread.start()
+    thread.join()
+    if not box:
+        raise RuntimeError("the forward on a fresh thread failed")
+    return box[0]
+
+
+def _kernel_times(fn) -> tuple[float, dict]:
+    """(wall ms of one ``fn`` call, {kernel name: device ms}) from a
+    profiler trace."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = evt.self_device_time_total / 1e3
+    return wall, kernels
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    config = resolve_config(load_config_file(
+        "example_configs/church64_attn.py"))
+    config.update(img_size=64, num_classes=1)
+    gen = get_generator(config, rng=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for mod in gen.modules():
+            if isinstance(mod, SelfAttention):
+                mod.sigma.fill_(0.5)
+    gen.to(device)
+    svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
+                           batch=64, ladder=(1, 8))
+    serve = build_serve_fn(gen)
+    srv = make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+    result = {"card": card, "rungs": {}}
+    try:
+        healthz = [_get_ms(base + "/healthz") for _ in range(args.reps)]
+        result["healthz_ms"] = statistics.median(healthz)
+        print(f"/healthz median {result['healthz_ms']:.3f} ms ({card})")
+        for n in RUNGS:
+            z = torch.randn(n, config["z_dim"], device=device)
+            labels = torch.zeros(n, dtype=torch.long, device=device)
+            dev = [_device_ms(lambda: serve(z, labels))
+                   for _ in range(args.reps)]
+            forward = [_host_ms(lambda: serve(z, labels))
+                       for _ in range(args.reps)]
+            fresh = [_fresh_thread_ms(lambda: serve(z, labels))
+                     for _ in range(args.reps)]
+            host = []
+            for rep in range(args.reps):
+                t0 = time.perf_counter()
+                svc.sample(n, seed=rep, class_id=-1, truncation=0.0)
+                host.append((time.perf_counter() - t0) * 1e3)
+            http = [_get_ms(f"{base}/sample?n={n}&seed={rep}&format=raw")
+                    for rep in range(args.reps)]
+            wall, kernels = _kernel_times(lambda: serve(z, labels))
+            busy = sum(kernels.values())
+            attn = sum(v for k, v in kernels.items() if "attention_fwd" in k)
+            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+            row = {"device_ms": statistics.median(dev),
+                   "forward_ms": statistics.median(forward),
+                   "fresh_thread_ms": statistics.median(fresh),
+                   "sample_ms": statistics.median(host),
+                   "http_ms": statistics.median(http),
+                   "profiled_wall_ms": wall, "kernel_ms": busy,
+                   "busy_share": busy / statistics.median(dev),
+                   "attention_ms": attn,
+                   "kernels": len(kernels),
+                   "top": [[k[:60], v] for k, v in top]}
+            result["rungs"][n] = row
+            print(f"n={n}: device_ms {row['device_ms']:.3f} forward_ms "
+                  f"{row['forward_ms']:.3f} fresh_thread_ms "
+                  f"{row['fresh_thread_ms']:.3f} sample_ms "
+                  f"{row['sample_ms']:.3f} http_ms {row['http_ms']:.3f}; "
+                  f"kernels {busy:.3f} ms (busy {row['busy_share']:.1%} of "
+                  f"device_ms), attention {attn:.3f} ms; profiled forward "
+                  f"wall {wall:.3f} ms ({card})")
+            for name, ms in top:
+                print(f"    {ms:9.4f} ms  {name[:90]}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

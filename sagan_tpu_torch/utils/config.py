@@ -1,0 +1,79 @@
+"""Config loading: the ``--config_path example_configs/foo.py`` API, where
+the file defines a module-level dict named ``config``.
+
+Own copy of ``sagan_tpu/utils/config.py``; the device count comes from
+``torch.cuda.device_count()`` (the CPU counts as one device).
+"""
+
+from __future__ import annotations
+
+import runpy
+
+import torch
+
+
+def load_config_file(path: str) -> dict:
+    module = runpy.run_path(path)
+    config = module.get("config")
+    if config is None:
+        raise ValueError(f"{path} must define a module-level `config` dict")
+    return dict(config)
+
+
+DEFAULTS = {
+    "model": "vanilla",
+    "loss": "hinge_loss",
+    "update_ratio": 1,
+    "decay_rate": 1.0,
+    "use_attention": False,
+    "attn_dim_G": [],
+    "attn_dim_D": [],
+    "use_label": False,
+    "use_cond_bn": False,
+    "num_sample": 16,
+    "summary_step_freq": 100,
+    "data_size": -1,
+    "epoch": 100,
+    "seed": 0,
+    "compute_dtype": "bfloat16",
+    "fid_epoch_freq": 0,
+}
+
+
+REQUIRED_KEYS = ("data_path", "batch_size", "z_dim", "gf_dim", "df_dim",
+                 "lr_g", "lr_d")
+
+
+def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
+    """Fill defaults and derive global_batch_size / num_devices.
+
+    ``num_local_devices`` overrides the available-device count (tests);
+    by default it is the number of CUDA devices, or 1 without any.
+    """
+    cfg = dict(DEFAULTS)
+    cfg.update(config)
+    missing = [k for k in REQUIRED_KEYS if k not in cfg]
+    if missing:
+        raise ValueError(
+            f"config is missing required keys: {missing} "
+            f"(see example_configs/church64_attn.py for the full set)")
+    if cfg.get("sn_iters", 1) < 1:
+        raise ValueError(
+            f"sn_iters must be >= 1 (got {cfg['sn_iters']}): 0 iterations "
+            f"would leave sigma=0 and blow up every SN kernel")
+    available = (num_local_devices if num_local_devices is not None
+                 else max(1, torch.cuda.device_count()))
+    width = cfg.get("num_devices")
+    if not width:
+        gpus = cfg.get("gpu")
+        width = len(gpus) if gpus else available
+        width = min(width, available)
+    cfg["num_devices"] = width
+    mp = cfg.setdefault("model_parallel", 1)
+    if mp < 1 or width % mp:
+        raise ValueError(
+            f"model_parallel={mp} must divide num_devices={width}")
+    # per-device batch x data-parallel width; the model axis replicates
+    # the batch, it doesn't multiply it
+    cfg.setdefault("global_batch_size", cfg["batch_size"] * (width // mp))
+    return cfg

@@ -1,0 +1,43 @@
+"""The port stands alone: importing every module of ``sagan_tpu_torch``
+and ``chip_smoke`` loads neither JAX nor the JAX package, and needs no
+nvcc or card (kernels build at first use, not at import)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, pkgutil, sys
+import sagan_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sagan_tpu_torch.__path__,
+                                                "sagan_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                or m == "sagan_tpu" or m.startswith("sagan_tpu."))
+print(len(names), leaked)
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, leaked = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15
+    assert leaked == "[]"
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
