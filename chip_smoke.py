@@ -1,22 +1,45 @@
 """Smoke test of the PyTorch/CUDA port (``sagan_tpu_torch``) on one NVIDIA
 GPU: the quickest proof that the port starts, builds its kernels, agrees
-with its plain versions and serves.
+with its plain versions, serves and trains.
 
     python3 chip_smoke.py
 
 Phases, each printed as it ends:
   1. the card (``nvidia-smi``) and the build of every CUDA kernel from the
      sources in this checkout (``nvcc``, into ``build/kernels/``);
-  2. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, in bf16 and fp32, with times of the
-     kernel, the plain version and one PyTorch library call;
+  2. the attention forward (K1) against its plain PyTorch version on the
+     card, at G's sites at the serving batches and D's at the training
+     batches, in bf16 and fp32, with times of the kernel, the plain version
+     and one PyTorch library call, and every (dtype, d, c) instance at a
+     ragged shape;
   3. the full-width church64 generator from a seeded init (every attention
      ``sigma`` nonzero): fp32 on the card through the kernel against fp32
      on the CPU through the plain version, and bf16 on the card finite;
   4. serving: weights written by the port's npz writer, loaded by
      ``generate.load_generator_npz``, served over HTTP by ``serve``'s
      ``GeneratorService`` at batch 64 with ladder (1, 8); the kernel
-     launch counts are zeroed just before and read just after.
+     launch counts are zeroed just before and read just after;
+  5. the attention backward (K2) against its plain version at every
+     attention site of a church64 training step, bf16 and fp32, with
+     times (the library call is autograd through
+     ``scaled_dot_product_attention``), and every (dtype, d, c) instance
+     at a ragged shape;
+  6. one fp32 training step of the full-width church64 G and D (every
+     attention ``sigma`` nonzero) on the card against the same step on the
+     CPU, twice: with D's learning rate 0, losses and all per-variable
+     gradient norms agree and every attention theta/phi/g weight has a
+     nonzero gradient; with the config's learning rates, D's loss and
+     gradient norms (taken before D's update) agree, and so do G's and D's
+     parameters, buffers and the EMA after the step.  Each step launches
+     K1 8 times and K2 6 times;
+  7. training through the entry point (``python -m sagan_tpu_torch.main``
+     in-process): the church64 config in bf16 at batch 64 with
+     ``steps_per_call`` 8 on 64 px synthetic TFRecords written by the
+     port's own writer under ``build/smoke/``, 2 epochs, with per-epoch
+     imgs/s and ms/step and launch counts (8 K1 and 6 K2 per step, 2 K1
+     per sample-grid forward; zeroed just before, read just after); a
+     restart that restores the checkpoint and trains a third epoch; and
+     ``generate`` sampling the checkpoint's EMA generator.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -24,10 +47,13 @@ CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -40,21 +66,38 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sagan_tpu_torch import generate
+from sagan_tpu_torch import main as train_cli
 from sagan_tpu_torch.convert import export_generator_npz
+from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
 from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
-from sagan_tpu_torch.models import get_generator
+from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn.attention import SelfAttention
 from sagan_tpu_torch.ops import _build, cuda_attention
-from sagan_tpu_torch.ops.attention import attention_reference
+from sagan_tpu_torch.ops.attention import (attention_bwd_reference,
+                                           attention_reference)
 from sagan_tpu_torch.serve import GeneratorService, make_server
+from sagan_tpu_torch.train.optim import make_gan_optimizers
+from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
+                                           build_train_step)
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_configs" / "church64_attn.py"
 SEED = 0
 
-# (site, N, M, d, c) of the church64 generator's two attention sites
-SITES = (("64map", 4096, 1024, 2, 8), ("32map", 1024, 256, 4, 16))
+# (site, N, M, d, c, batches) of every attention site of a church64
+# training step: G's at B=64, D's at B=128 (fused real+fake D update) and
+# B=64 (G update)
+TRAIN_SITES = (("G 64map", 4096, 1024, 2, 8, (64,)),
+               ("G 32map", 1024, 256, 4, 16, (64,)),
+               ("D 8map", 64, 16, 8, 32, (128, 64)),
+               ("D 4map", 16, 4, 16, 64, (128, 64)))
+# the forward's calls held against its plain version: G's sites at the
+# serving batches 64 and 1, D's at the training batches
+FWD_CALLS = tuple((site, n, m, d, c, b)
+                  for site, n, m, d, c, batches in TRAIN_SITES
+                  for b in ((64, 1) if site.startswith("G") else batches))
 # kernel vs plain: max|kernel - plain| <= TOL * max(1, max|plain|).  bf16:
 # both round the output to bf16 (2^-8 relative) and the plain version also
 # rounds the probabilities to bf16; fp32: the kernel sums in another order
@@ -123,47 +166,46 @@ def attention_bound_ms(b, n, m, d, c, dtype) -> tuple[float, str]:
 
 
 def phase_kernels(card: str) -> dict:
-    """Kernel vs plain at both sites, B in (64, 1), bf16 and fp32.
+    """Kernel vs plain at every site (``FWD_CALLS``), bf16 and fp32.
     Returns the row of the heaviest main-path call (64 map, B=64, bf16)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     head = None
-    for b in (64, 1):
-        for site, n, m, d, c in SITES:
-            for dtype in (torch.bfloat16, torch.float32):
-                q = torch.randn(b, n, d, device="cuda", generator=gen)
-                k = torch.randn(b, m, d, device="cuda", generator=gen)
-                v = torch.randn(b, m, c, device="cuda", generator=gen)
-                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-                out = cuda_attention.attention_fused(q, k, v)
-                ref = attention_reference(q, k, v)
-                lib = F.scaled_dot_product_attention(q, k, v, scale=1.0)
-                torch.cuda.synchronize()
-                scale = ref.float().abs().max().item()
-                err = (out.float() - ref.float()).abs().max().item()
-                lib_err = (lib.float() - ref.float()).abs().max().item()
-                ok = err <= TOL[dtype] * max(1.0, scale)
-                ms = cuda_ms(lambda: cuda_attention.attention_fused(q, k, v))
-                plain_ms = cuda_ms(lambda: attention_reference(q, k, v))
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=1.0))
-                bound_ms, bound_by = attention_bound_ms(b, n, m, d, c, dtype)
-                name = str(dtype).removeprefix("torch.")
-                print(f"phase 2 kernel attention_fwd {site} B={b} N={n} "
-                      f"M={m} d={d} c={c} {name}: max_abs_err {err:.3g} "
-                      f"max_rel_err {err / scale:.3g} (tol {TOL[dtype]:g} x "
-                      f"max(1, max|plain|={scale:.3g})) "
-                      f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms "
-                      f"{plain_ms:.4f} library_ms {lib_ms:.4f} (sdpa err "
-                      f"{lib_err:.3g}) bound_ms {bound_ms:.3g} ({bound_by}) "
-                      f"on {card}", flush=True)
-                require(ok, f"attention_fwd disagrees with the plain "
-                            f"version at {site} B={b} {name}")
-                if head is None:
-                    head = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": lib_ms,
-                            "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
-                                  f"{name}"}
+    for site, n, m, d, c, b in FWD_CALLS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, n, d, device="cuda", generator=gen)
+            k = torch.randn(b, m, d, device="cuda", generator=gen)
+            v = torch.randn(b, m, c, device="cuda", generator=gen)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            out = cuda_attention.attention_fused(q, k, v)
+            ref = attention_reference(q, k, v)
+            lib = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (out.float() - ref.float()).abs().max().item()
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            ok = err <= TOL[dtype] * max(1.0, scale)
+            ms = cuda_ms(lambda: cuda_attention.attention_fused(q, k, v))
+            plain_ms = cuda_ms(lambda: attention_reference(q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0))
+            bound_ms, bound_by = attention_bound_ms(b, n, m, d, c, dtype)
+            name = str(dtype).removeprefix("torch.")
+            print(f"phase 2 kernel attention_fwd {site} B={b} N={n} "
+                  f"M={m} d={d} c={c} {name}: max_abs_err {err:.3g} "
+                  f"max_rel_err {err / scale:.3g} (tol {TOL[dtype]:g} x "
+                  f"max(1, max|plain|={scale:.3g})) "
+                  f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms "
+                  f"{plain_ms:.4f} library_ms {lib_ms:.4f} (sdpa err "
+                  f"{lib_err:.3g}) bound_ms {bound_ms:.3g} ({bound_by}) "
+                  f"on {card}", flush=True)
+            require(ok, f"attention_fwd disagrees with the plain "
+                        f"version at {site} B={b} {name}")
+            if head is None:
+                head = {"max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
+                              f"{name}"}
     return head
 
 
@@ -188,6 +230,110 @@ def phase_all_widths() -> None:
                 require(err <= TOL[dtype], f"attention_fwd d={d} c={c} "
                         f"{dtype}: {err} > {TOL[dtype]}")
     print(f"phase 2 kernel attention_fwd, all {count} (dtype, d, c) "
+          f"instances at B=3 N=100 M=37: worst error {worst:.3f} of its "
+          f"tolerance", flush=True)
+
+
+# K2 vs its plain backward, per output: max|kernel - plain| <= BWD_TOL x
+# max|plain|.  bf16: both round the outputs to bf16 (2^-9 relative) and
+# the plain version also rounds dL, E and g/l to bf16 on the way, as the
+# TPU kernel does; fp32: the kernel sums in another order, takes dq in one
+# rescaled pass and uses the SFU exponential (~2 ulp)
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def attention_bwd_bound_ms(b, n, m, d, c, dtype) -> tuple[float, str]:
+    """Least time for one backward call: q, k, v, g read once and dq, dk,
+    dv written once over the HBM rate, or the 2·B·N·M·(3d+2c) FLOPs the
+    JAX package declares for ``_bwd_call`` over the operand type's peak,
+    whichever is larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * b * (2 * n * d + 2 * m * d + 2 * m * c + n * c)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b * n * m * (3 * d + 2 * c) / PEAK_FLOPS[dtype] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def _bwd_inputs(gen, b, n, m, d, c, dtype):
+    shapes = ((b, n, d), (b, m, d), (b, m, c), (b, n, c))
+    return [torch.randn(s, device="cuda", generator=gen).to(dtype)
+            for s in shapes]
+
+
+def _bwd_errors(q, k, v, g, dtype) -> tuple[float, float]:
+    """(worst error over dq, dk, dv as a share of its tolerance, worst
+    absolute error) of K2 against the plain backward."""
+    got = cuda_attention.attention_bwd_fused(q, k, v, g)
+    want = attention_bwd_reference(q, k, v, g)
+    torch.cuda.synchronize()
+    share, worst = 0.0, 0.0
+    for x, y in zip(got, want):
+        require(x.dtype == y.dtype and x.shape == y.shape,
+                f"attention_bwd output {x.dtype} {tuple(x.shape)} vs plain "
+                f"{y.dtype} {tuple(y.shape)}")
+        err = (x.float() - y.float()).abs().max().item()
+        scale = max(y.float().abs().max().item(), 1e-30)
+        share = max(share, err / (BWD_TOL[dtype] * scale))
+        worst = max(worst, err)
+    return share, worst
+
+
+def phase_bwd_kernels(card: str) -> dict:
+    """K2 vs its plain backward at every site of a training step, bf16
+    and fp32, with times.  Returns the row of the heaviest main-path call
+    (G 64 map, B=64, bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    head = None
+    for site, n, m, d, c, batches in TRAIN_SITES:
+        for b in batches:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
+                share, err = _bwd_errors(q, k, v, g, dtype)
+                ms = cuda_ms(lambda: cuda_attention.attention_bwd_fused(
+                    q, k, v, g))
+                plain_ms = cuda_ms(lambda: attention_bwd_reference(
+                    q, k, v, g))
+                qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+                out = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qs, ks, vs), g, retain_graph=True))
+                bound_ms, bound_by = attention_bwd_bound_ms(b, n, m, d, c,
+                                                            dtype)
+                name = str(dtype).removeprefix("torch.")
+                print(f"phase 5 kernel attention_bwd {site} B={b} N={n} "
+                      f"M={m} d={d} c={c} {name}: max_abs_err {err:.3g}, "
+                      f"worst {share:.3f} of tol {BWD_TOL[dtype]:g} x "
+                      f"max|plain| {'ok' if share <= 1 else 'FAIL'}; ms "
+                      f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                      f"{lib_ms:.4f} (autograd through sdpa) bound_ms "
+                      f"{bound_ms:.3g} ({bound_by}) on {card}", flush=True)
+                require(share <= 1, f"attention_bwd disagrees with the "
+                                    f"plain backward at {site} B={b} {name}")
+                if head is None:
+                    head = {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": lib_ms,
+                            "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
+                                  f"{name}"}
+    return head
+
+
+def phase_bwd_all_widths() -> None:
+    """Every (dtype, d, c) instance of K2 against the plain backward at a
+    small ragged shape (N, M not multiples of any tile)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst, count = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in cuda_attention.SUPPORTED_D:
+            for c in cuda_attention.SUPPORTED_C:
+                q, k, v, g = _bwd_inputs(gen, 3, 100, 37, d, c, dtype)
+                share, _ = _bwd_errors(q, k, v, g, dtype)
+                worst = max(worst, share)
+                count += 1
+                require(share <= 1, f"attention_bwd d={d} c={c} {dtype}: "
+                                    f"{share:.3f} of its tolerance")
+    print(f"phase 5 kernel attention_bwd, all {count} (dtype, d, c) "
           f"instances at B=3 N=100 M=37: worst error {worst:.3f} of its "
           f"tolerance", flush=True)
 
@@ -325,6 +471,286 @@ def phase_serve(gen32, card: str) -> int:
     return launches
 
 
+# one fp32 step of the full-width church64 G and D, card vs CPU: every
+# gradient norm within STEP_RTOL of the CPU's (cuDNN and the CPU sum the
+# convolutions in other orders, K2 takes dq in one rescaled pass; errors
+# compound through G, D and the loss), or within STEP_ATOL where a norm is
+# ~0 analytically (phi's bias: the softmax ignores a per-query constant);
+# the losses, means of O(1) scores (G's near 0), within STEP_LOSS_ATOL.
+# G's loss and gradients are held so only in a step with D's learning rate
+# 0: Adam with beta1 = 0 moves every parameter by +-lr on its first update,
+# so an element whose gradient is ~0 lands 2 lr_d apart on the two
+# devices, and G's gradient, taken through the updated D, then differed by
+# up to 0.5 % (measured).  In the step at the config's learning rates the
+# parameters, buffers and EMA after the step are held within
+# 3 lr_d (2 lr of sign noise, lr_g < lr_d) with under
+# 1 % of their elements beyond 1e-5, as the CPU parity test against JAX
+STEP_BATCH = 16
+STEP_RTOL = 1e-3
+STEP_ATOL = 1e-6
+STEP_LOSS_ATOL = 1e-4
+STEP_KEYS = ("G_grad_norm", "D_grad_norm")
+# synthetic 64 px records of the entry-point run: 32 steps an epoch at
+# batch 64, 4 calls of steps_per_call 8
+SMOKE_RECORDS = 2048
+
+
+def _church64_nets(config, seed):
+    """Seeded full-width G and D (CPU) with every attention sigma
+    nonzero, so the attention weights get a gradient."""
+    gen = get_generator(config, rng=torch.Generator().manual_seed(seed))
+    disc = get_discriminator(config,
+                             rng=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        for i, mod in enumerate(m for net in (gen, disc)
+                                for m in net.modules()
+                                if isinstance(m, SelfAttention)):
+            mod.sigma.fill_(0.5 + 0.25 * i)
+    return gen, disc
+
+
+def _one_step(config, gen, disc, device, images, labels, latents):
+    gen, disc = copy.deepcopy(gen).to(device), copy.deepcopy(disc).to(device)
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+    state = TrainState(gen, disc, opt_g, opt_d, 0,
+                       {n: p.detach().clone()
+                        for n, p in gen.named_parameters()})
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    moved = [{"flip": None, "g": tuple(t.to(device) for t in lat["g"]),
+              "d": [tuple(t.to(device) for t in zl) for zl in lat["d"]]}
+             for lat in latents]
+    cuda_attention.LAUNCHES = cuda_attention.BWD_LAUNCHES = 0
+    metrics = step(state, images.to(device), labels.to(device), moved)
+    launches = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+    after = {f"G/{k}": v for k, v in gen.state_dict().items()}
+    after.update({f"D/{k}": v for k, v in disc.state_dict().items()})
+    after.update({f"EMA/{k}": v for k, v in state.ema.items()})
+    return ({k: v.detach().cpu() for k, v in metrics.items()}, step,
+            {k: v.detach().cpu() for k, v in after.items()}, launches)
+
+
+def _state_errors(got: dict, want: dict, atol: float) -> tuple:
+    """(largest |card - cpu|, elements beyond 1e-5, elements, names beyond
+    ``atol``) over two states after a step."""
+    require(got.keys() == want.keys(), "the states hold other tensors")
+    worst, off, total, bad = 0.0, 0, 0, []
+    for name, y in want.items():
+        err = (got[name].double() - y.double()).abs()
+        if err.numel() and err.max().item() > atol:
+            bad.append(f"{name} {err.max().item():.3g}")
+        worst = max([worst] + ([err.max().item()] if err.numel() else []))
+        off += int((err > 1e-5).sum())
+        total += y.numel()
+    return worst, off, total, bad
+
+
+def phase_train_step(card: str) -> None:
+    """One fp32 training step on the card against the CPU, from the same
+    seeded nets, images and latents: with D frozen, then at the config's
+    learning rates."""
+    full = church64_config("float32")
+    config = dict(full, lr_d=0.0)
+    gen, disc = _church64_nets(config, SEED + 10)
+    rs = np.random.RandomState(SEED)
+    b = STEP_BATCH
+    images = torch.from_numpy(rs.randint(0, 256, (1, b, 64, 64, 3))
+                              .astype(np.uint8))
+    labels = torch.zeros(1, b, dtype=torch.int32)
+    rng = torch.Generator().manual_seed(SEED + 11)
+
+    def draw():
+        return (torch.randn(b, config["z_dim"], generator=rng),
+                torch.zeros(b, dtype=torch.long))
+
+    latents = [{"flip": None, "d": [draw()], "g": draw()}]
+    want, step, _, _ = _one_step(config, gen, disc, "cpu", images, labels,
+                                 latents)
+    got, _, _, launches = _one_step(config, gen, disc, "cuda", images,
+                                    labels, latents)
+
+    def close(x, y):
+        return abs(x - y) <= STEP_RTOL * abs(y) + STEP_ATOL
+
+    loss_err = max(abs(float(got[k]) - float(want[k]))
+                   for k in ("G_loss", "D_loss"))
+    worst = max(abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+                for k in STEP_KEYS)
+    bad = [k for k in STEP_KEYS if not close(float(got[k]), float(want[k]))]
+    if loss_err > STEP_LOSS_ATOL:
+        bad.append(f"losses {loss_err:.3g} apart")
+    attn = {}
+    for key, names in (("G_grad_norms", step.g_names),
+                       ("D_grad_norms", step.d_names)):
+        for name, x, y in zip(names, got[key].tolist(), want[key].tolist()):
+            if not close(x, y):
+                bad.append(f"{key} {name}: card {x:.6g} cpu {y:.6g}")
+            if re.fullmatch(r"attn\d+\.(theta|phi|g)\.w", name):
+                attn[name] = x
+    print(f"phase 6 train step fp32 B={b} card vs cpu: G_loss "
+          f"{float(got['G_loss']):.6f} ({float(want['G_loss']):.6f}) D_loss "
+          f"{float(got['D_loss']):.6f} ({float(want['D_loss']):.6f}), "
+          f"max abs err {loss_err:.3g} (tol {STEP_LOSS_ATOL:g}); worst rel "
+          f"err of the global gradient norms {worst:.3g}; "
+          f"{len(step.g_names) + len(step.d_names)} per-variable gradient "
+          f"norms within rtol {STEP_RTOL:g} (+{STEP_ATOL:g}): "
+          f"{'all' if not bad else 'NOT ' + str(bad[:4])}; attention "
+          f"theta/phi/g gradient norms min {min(attn.values()):.3g} over "
+          f"{len(attn)} weights; launches K1 {launches[0]} K2 {launches[1]} "
+          f"on {card}", flush=True)
+    require(not bad, f"training step on the card disagrees with the CPU: "
+                     f"{bad[:8]}")
+    require(len(attn) == 12 and min(attn.values()) > 1e-6,
+            f"attention weights without a gradient: {attn}")
+    require(launches == (8, 6), f"one training step launched K1/K2 "
+                                f"{launches}, expected (8, 6)")
+
+    # the config's learning rates: what comes before D's update is held
+    # as above, the state after the step within 3 lr_d
+    want, _, want_state, _ = _one_step(full, gen, disc, "cpu", images,
+                                       labels, latents)
+    got, _, got_state, launches = _one_step(full, gen, disc, "cuda", images,
+                                            labels, latents)
+    atol = 3 * full["lr_d"]
+    bad = [] if close(float(got["D_grad_norm"]), float(want["D_grad_norm"])) \
+        else ["D_grad_norm"]
+    bad += [f"D_grad_norms {name}"
+            for name, x, y in zip(step.d_names, got["D_grad_norms"].tolist(),
+                                  want["D_grad_norms"].tolist())
+            if not close(x, y)]
+    loss_err = abs(float(got["D_loss"]) - float(want["D_loss"]))
+    if loss_err > STEP_LOSS_ATOL:
+        bad.append(f"D_loss {loss_err:.3g} apart")
+    worst, off, total, far = _state_errors(got_state, want_state, atol)
+    print(f"phase 6 train step fp32 B={b} at lr_g {full['lr_g']:g} lr_d "
+          f"{full['lr_d']:g}, card vs cpu: D_loss {float(got['D_loss']):.6f} "
+          f"({float(want['D_loss']):.6f}); D_grad_norm and "
+          f"{len(step.d_names)} per-variable D gradient norms within rtol "
+          f"{STEP_RTOL:g} (+{STEP_ATOL:g}): "
+          f"{'all' if not bad else 'NOT ' + str(bad[:4])}; G, D and EMA "
+          f"state after the step ({len(got_state)} tensors, {total} "
+          f"elements): max abs err {worst:.3g} (tol {atol:g}), {off} "
+          f"elements beyond 1e-5 (tol 1 %); launches K1 {launches[0]} K2 "
+          f"{launches[1]} on {card}", flush=True)
+    require(not bad, f"D's step on the card disagrees with the CPU: "
+                     f"{bad[:8]}")
+    require(not far and off <= 0.01 * total,
+            f"the state after a step on the card disagrees with the CPU: "
+            f"{far[:8]}, {off} of {total} elements beyond 1e-5")
+    require(launches == (8, 6), f"one training step launched K1/K2 "
+                                f"{launches}, expected (8, 6)")
+
+
+def _run_cli(config_file: Path, card: str, label: str) -> tuple:
+    """``python -m sagan_tpu_torch.main --config_path config_file`` in
+    this process, its output shown and kept.  Returns (trainer, output,
+    K1 launches, K2 launches, sample-grid forwards), the launch counts
+    zeroed just before and read just after."""
+    grids = []
+    sample = Trainer.sample_images
+
+    def counted(self):
+        grids.append(1)
+        return sample(self)
+
+    Trainer.sample_images = counted
+    out = io.StringIO()
+    try:
+        cuda_attention.LAUNCHES = cuda_attention.BWD_LAUNCHES = 0
+        with contextlib.redirect_stdout(out):
+            trainer = train_cli.main(["--config_path", str(config_file),
+                                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+    finally:
+        Trainer.sample_images = sample
+    text = out.getvalue()
+    epochs = re.findall(r"^epoch (\d+): G_loss=(\S+) D_loss=(\S+) .*"
+                        r"\(([\d.]+) imgs/s, ([\d.]+) ms/step\)$", text,
+                        re.MULTILINE)
+    for line in text.splitlines():
+        if line.startswith(("epoch ", "Restored", "Initializing",
+                            "total steps", "resuming")):
+            print(f"phase 7 {label}: {line}", flush=True)
+    for epoch, g_loss, d_loss, imgs_s, ms_step in epochs:
+        print(f"phase 7 {label} epoch {epoch}: {imgs_s} imgs/s, {ms_step} "
+              f"ms/step (host clock over the epoch, loader included) on "
+              f"{card}", flush=True)
+        require(math.isfinite(float(g_loss)) and math.isfinite(float(d_loss)),
+                f"epoch {epoch} losses are not finite: {g_loss} {d_loss}")
+    return trainer, text, launches[0], launches[1], len(grids), len(epochs)
+
+
+def phase_train_cli(card: str) -> tuple[int, int]:
+    """Train the church64 config through the entry point, restart it, and
+    sample its checkpoint.  Returns the (K1, K2) launches of the first
+    run."""
+    smoke = ROOT / "build" / "smoke"
+    data = smoke / "church64_synthetic"
+    for sub in ("ckpt", "logs", "images", "samples"):
+        shutil.rmtree(smoke / sub, ignore_errors=True)
+    if not (data / "metadata.pickle").exists():
+        t0 = time.perf_counter()
+        make_synthetic_dataset(str(data), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED)
+        print(f"phase 7 data: {SMOKE_RECORDS} synthetic 64 px records in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    files = {}
+    for epochs in (2, 3):
+        files[epochs] = smoke / f"church64_smoke_e{epochs}.py"
+        files[epochs].write_text(
+            f"import runpy\n"
+            f"config = dict(runpy.run_path({str(CONFIG)!r})['config'])\n"
+            f"config.update(data_path={str(data)!r}, epoch={epochs}, "
+            f"ckpt_dir={str(smoke / 'ckpt')!r}, "
+            f"log_dir={str(smoke / 'logs')!r}, "
+            f"img_dir={str(smoke / 'images')!r}, print_variables=False)\n")
+
+    results, first_step = {}, 0
+    for label, epochs in (("run", 2), ("restart", 3)):
+        trainer, text, k1, k2, grids, n_epochs = _run_cli(files[epochs],
+                                                          card, label)
+        steps = trainer.global_step() - first_step
+        print(f"phase 7 {label}: {steps} steps, {grids} sample-grid "
+              f"forwards; launches K1 {k1} (expected {8 * steps + 2 * grids})"
+              f" K2 {k2} (expected {6 * steps})", flush=True)
+        require(n_epochs == epochs - first_step // trainer.steps_per_epoch
+                and trainer.global_step() == epochs * trainer.steps_per_epoch,
+                f"{label}: {n_epochs} epochs, step {trainer.global_step()}")
+        require((k1, k2) == (8 * steps + 2 * grids, 6 * steps),
+                f"{label}: launches K1 {k1} K2 {k2} for {steps} steps and "
+                f"{grids} grids")
+        results[label] = (k1, k2)
+        if first_step:
+            require(f"Restored from checkpoint at step {first_step}" in text,
+                    "the restart did not restore the checkpoint")
+        else:
+            require("Initializing from scratch." in text,
+                    "the first run did not start from scratch")
+        first_step = trainer.global_step()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        written = generate.main([
+            "--config_path", str(files[3]), "--device", "cuda", "--num",
+            "16", "--format", "npz", "--out", str(smoke / "samples")])
+        gen = generate.restore_generator(
+            resolve_config(load_config_file(str(files[3]))), "cuda")
+    with torch.inference_mode():
+        z = torch.randn(16, 128, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+        x = gen(z, torch.zeros(16, dtype=torch.long, device="cuda")).float()
+    imgs = np.load(written[0])["images"]
+    ema = "(EMA generator)" in out.getvalue()
+    print(f"phase 7 generate from the checkpoint: {out.getvalue().strip()}; "
+          f"{imgs.shape} {imgs.dtype} std {imgs.std():.2f}; float images "
+          f"finite {bool(torch.isfinite(x).all())}", flush=True)
+    require(ema and imgs.shape == (16, 64, 64, 3) and imgs.std() > 0
+            and bool(torch.isfinite(x).all()) and x.abs().max() <= 1,
+            "generate did not restore finite EMA images")
+    return results["run"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -338,11 +764,21 @@ def main() -> int:
     head = phase_kernels(card)
     phase_all_widths()
     gen32 = phase_generator(card)
-    launches = phase_serve(gen32, card)
+    phase_serve(gen32, card)
+    bwd_head = phase_bwd_kernels(card)
+    phase_bwd_all_widths()
+    phase_train_step(card)
+    fwd_launches, bwd_launches = phase_train_cli(card)
+    # launches: the training entry point's run of phase 7, this slice's
+    # main path (phase 4 checks the serving path's own count)
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": "sagan_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": "sagan_tpu/ops/pallas_attention.py:157",
-                "launches": launches, **head}]
+                "launches": fwd_launches, **head},
+               {"name": "attention_bwd", "route": "cuda",
+                "source": "sagan_tpu_torch/csrc/attention_bwd.cu",
+                "replaces": "sagan_tpu/ops/pallas_attention.py:207",
+                "launches": bwd_launches, **bwd_head}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
-"""Offline sampling CLI: exported generator weights -> images, on the card.
+"""Offline sampling CLI: a training checkpoint or exported generator
+weights -> images, on the card.
 
 Port of ``sagan_tpu/generate.py``:
 
     python -m sagan_tpu_torch.generate --config_path example_configs/foo.py \\
-        --weights g.npz [--num 64] [--batch 64] [--seed 0] \\
+        [--weights g.npz] [--num 64] [--batch 64] [--seed 0] \\
         [--truncation 0.5] [--class_id 207] [--out samples/foo] \\
         [--format png|npz|both] [--export copy.npz] [--device cuda|cpu]
 
-``--weights`` is the JAX package's export (``python -m sagan_tpu.generate
---export g.npz``) or the port's own (:func:`convert.export_generator_npz`).
-Restoring a training checkpoint comes with the training slice.
+Without ``--weights`` the generator comes from the newest readable port
+checkpoint in the config's ``ckpt_dir`` (``python -m sagan_tpu_torch.main``
+writes them): its EMA parameters when the run tracked them, with the live
+SN and BN buffers.  ``--weights`` is the JAX package's export (``python -m
+sagan_tpu.generate --export g.npz``) or the port's own
+(:func:`convert.export_generator_npz`).
 
 ``--truncation t`` draws z from a standard normal truncated to [-t, t];
 ``--class_id`` pins the class of a conditional model (default: random
@@ -25,16 +29,12 @@ import os
 import numpy as np
 import torch
 
-from .convert import export_generator_npz, generator_state_from_jax
+from .convert import export_generator_npz, state_from_jax
 from .models import get_generator
+from .train.checkpoint import CheckpointManager
 from .utils.config import load_config_file, resolve_config
 from .utils.device import resolve_device
 from .utils.images import save_image_grid
-
-CHECKPOINT_ITEM = ("restoring a training checkpoint comes with the training "
-                   "slice (ROADMAP.md Queue 1 item 6); pass --weights g.npz, "
-                   "a generator exported by `python -m sagan_tpu.generate "
-                   "--export g.npz`")
 
 
 def load_metadata(data_path: str) -> dict:
@@ -73,8 +73,43 @@ def load_generator_npz(config: dict, path: str, device="cuda"):
     in eval mode on ``device``."""
     gen = get_generator(config)
     with np.load(path) as data:
-        gen.load_state_dict(generator_state_from_jax(data, gen))
+        gen.load_state_dict(state_from_jax(data, gen))
     return gen.to(resolve_device(device))
+
+
+def restore_generator(config: dict, device="cuda"):
+    """The generator of the newest readable checkpoint in
+    ``config['ckpt_dir']``, in eval mode on ``device``: the EMA parameters
+    when the run tracked them (else the live ones) with the live SN and BN
+    buffers.  Fills ``img_size`` / ``num_classes`` missing from ``config``
+    from the checkpoint."""
+    ckpt_dir = config.get("ckpt_dir")
+    ckpt = (CheckpointManager(ckpt_dir).restore_latest()
+            if ckpt_dir and os.path.isdir(ckpt_dir) else None)
+    if ckpt is None:
+        raise FileNotFoundError(
+            f"no checkpoint under ckpt_dir={ckpt_dir!r}: train first "
+            f"(python -m sagan_tpu_torch.main --config_path ...) or pass "
+            f"--weights g.npz")
+    for k, v in ckpt["meta"].items():
+        config.setdefault(k, v)
+    gen = get_generator(config)
+    state = dict(ckpt["gen"])
+    if ckpt["ema"] is not None:
+        state.update(ckpt["ema"])
+    gen.load_state_dict(state)
+    print(f"restored step {ckpt['step']} from {ckpt_dir}"
+          + (" (EMA generator)" if ckpt["ema"] is not None else ""))
+    return gen.to(resolve_device(device))
+
+
+def load_generator(config: dict, weights: str | None, device="cuda"):
+    """The eval generator of ``weights`` (an exported npz) or, without
+    them, of the config's newest checkpoint, on ``device``."""
+    if weights:
+        fill_geometry(config, weights)
+        return load_generator_npz(config, weights, device)
+    return restore_generator(config, device)
 
 
 def build_serve_fn(gen):
@@ -146,7 +181,8 @@ def main(argv=None):
     ap.add_argument("--format", choices=("png", "npz", "both"),
                     default="png")
     ap.add_argument("--weights", default=None,
-                    help="exported generator .npz")
+                    help="exported generator .npz (default: the newest "
+                         "checkpoint in the config's ckpt_dir)")
     ap.add_argument("--export", default=None, metavar="G_NPZ",
                     help="write the loaded generator to a standalone .npz "
                          "and exit")
@@ -157,16 +193,13 @@ def main(argv=None):
     device = resolve_device(args.device)
     # fp32 convolutions stay fp32, as the JAX layers ask for HIGHEST
     torch.backends.cudnn.allow_tf32 = False
-    if not args.weights:
-        raise NotImplementedError(CHECKPOINT_ITEM)
     config = resolve_config(load_config_file(args.config_path))
-    fill_geometry(config, args.weights)
+    gen = load_generator(config, args.weights, device)
     num_classes = max(1, config.get("num_classes", 1))
     if args.class_id >= num_classes:
         raise SystemExit(
             f"--class_id {args.class_id} out of range for "
             f"num_classes={num_classes}")
-    gen = load_generator_npz(config, args.weights, device)
     if args.export:
         path = export_generator_npz(gen, args.export, config=config)
         print(f"exported generator weights: {path}")

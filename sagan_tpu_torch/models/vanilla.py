@@ -1,11 +1,19 @@
-"""'vanilla' SAGAN generator, port of ``sagan_tpu/models/vanilla.py``
-(the Discriminator comes with the training slice).
+"""'vanilla' SAGAN generator and discriminator, port of
+``sagan_tpu/models/vanilla.py``.
 
-  z[B, z_dim] (+ one-hot label) -> SN-Dense -> [B, 4, 4, 16 gf] (NHWC, as
+G: z[B, z_dim] (+ one-hot label) -> SN-Dense -> [B, 4, 4, 16 gf] (NHWC, as
   the JAX stem reshapes it) -> NCHW -> log2(img/4) stages of
   SN-ConvT 4x4/2 (no bias) -> (conditional) BN -> LeakyReLU 0.1
   [-> self-attention where the side is in attn_dim_G] -> Conv 4x4 ->
   tanh in fp32 -> [B, 3, S, S] in the compute dtype.
+D: [B, 3, S, S] -> log2(img/4) stages of SN-Conv 4x4/2 -> LeakyReLU 0.1
+  [-> self-attention where the side is in attn_dim_D], channels df·2^p
+  ascending; conditional head = projection (sum-pool -> SN-Dense(1) +
+  <feat, SN-Embed(label)>) [B, 1], unconditional head = SN-Conv 4x4 'SAME'
+  to one channel [B, 1, 4, 4] (JAX: [B, 4, 4, 1]); fp32 out.
+
+G is built in eval mode, the mode serving wants; the trainer switches it
+to training mode.  D is built in training mode, as ``nn.Module``s are.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from torch import nn
 
 from ..nn.attention import SelfAttention
 from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
-                         Dense, leaky_relu)
+                         Dense, Embedding, global_sum_pool, leaky_relu)
 
 
 def _power(img_size: int) -> int:
@@ -29,9 +37,16 @@ def _power(img_size: int) -> int:
     return p
 
 
+def _attention(config, c, sn_iters, dtype, rng) -> SelfAttention:
+    return SelfAttention(
+        c, sn_iters=sn_iters, downsample=config.get("attn_downsample", True),
+        dtype=dtype, use_pallas=config.get("use_pallas"),
+        qk_dim=config.get("attn_qk_dim"), v_dim=config.get("attn_v_dim"),
+        rng=rng)
+
+
 class Generator(nn.Module):
-    """Eval-mode generator; built in eval mode, since train-mode BatchNorm
-    is not ported yet.  ``rng`` (a CPU ``torch.Generator``) draws the
+    """Built in eval mode.  ``rng`` (a CPU ``torch.Generator``) draws the
     initial weights."""
 
     def __init__(self, config, rng: torch.Generator | None = None):
@@ -67,12 +82,7 @@ class Generator(nn.Module):
             self.add_module(f"up{side}_bn", bn)
             attn = None
             if side in attn_at:
-                attn = SelfAttention(
-                    cout, sn_iters=sn_iters,
-                    downsample=c.get("attn_downsample", True),
-                    dtype=self.dtype, use_pallas=c.get("use_pallas"),
-                    qk_dim=c.get("attn_qk_dim"), v_dim=c.get("attn_v_dim"),
-                    rng=rng)
+                attn = _attention(c, cout, sn_iters, self.dtype, rng)
                 self.add_module(f"attn{side}", attn)
             self.blocks.append((convt, bn, attn))
             cin = cout
@@ -95,3 +105,61 @@ class Generator(nn.Module):
                 x = attn(x)
         x = self.to_rgb(x)
         return torch.tanh(x.float()).to(self.dtype)
+
+
+class Discriminator(nn.Module):
+    """``rng`` (a CPU ``torch.Generator``) draws the initial weights.
+    There is no batch-coupled layer, so a real and a fake batch may share
+    one forward."""
+
+    def __init__(self, config, rng: torch.Generator | None = None):
+        super().__init__()
+        c = config
+        self.img_size = c["img_size"]
+        self.use_label = c.get("use_label", False)
+        self.num_classes = c.get("num_classes", 1)
+        self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        df = c["df_dim"]
+        sn_iters = c.get("sn_iters", 1)
+        attn_at = set(c.get("attn_dim_D", [])) if c.get("use_attention") \
+            else set()
+
+        self.blocks = []  # (conv, attn or None), registered below
+        cin, side = 3, self.img_size
+        for p in range(_power(self.img_size)):
+            cout = df * 2 ** p
+            side //= 2
+            conv = Conv(cin, cout, kernel=4, stride=2, sn=True,
+                        sn_iters=sn_iters, dtype=self.dtype, rng=rng)
+            self.add_module(f"down{side}_conv", conv)
+            attn = None
+            if side in attn_at:
+                attn = _attention(c, cout, sn_iters, self.dtype, rng)
+                self.add_module(f"attn{side}", attn)
+            self.blocks.append((conv, attn))
+            cin = cout
+        if self.use_label:
+            self.head = Dense(cin, 1, sn=True, sn_iters=sn_iters,
+                              dtype=self.dtype, rng=rng)
+            self.embed = Embedding(self.num_classes, cin, sn=True,
+                                   sn_iters=sn_iters, dtype=self.dtype,
+                                   rng=rng)
+        else:
+            self.head_conv = Conv(cin, 1, kernel=4, stride=1, sn=True,
+                                  sn_iters=sn_iters, dtype=self.dtype,
+                                  rng=rng)
+
+    def forward(self, img, labels=None):
+        x = img.to(self.dtype)
+        for conv, attn in self.blocks:
+            x = leaky_relu(conv(x), 0.1)
+            if attn is not None:
+                x = attn(x)
+        if self.use_label:
+            # projection discriminator (Miyato & Koyama 2018)
+            feat = global_sum_pool(x)                       # [B, C] fp32
+            logit = self.head(feat)                         # [B, 1]
+            emb = self.embed(labels).float()
+            proj = (feat * emb).sum(dim=1, keepdim=True)
+            return logit.float() + proj
+        return self.head_conv(x).float()                    # [B, 1, 4, 4]

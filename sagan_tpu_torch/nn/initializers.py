@@ -33,6 +33,12 @@ def glorot_uniform(shape, rng: torch.Generator | None = None) -> torch.Tensor:
     return (torch.rand(shape, generator=rng) * 2.0 - 1.0) * limit
 
 
+def uniform(shape, rng: torch.Generator | None = None,
+            scale: float = 0.05) -> torch.Tensor:
+    """U(-scale, scale): Keras's embedding default."""
+    return (torch.rand(tuple(shape), generator=rng) * 2.0 - 1.0) * scale
+
+
 def l2_normal(shape, rng: torch.Generator | None = None) -> torch.Tensor:
     """Random normal, L2-normalized: the spectral-norm ``u`` init."""
     v = torch.randn(shape, generator=rng)

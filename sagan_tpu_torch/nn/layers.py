@@ -1,5 +1,6 @@
-"""Core layers with inline spectral normalization, and (conditional)
-BatchNorm: the eval forwards of ``sagan_tpu/nn/layers.py``.
+"""Core layers with inline spectral normalization, the SN embedding, and
+(conditional) BatchNorm in training and eval mode: port of
+``sagan_tpu/nn/layers.py``.
 
 Layouts: activations NCHW; Dense weights ``[in, out]`` (as in JAX), conv
 weights OIHW, transposed-conv weights IOHW (``F.conv_transpose2d``'s
@@ -23,9 +24,7 @@ from ..ops.spectral import spectral_normalize
 from . import initializers as init
 
 BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
-TRAIN_BN_ITEM = ("train-mode BatchNorm (batch moments and running-stat "
-                 "updates) comes with the training step, ROADMAP.md Queue 1 "
-                 "item 5")
+BN_MOMENTUM = 0.99
 
 
 class _SNLayer(nn.Module):
@@ -34,10 +33,11 @@ class _SNLayer(nn.Module):
 
     out_dim = -1
 
-    def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng):
+    def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng,
+                 w_init=init.glorot_uniform):
         super().__init__()
         self.sn, self.sn_iters, self.dtype = sn, sn_iters, dtype
-        self.w = nn.Parameter(init.glorot_uniform(w_shape, rng))
+        self.w = nn.Parameter(w_init(w_shape, rng))
         self.b = nn.Parameter(init.zeros((cout,))) if use_bias else None
         if sn:
             self.register_buffer("u", init.l2_normal((cout,), rng))
@@ -114,7 +114,7 @@ class ConvTranspose(_SNLayer):
                 f"ConvTranspose is ported for kernel 4 stride 2 (the vanilla "
                 f"G), got kernel {kernel} stride {stride}; other 'SAME' "
                 f"paddings come with the resnet family, ROADMAP.md Queue 1 "
-                f"item 7")
+                f"item 10")
         super().__init__((cin, cout, kernel, kernel), cout, use_bias, sn,
                          sn_iters, dtype, rng)
 
@@ -124,9 +124,24 @@ class ConvTranspose(_SNLayer):
             padding=1))
 
 
+class Embedding(_SNLayer):
+    """Integer -> vector lookup (the projection discriminator's class
+    embedding), weight [num_embeddings, dim] drawn from U(-0.05, 0.05),
+    with SN over the embedding axis when ``sn``."""
+
+    def __init__(self, num_embeddings, dim, sn=False, sn_iters=1,
+                 dtype=torch.float32, rng=None):
+        super().__init__((num_embeddings, dim), dim, False, sn, sn_iters,
+                         dtype, rng, w_init=init.uniform)
+
+    def forward(self, ids):
+        return self.weight()[ids.long()].to(self.dtype)
+
+
 class BatchNorm(nn.Module):
-    """Eval BatchNorm: running stats, eps ``BN_EPS``, fp32 math, result
-    cast to ``dtype``."""
+    """BatchNorm, eps ``BN_EPS``, fp32 math, result cast to ``dtype``:
+    batch moments and a running-stat update in training mode, the running
+    stats at eval."""
 
     def __init__(self, c, dtype=torch.float32):
         super().__init__()
@@ -137,12 +152,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", init.ones((c,)))
 
     def forward(self, x):
-        return _bn_eval(self, x, self.gamma.view(-1, 1, 1),
-                        self.beta.view(-1, 1, 1))
+        return _bn(self, x, self.gamma.view(-1, 1, 1),
+                   self.beta.view(-1, 1, 1))
 
 
 class ConditionalBatchNorm(nn.Module):
-    """Class-conditional eval BN: per-class gamma/beta tables."""
+    """Class-conditional BN: per-class gamma/beta tables, shared
+    statistics."""
 
     def __init__(self, c, num_classes, dtype=torch.float32):
         super().__init__()
@@ -154,16 +170,31 @@ class ConditionalBatchNorm(nn.Module):
 
     def forward(self, x, labels):
         labels = labels.long()
-        return _bn_eval(self, x, self.gamma[labels][:, :, None, None],
-                        self.beta[labels][:, :, None, None])
+        return _bn(self, x, self.gamma[labels][:, :, None, None],
+                   self.beta[labels][:, :, None, None])
 
 
-def _bn_eval(layer, x, gamma, beta):
+def _bn(layer, x, gamma, beta):
+    """``sagan_tpu/nn/layers.py::_bn_core`` on one device.  Training: the
+    fp32 batch moments E[x] and E[x²] over (N, H, W), the biased variance
+    max(E[x²] − E[x]², 0) for normalizing and for the running stat, and
+    running stats updated in place as m·old + (1 − m)·batch with m = 0.99;
+    gradients flow through the moments.  (``F.batch_norm``'s running
+    update would store the unbiased variance.)  Eval: the running
+    stats."""
+    x32 = x.float()
     if layer.training:
-        raise NotImplementedError(TRAIN_BN_ITEM)
-    mean = layer.mean.view(-1, 1, 1)
-    inv = torch.rsqrt(layer.var + BN_EPS).view(-1, 1, 1)
-    y = (x.float() - mean) * inv * gamma + beta
+        mean = x32.mean(dim=(0, 2, 3))
+        mean_sq = x32.square().mean(dim=(0, 2, 3))
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            layer.mean.copy_(m * layer.mean + (1.0 - m) * mean)
+            layer.var.copy_(m * layer.var + (1.0 - m) * var)
+    else:
+        mean, var = layer.mean, layer.var
+    inv = torch.rsqrt(var + BN_EPS)
+    y = (x32 - mean.view(-1, 1, 1)) * inv.view(-1, 1, 1) * gamma + beta
     return y.to(layer.dtype)
 
 
@@ -174,3 +205,8 @@ def leaky_relu(x, alpha=0.1):
 def max_pool(x):
     """2x2 stride-2 VALID max pool (the attention K/V downsample)."""
     return F.max_pool2d(x, kernel_size=2, stride=2)
+
+
+def global_sum_pool(x):
+    """Spatial sum pool [B, C, H, W] -> [B, C] in fp32."""
+    return x.float().sum(dim=(2, 3))

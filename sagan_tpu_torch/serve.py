@@ -1,10 +1,14 @@
-"""Inference server: exported generator weights -> HTTP, on the card.
+"""Inference server: a training checkpoint or exported generator weights
+-> HTTP, on the card.
 
 Port of ``sagan_tpu/serve.py``:
 
-    python -m sagan_tpu_torch.serve --config_path cfg.py --weights g.npz \\
+    python -m sagan_tpu_torch.serve --config_path cfg.py [--weights g.npz] \\
         [--port 8000] [--batch 64] [--ladder 1,8] [--host 127.0.0.1] \\
         [--device cuda|cpu]
+
+Without ``--weights`` it serves the EMA generator of the newest port
+checkpoint in the config's ``ckpt_dir`` (``generate.restore_generator``).
 
 stdlib HTTP (``http.server.ThreadingHTTPServer``) in front of the
 device-side-uint8 serve function (:func:`generate.build_serve_fn`):
@@ -39,13 +43,12 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from .generate import (CHECKPOINT_ITEM, build_serve_fn, draw_latents,
-                       fill_geometry, load_generator_npz)
+from .generate import build_serve_fn, draw_latents, load_generator
 from .utils.config import load_config_file, resolve_config
 from .utils.device import resolve_device
 
 MULTI_GPU_ITEM = ("serving over several GPUs comes with the multi-GPU slice, "
-                  "ROADMAP.md Queue 1 item 9")
+                  "ROADMAP.md Queue 1 item 14")
 
 # Per-request output ceiling in raw uint8 bytes (64 MiB).  /sample's n cap
 # derives from this and the image size, so one request can never hold the
@@ -290,7 +293,8 @@ def main(argv=None):
     ap.add_argument("--config_path", required=True)
     ap.add_argument("--weights", default=None,
                     help="exported generator .npz (sagan_tpu.generate "
-                         "--export)")
+                         "--export); default: the newest checkpoint in "
+                         "the config's ckpt_dir")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--batch", type=int, default=64,
@@ -311,16 +315,13 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.num_devices > 1:
         raise NotImplementedError(MULTI_GPU_ITEM)
-    if not args.weights:
-        raise NotImplementedError(CHECKPOINT_ITEM)
     config = resolve_config(load_config_file(args.config_path))
-    fill_geometry(config, args.weights)
     try:
         ladder = tuple(int(s) for s in args.ladder.split(",") if s.strip())
     except ValueError:
         raise SystemExit(f"--ladder must be comma-separated ints, got "
                          f"{args.ladder!r}")
-    gen = load_generator_npz(config, args.weights, device)
+    gen = load_generator(config, args.weights, device)
     svc = GeneratorService(
         gen, z_dim=config["z_dim"], num_classes=config.get("num_classes", 1),
         batch=args.batch, seed=args.seed, ladder=ladder)

@@ -1,0 +1,186 @@
+"""Where a church64 training step's time goes, on one GPU.
+
+    python -m sagan_tpu_torch.tools.train_breakdown [--steps 20] \\
+        [--profile_steps 3] [--config example_configs/church64_attn.py]
+
+Runs the port's train step (``train/trainer.py``) on the config at full
+width (church64: bf16, batch 64, update_ratio 1) from a seeded init on
+random uint8 images, and reports, after 5 warm-up steps:
+
+* the medians over ``--steps`` steps of each span of the step, between
+  CUDA events the step records as each span ends (``TrainStep.mark``):
+  the fakes' G forward, D's forward and backward, D's Adam, G's forward
+  and backward (through D), G's Adam, the EMA, the metrics; and
+  ``step_device_ms``, the first event to the last;
+* ``step_ms``: host clock over the ``--steps`` steps to their end on the
+  card, per step, and the images per second it gives;
+* from one ``torch.profiler`` trace of ``--profile_steps`` steps: the
+  summed kernel time and kernel launches per step, the device's busy
+  share (summed kernel time per step over ``step_device_ms``; the traced
+  wall time is longer, as the profiler slows the host), the attention
+  kernels' part, and the kernels by time.
+
+Prints one line per measurement and, last, one JSON object of all of
+them.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..models import get_discriminator, get_generator
+from ..train.optim import make_gan_optimizers
+from ..train.trainer import TrainState, build_train_step
+from ..utils.config import load_config_file, resolve_config
+from ..utils.device import resolve_device
+
+WARMUP = 5
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+class _Events:
+    """``TrainStep.mark``: a CUDA event at the end of each span."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, span: str) -> None:
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append((span, event))
+
+    def spans(self) -> dict:
+        """{span: ms} summed over the recorded steps' spans (call after a
+        synchronize), then cleared."""
+        out = {}
+        for (_, a), (span, b) in zip(self.events, self.events[1:]):
+            if span != "start":
+                out[span] = out.get(span, 0.0) + a.elapsed_time(b)
+        first, last = self.events[0][1], self.events[-1][1]
+        out["step_device_ms"] = first.elapsed_time(last)
+        self.events = []
+        return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="example_configs/church64_attn.py")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--profile_steps", type=int, default=3)
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+
+    config = resolve_config(load_config_file(args.config))
+    config.setdefault("img_size", 64)
+    config.setdefault("num_classes", 1)
+    gen = get_generator(config, rng=torch.Generator().manual_seed(0))
+    disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
+    gen.to(device)
+    disc.to(device)
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1000)
+    ema = ({n: p.detach().clone() for n, p in gen.named_parameters()}
+           if config.get("g_ema_decay", 0.0) > 0 else None)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, ema)
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    b, s = config["global_batch_size"], config["img_size"]
+    rng = torch.Generator(device=device).manual_seed(0)
+    images = torch.randint(0, 256, (1, b, s, s, 3), dtype=torch.uint8,
+                           device=device, generator=rng)
+    labels = torch.zeros(1, b, dtype=torch.int32, device=device)
+
+    def run():
+        step(state, images, labels)
+
+    for _ in range(WARMUP):
+        run()
+    torch.cuda.synchronize()
+
+    events = _Events()
+    step.mark = events
+    per_step = []
+    for _ in range(args.steps):
+        run()
+        torch.cuda.synchronize()
+        per_step.append(events.spans())
+    step.mark = None
+    spans = {k: statistics.median(r[k] for r in per_step)
+             for k in per_step[0]}
+
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        run()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.profile_steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    launches = 0
+    for evt in prof.key_averages():
+        # device-side records of host annotations (the optimizer's
+        # "Optimizer.step#Adam.step") span kernels counted on their own
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.key.startswith("Optimizer.")):
+            kernels[evt.key] = evt.self_device_time_total / 1e3
+            launches += evt.count
+    busy = sum(kernels.values())
+    attn = {name: sum(v for k, v in kernels.items() if name in k)
+            / args.profile_steps
+            for name in ("attention_fwd", "attention_bwd")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+
+    result = {
+        "card": card, "config": args.config, "batch": b,
+        "compute_dtype": config.get("compute_dtype"),
+        "steps": args.steps, "spans_ms": spans, "step_ms": step_ms,
+        "imgs_per_s": b / step_ms * 1e3,
+        "profiled_wall_ms_per_step": wall / args.profile_steps,
+        "kernel_ms_per_step": busy / args.profile_steps,
+        "busy_share": busy / args.profile_steps / spans["step_device_ms"],
+        "kernel_launches_per_step": launches / args.profile_steps,
+        "attention_ms_per_step": attn,
+        "top": [[k[:80], v / args.profile_steps] for k, v in top],
+    }
+    print(f"church64 train step, B={b} {config.get('compute_dtype')}, "
+          f"{card}:")
+    for k, v in spans.items():
+        print(f"  {k:15s} {v:9.3f} ms (median of {args.steps})")
+    print(f"  step_ms {step_ms:.3f} (host clock, {args.steps} steps) = "
+          f"{result['imgs_per_s']:.1f} imgs/s")
+    print(f"  profiled: {result['kernel_ms_per_step']:.3f} ms of kernels "
+          f"per step (busy {result['busy_share']:.1%} of step_device_ms; "
+          f"profiled wall {result['profiled_wall_ms_per_step']:.3f} ms), "
+          f"{result['kernel_launches_per_step']:.0f} kernel launches per "
+          f"step; attention fwd {attn['attention_fwd']:.3f} ms, bwd "
+          f"{attn['attention_bwd']:.3f} ms per step")
+    for name, ms in result["top"]:
+        print(f"    {ms:9.4f} ms/step  {name}")
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,614 @@
+"""GAN trainer on one device, port of ``sagan_tpu/train/trainer.py``.
+
+:func:`build_train_step` gives the step of the JAX package's
+``build_train_step`` (``steps_per_call`` K sequential steps per call,
+metrics averaged over them).  One step:
+
+* the uint8 batch [B, S, S, 3] is normalized to [-1, 1] on the device
+  (and flipped left-right per sample when ``random_flip``);
+* ``update_ratio`` D updates, each a G forward for the fakes in training
+  mode under ``torch.no_grad()`` (it moves G's BN running stats and SN
+  ``u``), ONE D forward over the real and fake batches together at batch
+  2B (two forwards when ``fuse_d_batches`` is off), and an Adam update;
+* one G update, whose D forward is in training mode too, so D's SN ``u``
+  moves again;
+* the EMA of G's parameters, ``decay · ema + (1 − decay) · param``, with
+  decay 0 (a copy) before step ``g_ema_start``;
+* metrics: G/D loss, global gradient norms, the D-health fractions, and
+  per-variable G means and gradient norms (and D's gradient norms).
+
+The port keeps the state in its modules and optimizers and updates them in
+place (:class:`TrainState`); gradients are taken with
+``torch.autograd.grad`` of each net's loss with respect to that net's
+parameters only.  Each step draws its randomness from device
+``torch.Generator``s seeded by (seed, step, purpose), so a resumed run
+draws what an unbroken one would, with no generator state to save; the
+numbers differ from JAX's threefry streams, so a caller that needs JAX's
+latents passes them in (``latents_k``).
+
+:class:`Trainer` is the epoch loop: host-fed uint8 batches, TensorBoard
+scalars, PNG sample grids of the EMA generator, checkpoints in the port's
+own format, save-and-exit on SIGTERM/SIGINT and an exact mid-epoch
+resume, at the JAX trainer's cadences.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import signal
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..data.loader import get_dataset_and_info
+from ..models import get_discriminator, get_generator
+from ..ops.losses import get_loss
+from ..utils.device import resolve_device
+from ..utils.images import make_grid, save_image_grid
+from ..utils.tb_writer import SummaryWriter
+from ..utils.timing import StepTimer
+from .checkpoint import CheckpointManager
+from .optim import make_gan_optimizers, set_lr
+
+# purposes of the seeded random streams: per step (flip, G latents, D
+# update i's latents at _D + i) and at init
+_FLIP, _G, _D = 0, 1, 2
+_INIT_G, _INIT_D, _FIXED = 0, 1, 2
+
+HEALTH_KEYS = ("D_real_mean", "D_fake_mean", "D_real_in_margin",
+               "D_fake_in_margin")
+META_KEYS = ("img_size", "num_classes", "z_dim")
+
+
+def seeded(device, *words) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from the non-negative
+    integers ``words`` (through numpy's SeedSequence, so nearby words give
+    unrelated streams)."""
+    seed = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(seed[0]))
+
+
+def jax_order(names) -> list:
+    """Parameter names in the order of ``jax.tree.leaves`` of the JAX
+    variable tree (keys sorted at every level), which orders the
+    per-variable metrics."""
+    return sorted(names, key=lambda name: name.split("."))
+
+
+@dataclass
+class TrainState:
+    """What one training run carries from step to step: the nets (with
+    their SN and BN buffers), both optimizers, the number of steps taken,
+    and the EMA of G's parameters by name (None when not tracked)."""
+    gen: torch.nn.Module
+    disc: torch.nn.Module
+    opt_g: torch.optim.Optimizer
+    opt_d: torch.optim.Optimizer
+    step: int = 0
+    ema: dict | None = None
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def _apply(opt, params, grads, lr: float) -> None:
+    """One optimizer update with ``grads``; no ``.grad`` outlives it."""
+    set_lr(opt, lr)
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    for p in params:
+        p.grad = None
+
+
+class TrainStep:
+    """The port of the JAX ``build_train_step``: ``step(state, images_k,
+    labels_k, latents_k=None)`` runs K = ``images_k.shape[0]`` steps and
+    returns their metrics averaged over the K steps, as device tensors."""
+
+    # the spans of one step, in order; ``mark``, when set, is called with
+    # each span's name as it ends ("start" before the first), so a caller
+    # can time them (tools/train_breakdown.py records a CUDA event there)
+    SPANS = ("fakes", "d_fwd_bwd", "d_adam", "g_fwd_bwd", "g_adam", "ema",
+             "metrics")
+
+    def __init__(self, config, sched_g, sched_d, g_names, d_names):
+        """``g_names`` / ``d_names``: the nets' parameter names in
+        ``named_parameters`` order."""
+        self.mark = None
+        self.z_dim = config["z_dim"]
+        self.num_classes = max(1, config.get("num_classes", 1))
+        self.update_ratio = config.get("update_ratio", 1)
+        loss = config.get("loss", "hinge_loss")
+        self.gloss_fn, self.dloss_fn = get_loss(loss)
+        self.is_hinge = loss == "hinge_loss"
+        self.ema_decay = config.get("g_ema_decay", 0.0)
+        self.ema_start = int(config.get("g_ema_start", 0))
+        self.fuse_d = config.get("fuse_d_batches", True)
+        self.summary_var = config.get("summary_var", True)
+        self.random_flip = config.get("random_flip", False)
+        self.seed = config.get("seed", 0)
+        self.sched_g, self.sched_d = sched_g, sched_d
+        # per-variable metrics in the JAX order, and where each sits
+        self.g_names, self.d_names = jax_order(g_names), jax_order(d_names)
+        self._g_perm = [list(g_names).index(n) for n in self.g_names]
+        self._d_perm = [list(d_names).index(n) for n in self.d_names]
+
+    def latents(self, step: int, batch: int, device) -> dict:
+        """The randomness of step ``step``: ``{"flip": bool [B] or None,
+        "d": [(z, labels)] per D update, "g": (z, labels)}``."""
+        def draw(purpose):
+            rng = seeded(device, self.seed, 1, step, purpose)
+            z = torch.randn(batch, self.z_dim, device=device, generator=rng)
+            labels = torch.randint(0, self.num_classes, (batch,),
+                                   device=device, generator=rng)
+            return z, labels
+
+        flip = None
+        if self.random_flip:
+            rng = seeded(device, self.seed, 1, step, _FLIP)
+            flip = torch.rand(batch, device=device, generator=rng) < 0.5
+        return {"flip": flip, "g": draw(_G),
+                "d": [draw(_D + i) for i in range(self.update_ratio)]}
+
+    def _d_health(self, out_real, out_fake) -> dict:
+        """Mean D scores and the fractions of examples still giving D a
+        gradient: inside the hinge margin, or, for BCE, with
+        |sigmoid(logit) − target| above 1e-2."""
+        r, f = out_real.detach().float(), out_fake.detach().float()
+        if self.is_hinge:
+            in_r, in_f = r < 1.0, f > -1.0
+        else:
+            in_r = torch.sigmoid(r) < 1.0 - 1e-2
+            in_f = torch.sigmoid(f) > 1e-2
+        return dict(zip(HEALTH_KEYS, (r.mean(), f.mean(),
+                                      in_r.float().mean(),
+                                      in_f.float().mean())))
+
+    def _d_loss(self, disc, images, labels, fake, fake_labels):
+        b = images.shape[0]
+        if self.fuse_d:
+            # real and fake share one forward: D has no batch-coupled
+            # layer, so the math is that of two forwards
+            out = disc(torch.cat([images.to(fake.dtype), fake]),
+                       torch.cat([labels, fake_labels]))
+            out_real, out_fake = out[:b], out[b:]
+        else:
+            out_real = disc(images, labels)
+            out_fake = disc(fake, fake_labels)
+        return (self.dloss_fn(out_real, out_fake),
+                self._d_health(out_real, out_fake))
+
+    def _mark(self, span: str) -> None:
+        if self.mark is not None:
+            self.mark(span)
+
+    def one_step(self, state: TrainState, images_u8, labels, lat) -> dict:
+        self._mark("start")
+        gen, disc = state.gen, state.disc
+        g_params = [p for _, p in gen.named_parameters()]
+        d_params = [p for _, p in disc.named_parameters()]
+        images = images_u8.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
+        if lat["flip"] is not None:
+            images = torch.where(lat["flip"][:, None, None, None],
+                                 images.flip(3), images)
+        labels = labels.long()
+        gen.train()
+        disc.train()
+
+        d_loss_acc = 0.0
+        health_acc = dict.fromkeys(HEALTH_KEYS, 0.0)
+        for i, (z, fake_labels) in enumerate(lat["d"]):
+            with torch.no_grad():
+                fake = gen(z, fake_labels)
+            self._mark("fakes")
+            loss_d, health = self._d_loss(disc, images, labels, fake,
+                                          fake_labels)
+            grads_d = torch.autograd.grad(loss_d, d_params)
+            self._mark("d_fwd_bwd")
+            _apply(state.opt_d, d_params, grads_d,
+                   self.sched_d(state.step * self.update_ratio + i))
+            self._mark("d_adam")
+            d_loss_acc = d_loss_acc + loss_d.detach()
+            health_acc = {k: health_acc[k] + health[k] for k in HEALTH_KEYS}
+
+        z, fake_labels = lat["g"]
+        loss_g = self.gloss_fn(disc(gen(z, fake_labels), fake_labels))
+        grads_g = torch.autograd.grad(loss_g, g_params)
+        self._mark("g_fwd_bwd")
+        _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
+        self._mark("g_adam")
+
+        if state.ema is not None:
+            # fp32 decay and 1 − decay, as the JAX step computes them
+            decay32 = torch.tensor(self.ema_decay if state.step >=
+                                   self.ema_start else 0.0)
+            decay, rest = float(decay32), float(1.0 - decay32)
+            ema = [state.ema[name] for name, _ in gen.named_parameters()]
+            with torch.no_grad():
+                torch._foreach_mul_(ema, decay)
+                torch._foreach_add_(ema, g_params, alpha=rest)
+        self._mark("ema")
+
+        ratio = self.update_ratio
+        metrics = {"G_loss": loss_g.detach(), "D_loss": d_loss_acc / ratio,
+                   "G_grad_norm": _global_norm(grads_g),
+                   "D_grad_norm": _global_norm(grads_d)}
+        metrics.update({k: v / ratio for k, v in health_acc.items()})
+        if self.summary_var:
+            metrics["G_var_means"] = torch.stack(
+                [g_params[i].detach().mean() for i in self._g_perm])
+            metrics["G_grad_norms"] = torch.stack(torch._foreach_norm(
+                [grads_g[i] for i in self._g_perm]))
+            metrics["D_grad_norms"] = torch.stack(torch._foreach_norm(
+                [grads_d[i] for i in self._d_perm]))
+        self._mark("metrics")
+        state.step += 1
+        return metrics
+
+    def __call__(self, state: TrainState, images_k, labels_k,
+                 latents_k=None) -> dict:
+        """K steps on uint8 images [K, B, S, S, 3] and labels [K, B];
+        ``latents_k`` (one :meth:`latents`-shaped dict per step) replaces
+        the seeded draws."""
+        per_step = []
+        for k in range(images_k.shape[0]):
+            lat = (latents_k[k] if latents_k is not None else
+                   self.latents(state.step, images_k.shape[1],
+                                images_k.device))
+            per_step.append(self.one_step(state, images_k[k], labels_k[k],
+                                          lat))
+        return {key: torch.stack([m[key] for m in per_step]).mean(0)
+                for key in per_step[0]}
+
+
+def build_train_step(config, sched_g, sched_d, gen, disc) -> TrainStep:
+    """The train step of ``config`` for these nets and LR schedules."""
+    return TrainStep(config, sched_g, sched_d,
+                     [n for n, _ in gen.named_parameters()],
+                     [n for n, _ in disc.named_parameters()])
+
+
+def _check_ported(config) -> None:
+    """Raise for what the JAX trainer does and the port does not yet."""
+    unported = [
+        (config.get("num_devices", 1) > 1,
+         f"num_devices={config.get('num_devices')}: multi-GPU training, "
+         f"ROADMAP.md Queue 1 item 14"),
+        (config.get("model_parallel", 1) > 1,
+         "model_parallel > 1, ROADMAP.md Queue 1 item 14"),
+        (bool(config.get("remat")), "remat, ROADMAP.md Queue 1 item 9"),
+        (config.get("grad_accum_steps", 1) > 1,
+         "grad_accum_steps > 1 (gradient accumulation with exact BN "
+         "statistics), ROADMAP.md Queue 1 item 8"),
+        (config.get("device_cache", "auto") is True,
+         "device_cache=True (the dataset held on the card); 'auto' and "
+         "False take the host feed, ROADMAP.md Queue 1 item 7"),
+    ]
+    for failed, what in unported:
+        if failed:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+class Trainer:
+    """Config-driven trainer, the JAX ``Trainer``'s config contract, on
+    ``device`` (``cuda`` by default; raises without a card)."""
+
+    def __init__(self, config: dict, device: str | torch.device = "cuda"):
+        _check_ported(config)
+        self.device = resolve_device(device)
+        # fp32 products stay fp32, as the JAX layers ask for HIGHEST
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.ds_train, self.config = get_dataset_and_info(config)
+        config = self.config
+        self.steps_per_call = max(1, config.get("steps_per_call", 1))
+        self.steps_per_epoch = (self.ds_train.steps_per_epoch //
+                                self.steps_per_call) * self.steps_per_call
+        if self.steps_per_epoch == 0:
+            raise ValueError(
+                f"no full training call per epoch: dataset provides "
+                f"{self.ds_train.steps_per_epoch} steps/epoch (batch "
+                f"{self.ds_train.batch_size}) but steps_per_call="
+                f"{self.steps_per_call}; lower steps_per_call/batch_size "
+                f"or add data")
+        print("total steps:", self.steps_per_epoch * config["epoch"])
+
+        seed = config.get("seed", 0)
+        gen = get_generator(config, rng=seeded("cpu", seed, 0, _INIT_G))
+        disc = get_discriminator(config, rng=seeded("cpu", seed, 0, _INIT_D))
+        gen.to(self.device).train()
+        disc.to(self.device).train()
+        (opt_g, self.sched_g), (opt_d, self.sched_d) = make_gan_optimizers(
+            config, gen.parameters(), disc.parameters(),
+            self.steps_per_epoch)
+        ema = None
+        if config.get("g_ema_decay", 0.0) > 0:
+            ema = {n: p.detach().clone() for n, p in gen.named_parameters()}
+        self.state = TrainState(gen, disc, opt_g, opt_d, 0, ema)
+        self.train_step = build_train_step(config, self.sched_g,
+                                           self.sched_d, gen, disc)
+        if config.get("print_variables", True):
+            for tag, names in (("G", self.train_step.g_names),
+                               ("D", self.train_step.d_names)):
+                print(f"{tag} trainable variables ({len(names)}):")
+                for n in names:
+                    print(f"  {tag}/{n.replace('.', '/')}")
+
+        # fixed latents of the sample grids
+        rng = seeded("cpu", seed, 0, _FIXED)
+        num_sample = config.get("num_sample", 16)
+        self.fixed_z = torch.randn(num_sample, config["z_dim"],
+                                   generator=rng).to(self.device)
+        self.fixed_labels = torch.randint(
+            0, max(1, config.get("num_classes", 1)), (num_sample,),
+            generator=rng).to(self.device)
+        self._gen_eval = None
+
+        self.writer = (SummaryWriter(config["log_dir"])
+                       if config.get("log_dir") else None)
+        self.ckpt_mgr = None
+        if config.get("ckpt_dir"):
+            self.ckpt_mgr = CheckpointManager(config["ckpt_dir"],
+                                              max_to_keep=10)
+            restored = self.ckpt_mgr.restore_latest()
+            if restored is not None:
+                self._load(restored)
+                print(f"Restored from checkpoint at step {self.state.step}")
+            else:
+                print("Initializing from scratch.")
+        self._preempted = False
+
+    # -- state ---------------------------------------------------------------
+    def global_step(self) -> int:
+        return self.state.step
+
+    def checkpoint_payload(self) -> dict:
+        s = self.state
+        return {"step": s.step, "gen": s.gen.state_dict(),
+                "disc": s.disc.state_dict(), "opt_g": s.opt_g.state_dict(),
+                "opt_d": s.opt_d.state_dict(), "ema": s.ema,
+                "meta": {k: self.config[k] for k in META_KEYS}}
+
+    def _load(self, ckpt: dict) -> None:
+        s = self.state
+        s.gen.load_state_dict(ckpt["gen"])
+        s.disc.load_state_dict(ckpt["disc"])
+        s.opt_g.load_state_dict(ckpt["opt_g"])
+        s.opt_d.load_state_dict(ckpt["opt_d"])
+        s.step = int(ckpt["step"])
+        if s.ema is not None:
+            s.ema = {n: t.to(self.device) for n, t in ckpt["ema"].items()}
+
+    def eval_generator(self):
+        """G for evaluation, in eval mode: the EMA parameters when tracked
+        (else the live ones) with the live SN and BN buffers."""
+        if self._gen_eval is None:
+            self._gen_eval = copy.deepcopy(self.state.gen).eval()
+        source = dict(self.state.gen.state_dict())
+        if self.state.ema is not None:
+            source.update(self.state.ema)
+        with torch.no_grad():
+            for name, t in self._gen_eval.state_dict().items():
+                t.copy_(source[name])
+        return self._gen_eval
+
+    def sample_images(self) -> np.ndarray:
+        """The fixed-latent sample grid's images, float [n, S, S, 3] in
+        [-1, 1]."""
+        gen = self.eval_generator()
+        with torch.inference_mode():
+            x = gen(self.fixed_z, self.fixed_labels).float()
+        return x.permute(0, 2, 3, 1).cpu().numpy()
+
+    def _var_summaries(self, prefix: str, values) -> dict:
+        return {f"{prefix}/G/{n.replace('.', '/')}": float(v)
+                for n, v in zip(self.train_step.g_names, values)}
+
+    # -- feed ------------------------------------------------------------------
+    def _device_batches(self, epoch: int, skip_calls: int = 0):
+        """(uint8 images [K, B, S, S, 3], int32 labels [K, B]) on the
+        device, one call ahead of the consumer; the first ``skip_calls``
+        calls of the epoch are skipped on the host (mid-epoch resume)."""
+        K = self.steps_per_call
+        cuda = self.device.type == "cuda"
+
+        def to_device(a):
+            t = torch.from_numpy(a)
+            if cuda:
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=cuda)
+
+        def packed():
+            imgs_k, labels_k = [], []
+            for images, labels in self.ds_train.epoch(epoch):
+                imgs_k.append(images)
+                labels_k.append(labels)
+                if len(imgs_k) == K:
+                    yield np.stack(imgs_k), np.stack(labels_k)
+                    imgs_k, labels_k = [], []
+
+        pending = None
+        for host_batch in packed():
+            if skip_calls > 0:
+                skip_calls -= 1
+                continue
+            ready = pending
+            pending = tuple(to_device(a) for a in host_batch)
+            if ready is not None:
+                yield ready
+        if pending is not None:
+            yield pending
+
+    # -- loop ------------------------------------------------------------------
+    def _install_preemption_handler(self) -> dict:
+        """Save-and-exit on SIGTERM/SIGINT: the flag is read after each
+        call; a second signal reaches the previous handler."""
+        previous = {}
+
+        def handler(signum, _frame):
+            print(f"received signal {signum}: will checkpoint and stop "
+                  f"after the current step (signal again to force-quit)",
+                  flush=True)
+            self._preempted = True
+            _restore_handlers(previous)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return previous
+
+    def train(self, num_epochs: int | None = None):
+        num_epochs = num_epochs or self.config["epoch"]
+        start_epoch = self.global_step() // self.steps_per_epoch
+        if start_epoch >= num_epochs:
+            print(f"training already complete (step {self.global_step()}, "
+                  f"epoch {start_epoch}/{num_epochs})", flush=True)
+            return
+        fid_freq = self.config.get("fid_epoch_freq", 0)
+        if fid_freq and any((e + 1) % fid_freq == 0
+                            for e in range(start_epoch, num_epochs)):
+            raise NotImplementedError(
+                f"fid_epoch_freq={fid_freq}: this run reaches an FID epoch, "
+                f"and evaluation (FID/IS) is not ported yet, ROADMAP.md "
+                f"Queue 1 item 15; set fid_epoch_freq to 0 or train fewer "
+                f"epochs")
+        self._preempted = False
+        previous = self._install_preemption_handler()
+        try:
+            self._train_epochs(start_epoch, num_epochs)
+        finally:
+            _restore_handlers(previous)
+
+    def _fetch(self, metrics: dict) -> dict:
+        """Metrics on the host (a synchronisation point)."""
+        return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+
+    def _train_epochs(self, start_epoch: int, num_epochs: int) -> None:
+        config = self.config
+        K = self.steps_per_call
+        summary_freq = max(1, config.get("summary_step_freq", 100) // K)
+        img_dir = config.get("img_dir")
+        resume_skip = (self.global_step() % self.steps_per_epoch) // K
+        if resume_skip:
+            print(f"resuming mid-epoch: skipping {resume_skip} consumed "
+                  f"calls of epoch {start_epoch}", flush=True)
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.perf_counter()
+            count, acc, acc_n, acc_last = 0, {}, 0, -1
+            timer = StepTimer()
+            timer.start()
+            timer_last = 0
+            skip = resume_skip if epoch == start_epoch else 0
+            metrics = None
+            for images, labels in self._device_batches(epoch, skip):
+                metrics = self.train_step(self.state, images, labels)
+                count += 1
+                if self._preempted:
+                    self._save_on_preemption()
+                    return
+                if count % summary_freq == 0:
+                    fetched = self._fetch(metrics)
+                    timer.tick((count - timer_last) * K)
+                    timer_last = count
+                    self._summarize_step(fetched, acc)
+                    acc_n += 1
+                    acc_last = count
+            if count == 0:
+                raise RuntimeError("epoch produced no batches: data_size/"
+                                   "global_batch too small for one call")
+            fetched = self._fetch(metrics)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            epoch_time = time.perf_counter() - t0
+            timer.tick((count - timer_last) * K)
+            grad_norms = fetched.pop("G_grad_norms", None)
+            fetched.pop("D_grad_norms", None)
+            fetched.pop("G_var_means", None)
+            if acc_last != count:   # the last call was not summarized yet
+                for k, v in fetched.items():
+                    acc[k] = acc.get(k, 0.0) + float(v)
+                acc_n += 1
+            mean = {k: v / acc_n for k, v in acc.items()}
+            step = self.global_step()
+            step_ms = 1000.0 * epoch_time / (count * K)
+            imgs_per_sec = count * K * config["global_batch_size"] / \
+                epoch_time
+            if self.writer:
+                scalars = {
+                    "generator_loss": mean["G_loss"],
+                    "discriminator_loss": mean["D_loss"],
+                    "G_grad_norm": mean["G_grad_norm"],
+                    "D_grad_norm": mean["D_grad_norm"],
+                    "epoch_time_sec": epoch_time,
+                    "step_time_ms": step_ms,
+                    "step_time_exec_ms": timer.mean_ms(),
+                    "lr_g": self.sched_g(step),
+                    "lr_d": self.sched_d(step * config.get("update_ratio",
+                                                           1)),
+                }
+                if grad_norms is not None:
+                    scalars.update(self._var_summaries("grads_norm",
+                                                       grad_norms))
+                self.writer.scalars(scalars, epoch)
+                self.writer.flush()
+            print(f"epoch {epoch}: G_loss={mean['G_loss']:.4f} "
+                  f"D_loss={mean['D_loss']:.4f} "
+                  f"D(real)={mean['D_real_mean']:+.2f} "
+                  f"D(fake)={mean['D_fake_mean']:+.2f} "
+                  f"in_margin={mean['D_real_in_margin']:.2f}/"
+                  f"{mean['D_fake_in_margin']:.2f} time={epoch_time:.1f}s "
+                  f"({imgs_per_sec:.1f} imgs/s, {step_ms:.2f} ms/step)",
+                  flush=True)
+            # checkpoints at epoch 5, then every 10th, and the last
+            if self.ckpt_mgr and (epoch == 5 or (epoch and epoch % 10 == 0)
+                                  or epoch == num_epochs - 1):
+                self.ckpt_mgr.save(step, self.checkpoint_payload())
+            # sample grids in the first 5 epochs, every 5th, and the last
+            if img_dir and (epoch < 5 or epoch % 5 == 0
+                            or epoch == num_epochs - 1):
+                grid = self.sample_images()
+                save_image_grid(grid, os.path.join(
+                    img_dir, f"epoch_{epoch:04d}.png"))
+                if self.writer:
+                    self.writer.image("sample", make_grid(grid), step)
+                    self.writer.flush()
+
+    def _summarize_step(self, fetched: dict, acc: dict) -> None:
+        """Accumulate a summary point's scalars for the epoch mean and
+        write them, the variable means and a sample grid to TensorBoard."""
+        var_means = fetched.get("G_var_means")
+        scalars = {k: float(v) for k, v in fetched.items() if v.ndim == 0}
+        for k, v in scalars.items():
+            acc[k] = acc.get(k, 0.0) + v
+        if self.writer:
+            step = self.global_step()
+            self.writer.scalars({f"step/{k}": v for k, v in scalars.items()},
+                                step)
+            if var_means is not None:
+                self.writer.scalars(self._var_summaries("vars", var_means),
+                                    step)
+            self.writer.image("sample", make_grid(self.sample_images()),
+                              step)
+            self.writer.flush()
+
+    def _save_on_preemption(self) -> None:
+        step = self.global_step()
+        if self.ckpt_mgr:
+            self.ckpt_mgr.save(step, self.checkpoint_payload())
+            print(f"preempted at step {step}: checkpoint saved, exiting",
+                  flush=True)
+        else:
+            print(f"preempted at step {step}: no ckpt_dir configured, "
+                  f"exiting without saving", flush=True)
+
+
+def _restore_handlers(previous: dict) -> None:
+    for sig, h in previous.items():
+        signal.signal(sig, h)

@@ -7,9 +7,25 @@ Own copy of ``sagan_tpu/utils/config.py``; the device count comes from
 
 from __future__ import annotations
 
+import argparse
 import runpy
 
 import torch
+
+
+def get_parameters(argv=None):
+    """The training CLI's flags: ``--config_path`` (required),
+    ``--debug`` and ``--device``; unknown flags are tolerated, as the JAX
+    CLI tolerates them."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config_path", type=str, required=True,
+                    help="python file defining a `config` dict")
+    ap.add_argument("--debug", action="store_true",
+                    help="at most 2000 records and 2 epochs, no checkpoints")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu to run there)")
+    args, _unknown = ap.parse_known_args(argv)
+    return args
 
 
 def load_config_file(path: str) -> dict:

@@ -1,11 +1,20 @@
 """Port attention (sagan_tpu_torch/ops) against the JAX package: the plain
-version against JAX ``attention_reference`` and against the Pallas kernel
-``attention_fused`` run in interpret mode, on the same numpy inputs.
+forward against JAX ``attention_reference`` and against the Pallas kernel
+``attention_fused`` run in interpret mode, and the plain backward against
+``jax.vjp`` of both, on the same numpy inputs.
 
-Tolerances: fp32 1e-5 (same arithmetic, other summation order); bf16
-2e-2 (outputs of magnitude < 4, where one bf16 ulp is <= 2^-6, and both
-sides round the probabilities and the output to bf16)."""
+Forward tolerances: fp32 1e-5 (same arithmetic, other summation order);
+bf16 2e-2 (outputs of magnitude < 4, where one bf16 ulp is <= 2^-6, and
+both sides round the probabilities and the output to bf16).
 
+Backward tolerances, per gradient, as a share of its largest magnitude:
+fp32 1e-5 (same arithmetic, other order); bf16 against the Pallas kernel
+4e-3, one bf16 ulp (2^-8): the plain backward rounds dL, E and g/l to
+bf16 where the TPU kernel does; bf16 against autodiff of
+``attention_reference`` 2e-2, which rounds at other places (the
+probabilities, not dL)."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,10 +23,15 @@ import torch
 from sagan_tpu.ops.attention import attention_reference as jax_reference
 from sagan_tpu.ops.pallas_attention import attention_fused as jax_fused
 from sagan_tpu_torch.ops import cuda_attention
-from sagan_tpu_torch.ops.attention import attention, attention_reference
+from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
+                                           attention_reference)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SHAPES = [(2, 8), (2, 16), (4, 8), (4, 16)]
+# (d, c) of every church64 site: G's 64 and 32 maps, D's 8 and 4 maps
+TRAIN_SHAPES = [(2, 8), (4, 16), (8, 32), (16, 64)]
+BWD_TOL = {("float32", "pallas"): 1e-5, ("float32", "reference"): 1e-5,
+           ("bfloat16", "pallas"): 4e-3, ("bfloat16", "reference"): 2e-2}
 
 
 def _inputs(d, c, b=2, n=256, m=64, seed=0):
@@ -82,6 +96,64 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
 
 def test_kernel_builds_one_library_per_value_width():
     specs = cuda_attention.build_specs()
-    assert [defs for _, defs in specs] == [
-        (f"-DSAGAN_ATTN_C={c}",) for c in cuda_attention.SUPPORTED_C]
-    assert {name for name, _ in specs} == {"attention_fwd"}
+    for source in ("attention_fwd", "attention_bwd"):
+        assert [defs for name, defs in specs if name == source] == [
+            (f"-DSAGAN_ATTN_C={c}",) for c in cuda_attention.SUPPORTED_C]
+    assert len(specs) == 2 * len(cuda_attention.SUPPORTED_C)
+
+
+def _bwd_inputs(d, c, seed=2):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*s).astype(np.float32)
+            for s in ((2, 256, d), (2, 64, d), (2, 64, c), (2, 256, c))]
+
+
+@pytest.mark.parametrize("against", ["pallas", "reference"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c", TRAIN_SHAPES)
+def test_plain_backward_matches_jax_vjp(d, c, dtype, against):
+    """``attention_bwd_reference`` against ``jax.vjp`` of the Pallas kernel
+    in interpret mode (its backward is ``_bwd_kernel``) and of the JAX
+    ``attention_reference`` (autodiff)."""
+    arrays = _bwd_inputs(d, c)
+    fn = ((lambda q, k, v: jax_fused(q, k, v, interpret=True))
+          if against == "pallas" else jax_reference)
+    jq, jk, jv, jg = _jax(arrays, dtype)
+    _, vjp = jax.vjp(fn, jq, jk, jv)
+    got = attention_bwd_reference(*_port(arrays, dtype))
+    for name, x, want in zip(("dq", "dk", "dv"), got, vjp(jg)):
+        assert x.dtype == getattr(torch, dtype), name
+        want = np.asarray(want, np.float32)
+        err = np.abs(x.float().numpy() - want).max()
+        assert err <= BWD_TOL[dtype, against] * np.abs(want).max(), (
+            name, err, np.abs(want).max())
+
+
+def test_attention_on_cpu_goes_through_the_autograd_function():
+    q, k, v, g = (t.requires_grad_(i < 3) for i, t in
+                  enumerate(_port(_bwd_inputs(4, 16, seed=3), "float32")))
+    before = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+    out = attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
+    # the model hands the backward a non-contiguous cotangent
+    wide = out.transpose(1, 2).reshape(2, 16, 16, 16)
+    grads = torch.autograd.grad(wide, (q, k, v),
+                                g.transpose(1, 2).reshape(2, 16, 16, 16))
+    want = attention_bwd_reference(q.detach(), k.detach(), v.detach(), g)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    with torch.no_grad():
+        assert attention(q, k, v).grad_fn is None
+    assert attention(q.detach(), k.detach(), v.detach()).grad_fn is None
+    assert (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES) == before
+
+
+def test_backward_wrapper_refuses_tensors_off_cpu_and_cuda():
+    q, k = torch.empty(1, 4, 2, device="meta"), torch.empty(1, 2, 2,
+                                                            device="meta")
+    v, g = torch.empty(1, 2, 8, device="meta"), torch.empty(1, 4, 8,
+                                                            device="meta")
+    before = cuda_attention.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_attention.attention_bwd_fused(q, k, v, g)
+    assert cuda_attention.BWD_LAUNCHES == before

@@ -15,7 +15,7 @@ from sagan_tpu.models import get_generator as jax_generator
 from sagan_tpu.utils.config import load_config_file
 from sagan_tpu.utils.config import resolve_config as jax_resolve
 from sagan_tpu.utils.trees import flatten_with_paths
-from sagan_tpu_torch.convert import generator_state_from_jax
+from sagan_tpu_torch.convert import state_from_jax
 from sagan_tpu_torch.models import get_generator
 from sagan_tpu_torch.utils.config import resolve_config
 
@@ -77,7 +77,7 @@ def test_generator_matches_jax(name, config, batch):
     want = forward(variables, jnp.asarray(z), jnp.asarray(labels))
 
     gen = get_generator(resolve_config(config, num_local_devices=1))
-    gen.load_state_dict(generator_state_from_jax(flat, gen))
+    gen.load_state_dict(state_from_jax(flat, gen))
     with torch.no_grad():
         got = gen(torch.from_numpy(z), torch.from_numpy(labels))
     assert got.shape == (batch, 3, config["img_size"], config["img_size"])

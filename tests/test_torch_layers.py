@@ -13,8 +13,8 @@ from sagan_tpu.nn import attention as jattention
 from sagan_tpu.nn import layers as jlayers
 from sagan_tpu.ops.spectral import spectral_normalize_xla
 from sagan_tpu.utils.trees import flatten_with_paths
-from sagan_tpu_torch.convert import (generator_state_from_jax,
-                                     jax_flat_from_generator)
+from sagan_tpu_torch.convert import (state_from_jax,
+                                     jax_flat_from_module)
 from sagan_tpu_torch.nn import attention as tattention
 from sagan_tpu_torch.nn import layers as tlayers
 from sagan_tpu_torch.ops.spectral import spectral_normalize
@@ -56,7 +56,7 @@ def _jax_vars(flat):
 
 
 def _load(port_module, flat):
-    port_module.load_state_dict(generator_state_from_jax(flat, port_module))
+    port_module.load_state_dict(state_from_jax(flat, port_module))
     return port_module.eval()
 
 
@@ -142,7 +142,7 @@ def test_layer_matches_jax(name):
             got = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
     # the converter's inverse gives the export back
-    back = jax_flat_from_generator(port)
+    back = jax_flat_from_module(port)
     assert back.keys() == flat.keys()
     for k in flat:
         np.testing.assert_array_equal(back[k], flat[k])
@@ -177,10 +177,81 @@ def test_sn_u_is_kept_at_eval_and_stored_in_training():
     assert not torch.equal(layer.u, u0)
 
 
-def test_train_mode_batch_norm_raises_with_its_roadmap_item():
-    bn = tlayers.BatchNorm(4).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        bn(torch.zeros(1, 4, 2, 2))
+@pytest.mark.parametrize("conditional", [False, True])
+def test_train_mode_batch_norm_matches_jax(conditional):
+    """(Conditional)BatchNorm in training mode against the JAX layer with
+    ``train=True`` (``_bn_core``): the output, the running stats it
+    stores, and the gradients of sum(y * w) in x, gamma and beta (they
+    flow through the batch moments)."""
+    c = 6
+    jmod = (jlayers.ConditionalBatchNorm(c, num_classes=5) if conditional
+            else jlayers.BatchNorm(c))
+    flat = _flat_vars(jmod, seed=5)
+    rs = np.random.RandomState(6)
+    x = (2.0 * rs.randn(4, 3, 3, c) + 0.5).astype(np.float32)
+    w = rs.randn(4, 3, 3, c).astype(np.float32)
+    labels = np.array([0, 4, 2, 4])
+    variables = _jax_vars(flat)
+    extra = (jnp.asarray(labels),) if conditional else ()
+
+    def loss(x, params):
+        y, aux = jmod({"params": params, "aux": variables["aux"]}, x,
+                      *extra, train=True)
+        return jnp.sum(y * w), (y, aux)
+
+    (_, (want_y, want_aux)), (want_gx, want_gp) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(x),
+                                            variables["params"])
+    port = _load(tlayers.ConditionalBatchNorm(c, num_classes=5)
+                 if conditional else tlayers.BatchNorm(c), flat).train()
+    xt = _nchw(x).requires_grad_()
+    y = port(xt, torch.from_numpy(labels)) if conditional else port(xt)
+    gx, g_gamma, g_beta = torch.autograd.grad(
+        (y * _nchw(w)).sum(), (xt, port.gamma, port.beta))
+    np.testing.assert_allclose(_nhwc(y), np.asarray(want_y), atol=TOL,
+                               rtol=TOL)
+    for stat in ("mean", "var"):
+        np.testing.assert_allclose(getattr(port, stat).numpy(),
+                                   np.asarray(want_aux[stat]), atol=TOL,
+                                   rtol=TOL)
+    np.testing.assert_allclose(_nhwc(gx), np.asarray(want_gx), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(g_gamma.numpy(), np.asarray(want_gp["gamma"]),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(g_beta.numpy(), np.asarray(want_gp["beta"]),
+                               atol=TOL, rtol=TOL)
+
+
+def test_train_mode_batch_norm_stores_the_biased_variance():
+    bn = tlayers.BatchNorm(2).train()
+    x = torch.tensor([[1.0, 3.0], [5.0, 7.0]]).view(2, 2, 1, 1)
+    x = x.expand(2, 2, 2, 2).contiguous()
+    bn(x)
+    # per channel: values {1, 5} and {3, 7}, biased variance 4
+    torch.testing.assert_close(bn.mean, 0.01 * torch.tensor([3.0, 5.0]))
+    torch.testing.assert_close(bn.var, 0.99 + 0.01 * torch.tensor([4.0, 4.0]))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_sn_embedding_matches_jax(train):
+    jmod = jlayers.Embedding(5, 6, sn=True)
+    flat = _flat_vars(jmod, seed=7)
+    ids = np.array([0, 4, 2, 4, 1])
+    want, aux = jmod(_jax_vars(flat), jnp.asarray(ids), train=train)
+    port = _load(tlayers.Embedding(5, 6, sn=True), flat).train(train)
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    want_u = np.asarray(aux["u"]) if train else flat["aux/u"]
+    np.testing.assert_allclose(port.u.numpy(), want_u, atol=TOL)
+
+
+def test_global_sum_pool_is_an_fp32_spatial_sum():
+    x = torch.arange(24, dtype=torch.bfloat16).view(1, 2, 3, 4)
+    out = tlayers.global_sum_pool(x)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, torch.tensor([[66.0, 210.0]]))
 
 
 def test_conv_transpose_other_than_4x4_stride2_raises():

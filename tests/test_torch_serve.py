@@ -345,9 +345,3 @@ def test_generate_main_on_the_cpu_writes_samples(tmp_path):
     imgs = np.load(out / "samples_seed3.npz")["images"]
     assert imgs.shape == (5, 16, 16, 3) and imgs.dtype == np.uint8
     assert (out / "samples_seed3.png").stat().st_size > 0
-
-
-def test_generate_main_without_weights_names_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        generate.main(["--config_path", _write_config(tmp_path),
-                       "--device", "cpu"])

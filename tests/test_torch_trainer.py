@@ -1,0 +1,182 @@
+"""The port's training CLI and loop on the CPU (``python -m
+sagan_tpu_torch.main --device cpu``), on a copy of example_configs/test.py
+pointed at a small synthetic dataset: it writes a TensorBoard event file,
+PNG grids and a checkpoint; a re-run restores; a SIGTERM mid-epoch and a
+resume give bit-for-bit the state of an unbroken run; ``generate``
+without ``--weights`` samples the checkpoint's EMA generator."""
+
+import os
+import signal
+
+import numpy as np
+import pytest
+import torch
+
+from sagan_tpu_torch import generate
+from sagan_tpu_torch import main as train_cli
+from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
+from sagan_tpu_torch.train.checkpoint import CheckpointManager
+from sagan_tpu_torch.train.trainer import Trainer
+from sagan_tpu_torch.utils.config import load_config_file, resolve_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def data32(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_train_ds")
+    return make_synthetic_dataset(str(d), num=64, img_size=32,
+                                  num_classes=1, seed=1)
+
+
+def _config_file(tmp_path, data_path, **overrides):
+    """A copy of example_configs/test.py with its paths under tmp_path."""
+    overrides = {"data_path": data_path, "epoch": 2, "batch_size": 8,
+                 "steps_per_call": 2, "summary_step_freq": 4,
+                 "num_sample": 4, "num_devices": 1, "g_ema_decay": 0.9,
+                 "g_ema_start": 2, "print_variables": False,
+                 "log_dir": str(tmp_path / "logs"),
+                 "ckpt_dir": str(tmp_path / "ckpt"),
+                 "img_dir": str(tmp_path / "images"), **overrides}
+    path = tmp_path / "test_copy.py"
+    with open(os.path.join(ROOT, "example_configs", "test.py")) as f:
+        text = f.read()
+    path.write_text(f"{text}\nconfig.update({overrides!r})\n")
+    return str(path)
+
+
+def test_cli_trains_writes_and_restores(tmp_path, data32, capsys):
+    cfg = _config_file(tmp_path, data32)
+    trainer = train_cli.main(["--config_path", cfg, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "Initializing from scratch." in out
+    assert "epoch 1: G_loss=" in out and "ms/step)" in out
+    assert trainer.global_step() == 16   # 2 epochs x 64 / 8
+    logs = os.listdir(tmp_path / "logs")
+    assert any(f.startswith("events.out.tfevents") and
+               os.path.getsize(tmp_path / "logs" / f) > 1000 for f in logs)
+    assert sorted(os.listdir(tmp_path / "images")) == [
+        "epoch_0000.png", "epoch_0001.png"]
+    assert CheckpointManager(str(tmp_path / "ckpt")).all_steps() == [16]
+    # the compute dtype of test.py (bf16) trains with finite state
+    assert trainer.state.gen.dtype == torch.bfloat16
+    assert all(torch.isfinite(p).all() for p in
+               trainer.state.gen.parameters())
+
+    again = train_cli.main(["--config_path", cfg, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "Restored from checkpoint at step 16" in out
+    assert "training already complete" in out
+    for a, b in zip(trainer.state.gen.state_dict().values(),
+                    again.state.gen.state_dict().values()):
+        assert torch.equal(a, b)
+
+    # generate without --weights samples the checkpoint's EMA generator
+    written = generate.main(["--config_path", cfg, "--device", "cpu",
+                             "--num", "4", "--batch", "2", "--format", "npz",
+                             "--out", str(tmp_path / "samples")])
+    assert "(EMA generator)" in capsys.readouterr().out
+    imgs = np.load(written[0])["images"]
+    assert imgs.shape == (4, 32, 32, 3) and imgs.dtype == np.uint8
+    gen = generate.restore_generator(
+        resolve_config(load_config_file(cfg)), "cpu")
+    assert not gen.training
+    for name, p in gen.named_parameters():
+        assert torch.equal(p, trainer.state.ema[name]), name
+
+
+def _trainer(tmp_path, data_path, ckpt):
+    config = resolve_config(load_config_file(_config_file(
+        tmp_path, data_path, compute_dtype="float32", log_dir=None,
+        img_dir=None, ckpt_dir=ckpt)))
+    return Trainer(config, device="cpu")
+
+
+def test_sigterm_mid_epoch_then_resume_is_bit_identical(tmp_path, data32):
+    unbroken = _trainer(tmp_path, data32, None)
+    unbroken.train()
+
+    ckpt = str(tmp_path / "preempt_ckpt")
+    first = _trainer(tmp_path, data32, ckpt)
+    step_fn = first.train_step
+    calls = {"n": 0}
+
+    def signalled(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 6:   # the 2nd of epoch 1's 4 calls
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step_fn(*args, **kwargs)
+
+    before = signal.getsignal(signal.SIGTERM)
+    first.train_step = signalled
+    first.train()
+    assert signal.getsignal(signal.SIGTERM) is before
+    assert first.global_step() == 12
+    assert CheckpointManager(ckpt).all_steps() == [12]
+
+    resumed = _trainer(tmp_path, data32, ckpt)
+    assert resumed.global_step() == 12
+    resumed.train()
+    assert resumed.global_step() == unbroken.global_step() == 16
+    for part in ("gen", "disc", "opt_g", "opt_d", "ema"):
+        want = unbroken.checkpoint_payload()[part]
+        got = resumed.checkpoint_payload()[part]
+        flat_w = torch.utils._pytree.tree_leaves(want)
+        flat_g = torch.utils._pytree.tree_leaves(got)
+        assert len(flat_w) == len(flat_g), part
+        for w, g in zip(flat_w, flat_g):
+            if isinstance(w, torch.Tensor):
+                assert torch.equal(w, g), part
+            else:
+                assert w == g, part
+
+
+def test_generate_without_weights_or_checkpoint_raises(tmp_path, data32):
+    cfg = _config_file(tmp_path, data32, ckpt_dir=str(tmp_path / "none"))
+    with pytest.raises(FileNotFoundError, match="train first"):
+        generate.main(["--config_path", cfg, "--device", "cpu"])
+
+
+def test_checkpoints_keep_the_newest_and_skip_unreadable(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=3)
+    for step in range(5):
+        mgr.save(step, {"step": step, "w": torch.full((2,), float(step))})
+    assert mgr.all_steps() == [2, 3, 4]
+    with open(mgr.path(4), "wb") as f:
+        f.write(b"not a checkpoint")
+    assert mgr.restore_latest()["step"] == 3
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+
+
+@pytest.mark.parametrize("update,match", [
+    ({"num_devices": 2}, "multi-GPU"),
+    ({"model_parallel": 2}, "model_parallel"),
+    ({"remat": True}, "remat"),
+    ({"grad_accum_steps": 2}, "grad_accum_steps"),
+    ({"device_cache": True}, "device_cache"),
+])
+def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
+                                                        update, match):
+    config = resolve_config(load_config_file(_config_file(
+        tmp_path, data32)), num_local_devices=2)
+    config.update(update)
+    with pytest.raises(NotImplementedError, match=match):
+        Trainer(config, device="cpu")
+
+
+def test_a_run_that_reaches_an_fid_epoch_raises_at_start(tmp_path, data32):
+    config = resolve_config(load_config_file(_config_file(
+        tmp_path, data32, fid_epoch_freq=2, ckpt_dir=None)))
+    trainer = Trainer(config, device="cpu")
+    with pytest.raises(NotImplementedError, match="FID"):
+        trainer.train()
+    assert trainer.global_step() == 0
+    trainer.train(num_epochs=1)   # epoch 0 is not an FID epoch
+    assert trainer.global_step() == 8
+
+
+def test_trainer_refuses_the_cpu_unasked(tmp_path, data32, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = resolve_config(load_config_file(_config_file(tmp_path, data32)))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        Trainer(config)
