@@ -9,7 +9,7 @@ Phases, each printed as it ends:
      sources in this checkout (``nvcc``, into ``build/kernels/``);
   2. the attention forward (K1) against its plain PyTorch version on the
      card, at G's sites at the serving batches and D's at the training
-     batches, in bf16 and fp32, with times of the kernel, the plain version
+     batches (church64's and church512's D sites), in bf16 and fp32, with times of the kernel, the plain version
      and one PyTorch library call, and every (dtype, d, c) instance at a
      ragged shape;
   3. the full-width church64 generator from a seeded init (every attention
@@ -20,7 +20,8 @@ Phases, each printed as it ends:
      ``GeneratorService`` at batch 64 with ladder (1, 8); the kernel
      launch counts are zeroed just before and read just after;
   5. the attention backward (K2) against its plain version at every
-     attention site of a church64 training step, bf16 and fp32, with
+     attention site of a church64 training step and at church512's D
+     site, bf16 and fp32, with
      times (the library call is autograd through
      ``scaled_dot_product_attention``), and every (dtype, d, c) instance
      at a ragged shape;
@@ -39,7 +40,30 @@ Phases, each printed as it ends:
      imgs/s and ms/step and launch counts (8 K1 and 6 K2 per step, 2 K1
      per sample-grid forward; zeroed just before, read just after); a
      restart that restores the checkpoint and trains a third epoch; and
-     ``generate`` sampling the checkpoint's EMA generator.
+     ``generate`` sampling the checkpoint's EMA generator;
+  8. the flash kernels at the church512 512-map site (N=262144, M=65536,
+     d=2, c=8) at the config's B=4 and at B=8, bf16 and fp32: the forward
+     K3 (o and lse), the backward kernels K4, K5 and K6 on K3's (o, lse),
+     each against its plain version run in query-row chunks, K6 against
+     K4 + K5, and in fp32 each dq against float64 on the rows where they
+     differ most; at B=4 with times of the kernels, the plain versions and
+     ``scaled_dot_product_attention`` on a backend that does not
+     materialise the logits (q and k zero-padded to a width it takes);
+  9. K3-K6 at every (dtype, d, c) instance at two ragged shapes, one of
+     them past K6's key block;
+ 10. ``FlashAttention`` gradients at a small flash-routed shape against
+     autograd through the plain forward, on the card;
+ 11. serving church512: the fp32 generator at 512 px (BN statistics of
+     one batch, as an untrained G's eval output is flat) through K3
+     against the same weights with ``use_pallas=False`` (the chunked
+     plain forward), then the bf16 generator over HTTP at n = 1 and 4,
+     with the K3 launches zeroed just before and read just after;
+ 12. training church512 through the entry point on 64 synthetic 512 px
+     records for one epoch at the config's B=4, ``steps_per_call`` 4, with
+     exact K3/K6/K1/K2 launch counts and nonzero gradients of the 512
+     site's theta/phi/g;
+ 13. one church512 training step at B=8, whose G backward takes K4 + K5
+     (the dq partials of K6 would pass the JAX package's slab limit).
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -60,11 +84,13 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from sagan_tpu_torch import generate
 from sagan_tpu_torch import main as train_cli
@@ -72,10 +98,14 @@ from sagan_tpu_torch.convert import export_generator_npz
 from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
 from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
 from sagan_tpu_torch.models import get_discriminator, get_generator
+from sagan_tpu_torch.nn import layers
 from sagan_tpu_torch.nn.attention import SelfAttention
 from sagan_tpu_torch.ops import _build, cuda_attention
-from sagan_tpu_torch.ops.attention import (attention_bwd_reference,
-                                           attention_reference)
+from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
+                                           attention_flash_bwd_reference,
+                                           attention_flash_reference,
+                                           attention_reference,
+                                           flash_bwd_fused, plain_chunk)
 from sagan_tpu_torch.serve import GeneratorService, make_server
 from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
@@ -88,11 +118,14 @@ SEED = 0
 
 # (site, N, M, d, c, batches) of every attention site of a church64
 # training step: G's at B=64, D's at B=128 (fused real+fake D update) and
-# B=64 (G update)
+# B=64 (G update); then church512's D site, which K1/K2 take too, at the
+# batches of its training steps: B=8 and 4 at the config's B=4 (phase 12),
+# B=16 and 8 in the B=8 step (phase 13)
 TRAIN_SITES = (("G 64map", 4096, 1024, 2, 8, (64,)),
                ("G 32map", 1024, 256, 4, 16, (64,)),
                ("D 8map", 64, 16, 8, 32, (128, 64)),
-               ("D 4map", 16, 4, 16, 64, (128, 64)))
+               ("D 4map", 16, 4, 16, 64, (128, 64)),
+               ("church512 D 64map", 4096, 1024, 8, 32, (16, 8, 4)))
 # the forward's calls held against its plain version: G's sites at the
 # serving batches 64 and 1, D's at the training batches
 FWD_CALLS = tuple((site, n, m, d, c, b)
@@ -126,10 +159,10 @@ def require(cond: bool, what) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` calls, after 3
-    warm-up calls, between two CUDA events."""
-    for _ in range(3):
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` calls, after
+    ``warmup`` calls, between two CUDA events."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -145,12 +178,21 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build(cuda_attention.build_specs())
     seconds = time.perf_counter() - t0
-    logs = "".join(p.with_suffix(".log").read_text() for p in paths.values())
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", logs)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", logs)]
-    print(f"phase 1 build: {len(paths)} libraries ({len(regs)} kernels) in "
-          f"{seconds:.1f} s; registers max {max(regs)}, spill stores max "
-          f"{max(spills)} bytes", flush=True)
+    per_source = {}
+    for (name, _), path in paths.items():
+        per_source[name] = per_source.get(name, "") + \
+            path.with_suffix(".log").read_text()
+    report, kernels = [], 0
+    for name, logs in per_source.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", logs)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             logs)]
+        kernels += len(regs)
+        report.append(f"{name} registers max {max(regs)}, spill stores max "
+                      f"{max(spills)} bytes")
+    print(f"phase 1 build: {len(paths)} libraries ({kernels} kernels), one "
+          f"nvcc each, all started together: {seconds:.1f} s in total; "
+          + "; ".join(report), flush=True)
 
 
 def attention_bound_ms(b, n, m, d, c, dtype) -> tuple[float, str]:
@@ -261,22 +303,27 @@ def _bwd_inputs(gen, b, n, m, d, c, dtype):
             for s in shapes]
 
 
-def _bwd_errors(q, k, v, g, dtype) -> tuple[float, float]:
-    """(worst error over dq, dk, dv as a share of its tolerance, worst
-    absolute error) of K2 against the plain backward."""
-    got = cuda_attention.attention_bwd_fused(q, k, v, g)
-    want = attention_bwd_reference(q, k, v, g)
+def _grad_errors(got, want, tol: float) -> tuple[float, float]:
+    """(worst error over the outputs as a share of ``tol`` x max|plain|,
+    worst absolute error)."""
     torch.cuda.synchronize()
     share, worst = 0.0, 0.0
-    for x, y in zip(got, want):
+    for x, y in zip(got, want, strict=True):
         require(x.dtype == y.dtype and x.shape == y.shape,
-                f"attention_bwd output {x.dtype} {tuple(x.shape)} vs plain "
+                f"kernel output {x.dtype} {tuple(x.shape)} vs plain "
                 f"{y.dtype} {tuple(y.shape)}")
         err = (x.float() - y.float()).abs().max().item()
         scale = max(y.float().abs().max().item(), 1e-30)
-        share = max(share, err / (BWD_TOL[dtype] * scale))
+        share = max(share, err / (tol * scale))
         worst = max(worst, err)
     return share, worst
+
+
+def _bwd_errors(q, k, v, g, dtype) -> tuple[float, float]:
+    """(worst error over dq, dk, dv as a share of its tolerance, worst
+    absolute error) of K2 against the plain backward."""
+    return _grad_errors(cuda_attention.attention_bwd_fused(q, k, v, g),
+                        attention_bwd_reference(q, k, v, g), BWD_TOL[dtype])
 
 
 def phase_bwd_kernels(card: str) -> dict:
@@ -751,10 +798,582 @@ def phase_train_cli(card: str) -> tuple[int, int]:
     return results["run"]
 
 
+CHURCH512 = ROOT / "example_configs" / "church512_attn.py"
+# church512's G site, the flash path's (B, N, M, d, c) at the config's B
+FLASH_SITE = (4, 512 * 512, 256 * 256, 2, 8)
+# phase 8's batches there: the config's, whose backward takes K6 (timed),
+# and that of phase 13's step, whose backward takes K4 + K5
+FLASH_BATCHES = (4, 8)
+# the flash kernels vs their plain versions.  K3's o per query row: the
+# row's max|kernel - plain| <= TOL x the row's max|plain| (ROW_FLOOR
+# where that is smaller).  A scale of the whole tensor would not do: at the
+# 512 map a typical row averages v over ~10^4 keys (|o| ~ 0.01), while a
+# few rows with large |q| attend to one key (|o| ~ 2).  ROW_FLOOR is the
+# spread of a row that weighs v's unit normals evenly over 65,536 keys.
+# lse, fp32 in both dtypes from the same logits: LSE_TOL x max(1,
+# max|plain|), the kernel sums exp in another order with the SFU
+# exponential.  K4-K6, per output, BWD_TOL x max|plain| as K2: bf16,
+# both round the outputs to bf16, and the plain version also rounds dL and
+# P to bf16 on the way, as the TPU kernels do; fp32, each sums in another
+# order (in tiles and blocks of up to 1,024 keys; on the rows where they
+# differ most, each dq is within 4e-6 of max|dq| of its float64 value).
+ROW_FLOOR = 1 / 256
+LSE_TOL = 1e-5
+# fp32 dq vs float64 on the rows where the kernels and the plain version
+# differ most
+F64_ROWS = 64
+# synthetic 512 px records of the church512 run: 16 steps an epoch at
+# B=4, 4 calls of steps_per_call 4
+SMOKE512_RECORDS = 64
+SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION]
+
+
+def _flash_bound_ms(kind, b, n, m, d, c, dtype) -> tuple[float, str]:
+    """Least time of one flash call: the bytes its function must move
+    (each input read once, each output written once; lse is fp32) over the
+    HBM rate, or the FLOPs the JAX package declares for its kernel over
+    the operand type's peak, whichever is larger."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows = {"fwd": (n * d + m * d + m * c + n * c, 4 * n),
+            "dq": (n * d + m * d + m * c + 2 * n * c + n * d, 4 * n),
+            "dkv": (n * d + 2 * m * d + 2 * m * c + 2 * n * c, 4 * n),
+            "dqkv": (2 * n * d + 2 * m * d + 2 * m * c + 2 * n * c, 4 * n)}
+    flops = {"fwd": d + c, "dq": 2 * d + c, "dkv": 2 * d + 2 * c,
+             "dqkv": 3 * d + 2 * c}
+    elems, lse_bytes = rows[kind]
+    bytes_ms = b * (size * elems + lse_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b * n * m * flops[kind] / PEAK_FLOPS[dtype] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def _sdpa_flash(q, k, v, g, ref_o) -> dict:
+    """``scaled_dot_product_attention(scale=1.0)`` on a backend that does
+    not materialise the [B, N, M] logits, on [B, 1, L, E] views: first
+    as given, then with q and k zero-padded to 8 wide (the logits do not
+    change) where no such backend takes d.  Returns its forward and
+    backward (autograd) ms, its error against the plain o and a note, or
+    Nones and why no backend took the call."""
+    q4, k4, v4, g4 = (t.unsqueeze(1) for t in (q, k, v, g))
+    why = []
+    for pad in (0, max(0, 8 - q.shape[2])):
+        if why and not pad:
+            break
+        qp, kp = (F.pad(t, (0, pad)) if pad else t for t in (q4, k4))
+        qp, kp, vp = (t.detach().requires_grad_() for t in (qp, kp, v4))
+        with sdpa_kernel(SDPA_BACKENDS), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                out = F.scaled_dot_product_attention(qp, kp, vp, scale=1.0)
+            except RuntimeError:
+                # each backend warns why it declined: keep the reasons
+                reasons = {re.sub(r"\s*\(Triggered internally.*", "", line)
+                           .strip()[:100]
+                           for w in caught
+                           for line in str(w.message).splitlines()
+                           if re.search(r"requires|Expected|should be",
+                                        line)}
+                why.append(f"{'padded' if pad else 'as given'}: "
+                           + " / ".join(sorted(reasons)))
+                continue
+            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qp, kp, vp, scale=1.0), iters=5, warmup=1)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (qp, kp, vp), g4, retain_graph=True), iters=3, warmup=1)
+        err = (out.squeeze(1).float() - ref_o.float()).abs().max().item()
+        note = (f"q, k zero-padded {q.shape[2]} -> {q.shape[2] + pad}"
+                if pad else "as given")
+        return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "err": err,
+                "note": "; ".join(why + [note])}
+    return {"fwd_ms": None, "bwd_ms": None, "err": None,
+            "note": "no backend: " + "; ".join(why)}
+
+
+def _o_errors(o, ref_o, dtype) -> tuple[float, float, float]:
+    """K3's o against the plain o: (worst row's error as a share of its
+    tolerance, worst absolute error, the whole tensor's max|plain|)."""
+    torch.cuda.synchronize()
+    want = ref_o.float()
+    err = (o.float() - want).abs().amax(dim=-1)
+    scale = want.abs().amax(dim=-1).clamp_min(ROW_FLOOR)
+    return ((err / (TOL[dtype] * scale)).max().item(), err.max().item(),
+            want.abs().max().item())
+
+
+def _dq_f64(q, k, v, o, lse, g, dqs: dict) -> dict:
+    """Each fp32 dq of ``dqs`` ({name: [B, N, d]}) against float64 on the
+    ``F64_ROWS`` rows where they differ most: p = exp(q.k - lse),
+    delta = g.o and dq = sum_j p (g.v_j - delta) k_j from the same fp32
+    inputs, all in float64.  Returns {name: max abs error}."""
+    b, n, _ = q.shape
+    stack = torch.stack([x.float() for x in dqs.values()])
+    spread = (stack.amax(0) - stack.amin(0)).amax(-1).flatten()
+    idx = spread.topk(F64_ROWS).indices
+    bi, ni = idx // n, idx % n
+    kb, vb = k[bi].double(), v[bi].double()                # [R, M, *]
+    s = torch.einsum("rd,rmd->rm", q[bi, ni].double(), kb)
+    p = torch.exp(s - lse[bi, ni].double())
+    gr = g[bi, ni].double()
+    delta = (gr * o[bi, ni].double()).sum(-1, keepdim=True)
+    dl = p * (torch.einsum("rc,rmc->rm", gr, vb) - delta)
+    want = torch.einsum("rm,rmd->rd", dl, kb)
+    return {name: (x[bi, ni].double() - want).abs().max().item()
+            for name, x in dqs.items()}
+
+
+def phase_flash_kernels(card: str) -> dict:
+    """K3-K6 against their plain versions at the church512 512-map site,
+    bf16 and fp32, at B=4 and 8, K6 against K4 + K5 on the same (o, lse),
+    and in fp32 each dq against float64 on its worst rows; times at B=4.
+    Returns {kernel: its bf16 B=4 row}."""
+    _, n, m, d, c = FLASH_SITE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    heads = {}
+    for b in FLASH_BATCHES:
+        chunk = plain_chunk(b, n, m)
+        timed = b == FLASH_SITE[0]
+        site = f"G 512map B={b} N={n} M={m} d={d} c={c}"
+        part = cuda_attention.dq_partial_shape(b, n, m, d, c)
+        print(f"phase 8 K6 dq partials at {site}: "
+              f"{cuda_attention.keys_per_block(d, c)} keys a block, {part} "
+              f"fp32, {4 * math.prod(part) / 1e6:.1f} MB; plain versions in "
+              f"chunks of {chunk} query rows", flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
+            o, lse = cuda_attention.attention_flash_fwd(q, k, v)
+            ref_o, ref_lse = attention_flash_reference(q, k, v, chunk)
+            share, err, o_max = _o_errors(o, ref_o, dtype)
+            lse_scale = max(1.0, ref_lse.abs().max().item())
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = share <= 1 and lse_err <= LSE_TOL * lse_scale
+            line = (f"phase 8 kernel attention_flash_fwd (K3) {site} {name}: "
+                    f"o max_abs_err {err:.3g} (max|plain| {o_max:.3g}), worst "
+                    f"row {share:.3f} of tol {TOL[dtype]:g} x max(row "
+                    f"max|plain|, {ROW_FLOOR:g}); lse max_abs_err "
+                    f"{lse_err:.3g} (tol {LSE_TOL:g} x max(1, "
+                    f"{lse_scale:.3g})) {'ok' if ok else 'FAIL'}")
+            if timed:
+                ms = cuda_ms(lambda: cuda_attention.attention_flash_fwd(
+                    q, k, v), iters=5, warmup=1)
+                plain_ms = cuda_ms(lambda: attention_flash_reference(
+                    q, k, v, chunk), iters=1, warmup=0)
+                lib = _sdpa_flash(q, k, v, g, ref_o)
+                bound = _flash_bound_ms("fwd", b, n, m, d, c, dtype)
+                line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                         f"{lib['fwd_ms']} (sdpa {lib['note']}; err "
+                         f"{lib['err']}) bound_ms {bound[0]:.4g} "
+                         f"({bound[1]})")
+                if dtype == torch.bfloat16:
+                    heads["fwd"] = {"max_abs_err": err, "ms": ms,
+                                    "plain_ms": plain_ms,
+                                    "bound_ms": bound[0],
+                                    "bound_by": bound[1],
+                                    "library_ms": lib["fwd_ms"]}
+            print(f"{line} on {card}", flush=True)
+            require(ok, f"attention_flash_fwd disagrees with the plain "
+                        f"version at {site} {name}")
+            del ref_o, ref_lse
+
+            want = attention_flash_bwd_reference(q, k, v, o, lse, g, chunk)
+            tol = BWD_TOL[dtype]
+            if timed:
+                plain_ms = cuda_ms(lambda: attention_flash_bwd_reference(
+                    q, k, v, o, lse, g, chunk), iters=1, warmup=0)
+            calls = {
+                "dq": (lambda: (cuda_attention.attention_flash_dq(
+                    q, k, v, o, lse, g),), want[:1]),
+                "dkv": (lambda: cuda_attention.attention_flash_dkv(
+                    q, k, v, o, lse, g), want[1:]),
+                "dqkv": (lambda: cuda_attention.attention_flash_dqkv(
+                    q, k, v, o, lse, g), want)}
+            got = {}
+            for kind, (fn, ref) in calls.items():
+                got[kind] = fn()
+                share, err = _grad_errors(got[kind], ref, tol)
+                line = (f"phase 8 kernel attention_flash_{kind} {site} "
+                        f"{name}: max_abs_err {err:.3g}, worst {share:.3f} "
+                        f"of tol {tol:g} x max|plain| "
+                        f"{'ok' if share <= 1 else 'FAIL'}")
+                if timed:
+                    ms = cuda_ms(fn, iters=3, warmup=1)
+                    bound = _flash_bound_ms(kind, b, n, m, d, c, dtype)
+                    lib_ms = lib["bwd_ms"] if kind == "dqkv" else None
+                    line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} (the "
+                             f"plain backward computes all three) "
+                             f"library_ms {lib_ms} ("
+                             + ("autograd through the sdpa call above"
+                                if lib_ms else "no PyTorch call computes "
+                                               "this part alone")
+                             + f") bound_ms {bound[0]:.4g} ({bound[1]})")
+                    if dtype == torch.bfloat16:
+                        heads[kind] = {"max_abs_err": err, "ms": ms,
+                                       "plain_ms": plain_ms,
+                                       "bound_ms": bound[0],
+                                       "bound_by": bound[1],
+                                       "library_ms": lib_ms}
+                print(f"{line} on {card}", flush=True)
+                require(share <= 1, f"attention_flash_{kind} disagrees with "
+                                    f"the plain backward at {site} {name}")
+            share, err = _grad_errors(got["dqkv"], got["dq"] + got["dkv"], tol)
+            same = all(torch.equal(x, y)
+                       for x, y in zip(got["dqkv"][1:], got["dkv"]))
+            print(f"phase 8 K6 vs K4 + K5 on the same (o, lse) at {site} "
+                  f"{name}: max_abs_err {err:.3g}, worst {share:.3f} of tol "
+                  f"{tol:g} x max|K4 + K5|; dk, dv bitwise equal {same}",
+                  flush=True)
+            require(share <= 1, f"K6 disagrees with K4 + K5 at {site} {name}")
+            if dtype == torch.float32:
+                scale = want[0].abs().max().item()
+                errs = _dq_f64(q, k, v, o, lse, g, {
+                    "K4": got["dq"][0], "K6": got["dqkv"][0],
+                    "plain": want[0]})
+                print(f"phase 8 dq vs float64 on the {F64_ROWS} rows where "
+                      f"K4, K6 and the plain dq differ most, {site} fp32 "
+                      f"(max|plain dq| {scale:.3g}): " + "; ".join(
+                          f"{key} {x:.3g} ({x / scale:.2g} of max|dq|)"
+                          for key, x in errs.items()), flush=True)
+                require(all(x <= tol * scale for x in errs.values()),
+                        f"a dq is off its float64 value: {errs}")
+            del want, got
+    return heads
+
+
+def _flash_errors(q, k, v, g, dtype) -> float:
+    """Worst error of K3-K6 against the plain versions, and of K6 against
+    K4 + K5, as a share of each tolerance."""
+    o, lse = cuda_attention.attention_flash_fwd(q, k, v)
+    ref_o, ref_lse = attention_flash_reference(q, k, v)
+    share = max(_o_errors(o, ref_o, dtype)[0],
+                (lse - ref_lse).abs().max().item()
+                / (LSE_TOL * max(1.0, ref_lse.abs().max().item())))
+    tol = BWD_TOL[dtype]
+    want = attention_flash_bwd_reference(q, k, v, o, lse, g)
+    dq = cuda_attention.attention_flash_dq(q, k, v, o, lse, g)
+    dk, dv = cuda_attention.attention_flash_dkv(q, k, v, o, lse, g)
+    fused = cuda_attention.attention_flash_dqkv(q, k, v, o, lse, g)
+    for got, ref in (((dq, dk, dv), want), (fused, want),
+                     (fused, (dq, dk, dv))):
+        share = max(share, _grad_errors(got, ref, tol)[0])
+    return share
+
+
+def phase_flash_all_widths() -> None:
+    """Every (dtype, d, c) instance of K3-K6 against the plain versions at
+    two ragged shapes: B=3, N=100, M=37, and B=2, N=300, M=2100, past the
+    key block of K5 and K6 at every width."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    worst, count = 0.0, 0
+    for b, n, m in ((3, 100, 37), (2, 300, 2100)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in cuda_attention.SUPPORTED_D:
+                for c in cuda_attention.SUPPORTED_C:
+                    share = _flash_errors(
+                        *_bwd_inputs(gen, b, n, m, d, c, dtype), dtype)
+                    worst = max(worst, share)
+                    count += 1
+                    require(share <= 1, f"flash kernels at B={b} N={n} M={m} "
+                            f"d={d} c={c} {dtype}: {share:.3f} of tolerance")
+    print(f"phase 9 kernels attention_flash_fwd/dq/dkv/dqkv, all "
+          f"{count // 2} (dtype, d, c) instances at B=3 N=100 M=37 and B=2 "
+          f"N=300 M=2100: worst error {worst:.3f} of its tolerance",
+          flush=True)
+
+
+def _zero_counts() -> None:
+    for name in ("LAUNCHES", "BWD_LAUNCHES", "FLASH_FWD_LAUNCHES",
+                 "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
+                 "FLASH_DQKV_LAUNCHES"):
+        setattr(cuda_attention, name, 0)
+
+
+def _counts() -> dict:
+    """Launches since the last ``_zero_counts``, by kernel."""
+    a = cuda_attention
+    return {"K1": a.LAUNCHES, "K2": a.BWD_LAUNCHES,
+            "K3": a.FLASH_FWD_LAUNCHES, "K4": a.FLASH_DQ_LAUNCHES,
+            "K5": a.FLASH_DKV_LAUNCHES, "K6": a.FLASH_DQKV_LAUNCHES}
+
+
+def phase_flash_autograd() -> None:
+    """``FlashAttention`` through ``attention()`` at a small flash-routed
+    shape, gradients against autograd through the plain forward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    b, n, m, d, c = 2, 1024, 8192, 2, 8
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        _zero_counts()
+        out = attention(*leaves)
+        got = torch.autograd.grad(out, leaves, g)
+        counts = _counts()
+        ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention_reference(*ref_leaves),
+                                   ref_leaves, g)
+        share, err = _grad_errors(got, want, BWD_TOL[dtype])
+        name = str(dtype).removeprefix("torch.")
+        fused = flash_bwd_fused(b, n, m, d, c, q.element_size())
+        print(f"phase 10 FlashAttention B={b} N={n} M={m} d={d} c={c} "
+              f"{name}: gradients vs autograd through the plain forward "
+              f"max_abs_err {err:.3g}, worst {share:.3f} of tol "
+              f"{BWD_TOL[dtype]:g} x max|plain|; launches {counts}",
+              flush=True)
+        require(share <= 1 and fused, f"FlashAttention gradients {name}: "
+                f"{share:.3f} of tolerance")
+        require(counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0,
+                           "K6": 1}, f"FlashAttention launched {counts}")
+
+
+def church512_config(dtype: str) -> dict:
+    config = resolve_config(load_config_file(str(CHURCH512)))
+    config.update(img_size=512, num_classes=1, compute_dtype=dtype)
+    return config
+
+
+def _church512_nets(config, seed):
+    """Seeded church512 G and D (CPU) with every attention sigma nonzero."""
+    gen = get_generator(config, rng=torch.Generator().manual_seed(seed))
+    disc = get_discriminator(config,
+                             rng=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        for mod in (m for net in (gen, disc) for m in net.modules()
+                    if isinstance(m, SelfAttention)):
+            mod.sigma.fill_(0.5)
+    return gen, disc
+
+
+def _calibrate_bn(gen) -> None:
+    """Set every BN's running statistics to the moments of one train-mode
+    batch (momentum 0 for that forward).  At init the eval-mode BN (mean
+    0, var 1) shrinks G's activations ~3x a stage: after church512's 7
+    stages its output is ~1e-4, one uint8 value everywhere."""
+    momentum = layers.BN_MOMENTUM
+    layers.BN_MOMENTUM = 0.0
+    z = torch.randn(4, 128, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED + 31))
+    try:
+        gen.train()
+        with torch.no_grad():
+            gen(z, torch.zeros(4, dtype=torch.long, device="cuda"))
+    finally:
+        layers.BN_MOMENTUM = momentum
+        gen.eval()
+
+
+def phase_serve512(card: str) -> int:
+    """church512 served: fp32 G (BN statistics of one batch) through K3
+    against the chunked plain forward on the card, then bf16 over HTTP.
+    Returns the K3 launches of the HTTP path."""
+    gen32, _ = _church512_nets(church512_config("float32"), SEED + 30)
+    gen32.to("cuda")
+    _calibrate_bn(gen32)
+    plain = copy.deepcopy(gen32)
+    for mod in plain.modules():
+        if isinstance(mod, SelfAttention):
+            mod.use_pallas = False
+    z = torch.randn(1, 128, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    labels = torch.zeros(1, dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        _zero_counts()
+        got = gen32(z, labels)
+        torch.cuda.synchronize()
+        counts = _counts()
+        t0 = time.perf_counter()
+        want = plain(z, labels)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    err = (got - want).abs().max().item()
+    std = want.std().item()
+    print(f"phase 11 church512 G fp32 B=1 through K3 vs use_pallas=False "
+          f"(chunked plain, {plain_s:.2f} s) on the card: shape "
+          f"{tuple(got.shape)} max_abs_err {err:.3g} (tol {G_TOL:g}), "
+          f"output std {std:.3g}; launches {counts} on {card}", flush=True)
+    require(err <= G_TOL and got.shape == (1, 3, 512, 512) and std > 1e-2
+            and counts["K3"] == 1 and bool(torch.isfinite(got).all()),
+            "church512 G through K3 disagrees with the plain forward")
+    del plain, got, want
+
+    smoke_dir = ROOT / "build" / "smoke"
+    smoke_dir.mkdir(parents=True, exist_ok=True)
+    config = church512_config("bfloat16")
+    weights = export_generator_npz(gen32.cpu(),
+                                   str(smoke_dir / "church512_g.npz"), config)
+    del gen32
+    _zero_counts()                   # the serving path starts here
+    t0 = time.perf_counter()
+    gen = load_generator_npz(config, weights, "cuda")
+    svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
+                           batch=4, ladder=(1,))
+    startup_s = time.perf_counter() - t0
+    forwards = len(svc.ladder)
+    srv = make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+    try:
+        status, _, body, _ = _get(base + "/meta")
+        meta = json.loads(body)
+        require(status == 200 and meta["img_size"] == 512
+                and meta["ladder"] == [1, 4], meta)
+        for n in (1, 4):
+            times = []
+            for rep in range(3):
+                status, headers, body, sec = _get(
+                    f"{base}/sample?n={n}&seed={rep}&format=raw")
+                forwards += len(list(svc._chunks(n)))
+                imgs = np.frombuffer(body, np.uint8).reshape(n, 512, 512, 3)
+                require(status == 200
+                        and headers["X-Image-Shape"] == f"{n}x512x512x3",
+                        headers)
+                require(imgs.std() > 0, "served images are constant")
+                times.append(sec * 1e3)
+            print(f"phase 11 serve church512 /sample?n={n}&format=raw: 200, "
+                  f"{n}x512x512x3 uint8; latency ms median "
+                  f"{statistics.median(times):.2f} of {len(times)} "
+                  f"({', '.join(f'{t:.2f}' for t in times)}); startup "
+                  f"{startup_s:.2f} s on {card}", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    counts = _counts()               # the serving path ends here
+    print(f"phase 11 serve church512: launches {counts} for {forwards} "
+          f"generator forwards (one attention site each, on the flash "
+          f"path)", flush=True)
+    require(counts == {"K1": 0, "K2": 0, "K3": forwards, "K4": 0, "K5": 0,
+                       "K6": 0}, f"expected {forwards} K3 launches only, "
+                                 f"counted {counts}")
+    return counts["K3"]
+
+
+def _site_norms(names, norms, side: int) -> dict:
+    """{name: gradient norm} of attention site ``side``'s theta/phi/g."""
+    return {n: float(x) for n, x in zip(names, norms)
+            if re.fullmatch(rf"attn{side}\.(theta|phi|g)\.w", n)}
+
+
+def phase_train512(card: str) -> dict:
+    """Train church512 through the entry point for one epoch on synthetic
+    512 px records.  Returns the launches by kernel."""
+    smoke = ROOT / "build" / "smoke"
+    data = smoke / "church512_synthetic"
+    for sub in ("ckpt512", "logs512", "images512"):
+        shutil.rmtree(smoke / sub, ignore_errors=True)
+    if not (data / "metadata.pickle").exists():
+        t0 = time.perf_counter()
+        make_synthetic_dataset(str(data), num=SMOKE512_RECORDS, img_size=512,
+                               num_classes=1, seed=SEED)
+        print(f"phase 12 data: {SMOKE512_RECORDS} synthetic 512 px records "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    config_file = smoke / "church512_smoke.py"
+    config_file.write_text(
+        f"import runpy\n"
+        f"config = dict(runpy.run_path({str(CHURCH512)!r})['config'])\n"
+        f"config.update(data_path={str(data)!r}, epoch=1, fid_epoch_freq=0, "
+        f"ckpt_dir={str(smoke / 'ckpt512')!r}, "
+        f"log_dir={str(smoke / 'logs512')!r}, "
+        f"img_dir={str(smoke / 'images512')!r}, print_variables=False)\n")
+
+    fetched = []
+    fetch = Trainer._fetch
+
+    def kept(self, metrics):
+        out = fetch(self, metrics)
+        fetched.append(dict(out))
+        return out
+
+    grids = []
+    sample = Trainer.sample_images
+
+    def counted(self):
+        grids.append(1)
+        return sample(self)
+
+    Trainer._fetch, Trainer.sample_images = kept, counted
+    out = io.StringIO()
+    try:
+        _zero_counts()               # the training path starts here
+        with contextlib.redirect_stdout(out):
+            trainer = train_cli.main(["--config_path", str(config_file),
+                                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = _counts()           # the training path ends here
+    finally:
+        Trainer._fetch, Trainer.sample_images = fetch, sample
+    text = out.getvalue()
+    epochs = re.findall(r"^epoch (\d+): G_loss=(\S+) D_loss=(\S+) .*"
+                        r"\(([\d.]+) imgs/s, ([\d.]+) ms/step\)$", text,
+                        re.MULTILINE)
+    steps = trainer.global_step()
+    for epoch, g_loss, d_loss, imgs_s, ms_step in epochs:
+        print(f"phase 12 train church512 epoch {epoch}: G_loss {g_loss} "
+              f"D_loss {d_loss}, {imgs_s} imgs/s, {ms_step} ms/step (host "
+              f"clock over the epoch, loader and first-call set-up "
+              f"included) on {card}", flush=True)
+        require(math.isfinite(float(g_loss)) and math.isfinite(float(d_loss)),
+                f"church512 losses are not finite: {g_loss} {d_loss}")
+    norms = _site_norms(trainer.train_step.g_names,
+                        fetched[-1]["G_grad_norms"], 512)
+    want = {"K1": 2 * steps, "K2": 2 * steps, "K3": 2 * steps + len(grids),
+            "K4": 0, "K5": 0, "K6": steps}
+    print(f"phase 12 train church512: {steps} steps at B=4, {len(grids)} "
+          f"sample-grid forwards; launches {counts} (expected {want}); "
+          f"512-site gradient norms of the last call {norms}", flush=True)
+    require(len(epochs) == 1 and steps == SMOKE512_RECORDS // 4,
+            f"church512 run: {len(epochs)} epochs, {steps} steps")
+    require(counts == want, f"church512 launches {counts}, expected {want}")
+    require(len(norms) == 3 and min(norms.values()) > 0,
+            f"512-site attention weights without a gradient: {norms}")
+    return counts
+
+
+def phase_step512_b8(card: str) -> dict:
+    """One church512 training step at B=8 (bf16, the config's learning
+    rates): the G backward's dq partials would pass the slab limit, so it
+    takes K4 + K5.  Returns the launches by kernel."""
+    config = church512_config("bfloat16")
+    config.update(batch_size=8, global_batch_size=8)
+    gen, disc = _church512_nets(config, SEED + 40)
+    gen.to("cuda").train()
+    disc.to("cuda").train()
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, None)
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    images = torch.randint(0, 256, (1, 8, 512, 512, 3), dtype=torch.uint8,
+                           device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(SEED))
+    labels = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
+    _zero_counts()                   # the B=8 step starts here
+    t0 = time.perf_counter()
+    metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()               # and ends here
+    norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
+    losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
+    want = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 1, "K6": 0}
+    print(f"phase 13 church512 train step B=8 bf16: losses {losses}, "
+          f"{seconds:.2f} s (first step, host clock); launches {counts} "
+          f"(expected {want}); 512-site gradient norms {norms} on {card}",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses.values()),
+            f"B=8 losses are not finite: {losses}")
+    require(counts == want, f"B=8 step launches {counts}, expected {want}")
+    require(len(norms) == 3 and min(norms.values()) > 0,
+            f"512-site attention weights without a gradient: {norms}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -769,16 +1388,42 @@ def main() -> int:
     phase_bwd_all_widths()
     phase_train_step(card)
     fwd_launches, bwd_launches = phase_train_cli(card)
-    # launches: the training entry point's run of phase 7, this slice's
-    # main path (phase 4 checks the serving path's own count)
+    flash = phase_flash_kernels(card)
+    phase_flash_all_widths()
+    phase_flash_autograd()
+    phase_serve512(card)
+    train512 = phase_train512(card)
+    step_b8 = phase_step512_b8(card)
+    # launches: each kernel's count on the path that runs it, zeroed just
+    # before and read just after: K1 and K2 on the church64 training
+    # entry point's run (phase 7; phase 4 checks the serving path's own
+    # count), K3 and K6 on the church512 one (phase 12; phase 11 checks
+    # church512 serving's), K4 and K5 on the B=8 church512 step (phase 13)
+    src = "sagan_tpu_torch/csrc/"
+    ref = "sagan_tpu/ops/pallas_attention.py:"
     kernels = [{"name": "attention_fwd", "route": "cuda",
-                "source": "sagan_tpu_torch/csrc/attention_fwd.cu",
-                "replaces": "sagan_tpu/ops/pallas_attention.py:157",
+                "source": src + "attention_fwd.cu", "replaces": ref + "157",
                 "launches": fwd_launches, **head},
                {"name": "attention_bwd", "route": "cuda",
-                "source": "sagan_tpu_torch/csrc/attention_bwd.cu",
-                "replaces": "sagan_tpu/ops/pallas_attention.py:207",
-                "launches": bwd_launches, **bwd_head}]
+                "source": src + "attention_bwd.cu", "replaces": ref + "207",
+                "launches": bwd_launches, **bwd_head},
+               {"name": "attention_flash_fwd", "route": "cuda",
+                "source": src + "attention_fwd.cu", "replaces": ref + "368",
+                "launches": train512["K3"], **flash["fwd"]},
+               {"name": "attention_flash_dq", "route": "cuda",
+                "source": src + "attention_flash_bwd.cu",
+                "replaces": ref + "444", "launches": step_b8["K4"],
+                **flash["dq"]},
+               {"name": "attention_flash_dkv", "route": "cuda",
+                "source": src + "attention_flash_bwd.cu",
+                "replaces": ref + "515", "launches": step_b8["K5"],
+                **flash["dkv"]},
+               {"name": "attention_flash_dqkv", "route": "cuda",
+                "source": src + "attention_flash_bwd.cu",
+                "replaces": ref + "665", "launches": train512["K6"],
+                **flash["dqkv"]}]
+    print(f"chip_smoke: phases 1-13 passed in {time.perf_counter() - t0:.0f} "
+          f"s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,29 @@ v [B, M, C]):
   CPU tensor runs;
 * :func:`attention_bwd_reference`, the backward with the arithmetic of
   the TPU kernel ``pallas_attention.py::_bwd_kernel``: the oracle of the
-  CUDA backward, and what a CPU tensor's gradient runs.
+  CUDA backward, and what a CPU tensor's gradient runs;
+* :func:`attention_flash_reference` and
+  :func:`attention_flash_bwd_reference`, the flash path's forward (with
+  the row log-sum-exp) and backward from the stored (o, lse), with the
+  arithmetic of ``_flash_fwd_kernel`` and ``_bwd_tile_grads`` /
+  ``_accum_dkv``: the oracles of the CUDA flash kernels.
 
-:func:`attention` goes through
-:class:`sagan_tpu_torch.ops.cuda_attention.FusedAttention`, whose forward
-and backward are the CUDA kernels for CUDA tensors (at every N: the JAX
-package's ``N >= 256`` rule is a TPU tiling matter and does not carry
-over) and the plain versions above for CPU tensors.
+Each takes an optional query-row ``chunk``: the dense [B, N, M] fp32
+logits of the church512 512-map site would take 275 GB, so on the card
+the plain versions run there only a chunk of query rows at a time.
+Chunking changes no row's formula: only the shapes of the products, which
+a library may round apart, and the order of the backward's fp32 dK and
+dV sums.  The flash versions also sum over keys one ``PLAIN_KEY_BLOCK``
+at a time, as the JAX flash kernels do.
+
+:func:`attention` routes per call, as the JAX package's dispatch does
+(:func:`single_pass`, :func:`flash_bwd_fused`): through
+:class:`sagan_tpu_torch.ops.cuda_attention.FusedAttention` (K1/K2) where
+the single-pass kernels take the shape, else through
+:class:`~sagan_tpu_torch.ops.cuda_attention.FlashAttention` (K3, and K6
+or K4 + K5).  Both run the CUDA kernels for CUDA tensors, at every N (the
+JAX package's ``N >= 256`` rule is a TPU tiling matter and does not carry
+over), and the plain versions for CPU tensors.
 
 Logits are **unscaled** (no 1/sqrt(d)), per the original SAGAN.
 """
@@ -24,15 +40,54 @@ from __future__ import annotations
 
 import torch
 
+# fp32 bytes of one [B, chunk, M] logit block of the plain path on a call
+# that names no chunk (attention(use_pallas=False))
+PLAIN_CHUNK_BYTES = 1 << 30
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+
+# keys per block of the plain flash versions' sums over keys: the JAX flash
+# kernels add one key block's fp32 product at a time to their accumulator
+# (pallas_attention.py:467-469).  At the 512 map one fp32 product over all
+# 65,536 keys agreed with a single running sum over them and, like it, lost
+# the terms far below that sum: its dq sat ~1e-4 of max|dq| off the key-
+# blocked sums, which are within 4e-6 of float64 (chip_smoke phase 8)
+PLAIN_KEY_BLOCK = 1024
+
+
+def plain_chunk(b: int, n: int, m: int) -> int | None:
+    """Query rows per chunk that keep one fp32 [B, rows, M] block within
+    ``PLAIN_CHUNK_BYTES``, or None when all N rows fit."""
+    rows = max(1, PLAIN_CHUNK_BYTES // (4 * b * m))
+    return None if rows >= n else rows
+
+
+def _row_chunks(n: int, chunk: int | None):
+    step = n if chunk is None else chunk
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _key_blocked_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [B, R, M] @ b [B, M, X] in fp32 as the sum of its
+    ``PLAIN_KEY_BLOCK``-key products, in key order."""
+    out = None
+    for keys in _row_chunks(a.shape[-1], PLAIN_KEY_BLOCK):
+        part = torch.matmul(a[..., keys], b[:, keys])
+        out = part if out is None else out + part
+    return out
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        chunk: int | None = None) -> torch.Tensor:
     """Unfused oracle: fp32 logits and softmax, probabilities cast to
-    ``v.dtype``, fp32 accumulation, output in ``q.dtype``."""
-    logits = torch.matmul(q.float(), k.float().transpose(1, 2))
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(probs.float(), v.float())
-    return out.to(q.dtype)
+    ``v.dtype``, fp32 accumulation, output in ``q.dtype``; ``chunk``
+    query rows at a time."""
+    kt, vf = k.float().transpose(1, 2), v.float()
+    out = []
+    for rows in _row_chunks(q.shape[1], chunk):
+        logits = torch.matmul(q[:, rows].float(), kt)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out.append(torch.matmul(probs.float(), vf).to(q.dtype))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -59,15 +114,134 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_flash_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, chunk: int | None = None):
+    """(o, lse) as ``_flash_fwd_kernel`` leaves them: fp32 logits,
+    E = exp(L − max) over the whole key set, cast to v's type for an E V
+    summed in fp32 one ``PLAIN_KEY_BLOCK`` of keys at a time, divided by
+    l = Σ E; o in q's type and lse = max + log l fp32 [B, N, 1].  ``chunk``
+    query rows at a time."""
+    kt, vf = k.float().transpose(1, 2), v.float()
+    outs, lses = [], []
+    for rows in _row_chunks(q.shape[1], chunk):
+        logits = torch.matmul(q[:, rows].float(), kt)
+        mx = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - mx)
+        lsum = e.sum(dim=-1, keepdim=True)
+        out = _key_blocked_matmul(e.to(v.dtype).float(), vf) / lsum
+        outs.append(out.to(q.dtype))
+        lses.append(mx + torch.log(lsum))
+    if len(outs) == 1:
+        return outs[0], lses[0]
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, g: torch.Tensor,
+                                  chunk: int | None = None):
+    """(dq, dk, dv) from the forward's stored (o, lse) at output cotangent
+    ``g``, step for step as ``_bwd_tile_grads`` and ``_accum_dkv``:
+    P = exp(L − lse) in fp32; δ = Σ g ⊙ o in fp32 from o as stored;
+    dL = P ⊙ (g Vᵀ − δ) cast to k's type; dQ = dL K (one
+    ``PLAIN_KEY_BLOCK`` of keys at a time), dK = dLᵀ Q and
+    dV = (P in v's type)ᵀ g, each an fp32 sum; dq cast to q's type, dk and
+    dv to k's and v's.  ``chunk`` query rows at a time: dq is per row, and
+    dk, dv sum the chunks' fp32 parts."""
+    f32 = torch.float32
+    kf, vt = k.float(), v.float().transpose(1, 2)
+    kt = kf.transpose(1, 2)
+    dqs = []
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    for rows in _row_chunks(q.shape[1], chunk):
+        qf, gf = q[:, rows].float(), g[:, rows].float()
+        p = torch.exp(torch.matmul(qf, kt) - lse[:, rows])
+        delta = (gf * o[:, rows].float()).sum(dim=-1, keepdim=True)
+        dlog = (p * (torch.matmul(gf, vt) - delta)).to(k.dtype).to(f32)
+        dqs.append(_key_blocked_matmul(dlog, kf).to(q.dtype))
+        dk += torch.matmul(dlog.transpose(1, 2), qf)
+        dv += torch.matmul(p.to(v.dtype).to(f32).transpose(1, 2), gf)
+    dq = dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=1)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- routing: the port's own copy of the JAX package's dispatch ------------
+#
+# The port takes the same algorithm at the same shape as the JAX package
+# (sagan_tpu/ops/pallas_attention.py), so the two stay comparable one to
+# one.  The JAX rules budget a TPU core's VMEM at 128-lane padded widths;
+# they are copied here as shape arithmetic and decide only the route,
+# not the CUDA kernels' tiling.  They describe a TPU, not the CUDA kernels
+# (at B=8 they send the 512 map to K4 + K5, slower than K6 on the card):
+# a rule from the port's own kernel times and buffer sizes is to replace
+# them (ROADMAP, Open questions).
+
+VMEM_BUDGET = 12 * 1024 * 1024              # pallas_attention.py:81
+BWD_FUSED_VMEM_BUDGET = 15 * 1024 * 1024    # :618
+DQ_SLAB_LIMIT = 1024 * 1024 * 1024          # :623
+
+
+def _lanes(dim: int) -> int:
+    return -(-dim // 128) * 128
+
+
+def _sublanes(dim: int) -> int:
+    return -(-dim // 8) * 8
+
+
+def single_pass(m: int, d: int, c: int) -> bool:
+    """True where the JAX ``_pick_block`` (:126) accepts: the backward's
+    footprint ``_bwd_vmem_bytes`` (:114-123) at the smallest query block,
+    8 rows, fits ``VMEM_BUDGET``.  At the port's widths (d ≤ 32, c ≤ 128
+    pad to 128 lanes) that is M ≤ 5,857, so every model shape up to
+    M = 4096.  It does not depend on N: the JAX picker's N divisibility
+    and its ``N >= 256`` rule are TPU tiling matters."""
+    dc = _lanes(d) + _lanes(c)
+    return (3 * 8 * _lanes(m) * 4 + 2 * m * dc * 4 + 3 * 8 * dc * 4
+            <= VMEM_BUDGET)
+
+
+def _fused_vmem_bytes(bn: int, bm: int, d: int, c: int, itemsize: int):
+    """``_flash_bwd_fused_vmem_bytes`` (:626-643)."""
+    dc = _lanes(d) + _lanes(c)
+    return (bn * _lanes(bm) * (8 + itemsize) + bm * dc * (itemsize + 4)
+            + bn * (_lanes(d) + 2 * _lanes(c)) * itemsize + bn * 128 * 4
+            + _sublanes(d) * _lanes(bn) * 4)
+
+
+def flash_bwd_fused(b: int, n: int, m: int, d: int, c: int,
+                    itemsize: int) -> bool:
+    """True where the JAX flash backward takes the fused one-pass kernel
+    (``_flash_bwd_dispatch``, :741-753): ``_pick_flash_blocks_bwd_fused``
+    (:646-662) finds a (query, key) block pair, and the dq partial slab
+    [B, M / key block, ceil8(d), N] fp32 at its key block stays within
+    ``DQ_SLAB_LIMIT``; else the two-kernel backward (K4 + K5)."""
+    for bm in (2048, 1024):
+        if m % bm or m <= bm:
+            continue
+        for bn in (512, 256, 128):
+            if n % bn == 0 and _fused_vmem_bytes(bn, bm, d, c, itemsize) \
+                    <= BWD_FUSED_VMEM_BUDGET:
+                return b * (m // bm) * _sublanes(d) * n * 4 <= DQ_SLAB_LIMIT
+    return False
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               use_pallas: bool | None = None) -> torch.Tensor:
     """The kernels for CUDA tensors, the plain versions for CPU tensors,
-    forward and backward alike.
+    forward and backward alike: the single-pass pair where
+    :func:`single_pass` accepts, the flash path otherwise.
 
     ``use_pallas=False`` keeps the config key's JAX meaning: the plain
-    path on any device, differentiated by autograd.  ``None`` and
+    path on any device, differentiated by autograd, in query-row chunks
+    where the logits would pass ``PLAIN_CHUNK_BYTES``.  ``None`` and
     ``True`` take the kernels wherever the tensors lie on the card."""
+    b, n, d = q.shape
+    m, c = v.shape[1], v.shape[2]
     if use_pallas is False:
-        return attention_reference(q, k, v)
-    from .cuda_attention import FusedAttention
-    return FusedAttention.apply(q, k, v)
+        return attention_reference(q, k, v, chunk=plain_chunk(b, n, m))
+    from .cuda_attention import FlashAttention, FusedAttention
+    if single_pass(m, d, c):
+        return FusedAttention.apply(q, k, v)
+    return FlashAttention.apply(q, k, v)

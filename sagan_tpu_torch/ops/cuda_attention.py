@@ -1,12 +1,22 @@
 """Wrappers of the hand-written CUDA attention kernels and their autograd
-Function:
+Functions:
 
-* :func:`attention_fused`, the forward (``csrc/attention_fwd.cu``), the
-  port of the TPU kernel ``sagan_tpu/ops/pallas_attention.py::_fwd_kernel``;
-* :func:`attention_bwd_fused`, the backward (``csrc/attention_bwd.cu``),
-  the port of ``_bwd_kernel``;
-* :class:`FusedAttention`, the ``torch.autograd.Function`` whose forward
-  is the first and whose backward is the second, as the JAX package's
+* :func:`attention_fused`, the single-pass forward
+  (``csrc/attention_fwd.cu``), the port of the TPU kernel
+  ``sagan_tpu/ops/pallas_attention.py::_fwd_kernel`` (K1);
+* :func:`attention_bwd_fused`, its backward (``csrc/attention_bwd.cu``),
+  the port of ``_bwd_kernel`` (K2);
+* :func:`attention_flash_fwd`, the flash forward with the row log-sum-exp
+  (``csrc/attention_fwd.cu``), the port of ``_flash_fwd_kernel`` (K3);
+* :func:`attention_flash_dq`, :func:`attention_flash_dkv` and
+  :func:`attention_flash_dqkv`, the flash backward from the stored
+  (o, lse) (``csrc/attention_flash_bwd.cu``), the ports of
+  ``_flash_dq_kernel`` (K4), ``_flash_dkv_kernel`` (K5) and the fused
+  ``_flash_dqkv_kernel`` (K6);
+* :class:`FusedAttention` (K1 forward, K2 backward) and
+  :class:`FlashAttention` (K3 forward; K6, or K4 + K5, backward by the
+  JAX package's rule, :func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`),
+  the ``torch.autograd.Function`` pairs, as the JAX package's
   ``custom_vjp`` pairs them.
 
 Each wrapper launches its kernel for tensors on the card and raises on
@@ -14,8 +24,10 @@ anything the kernel does not take; it runs the plain version
 (:mod:`~sagan_tpu_torch.ops.attention`) only for tensors on the CPU.
 There is no fallback from a failed build or launch.
 
-``LAUNCHES`` and ``BWD_LAUNCHES`` count the kernels' launches, so a run
-can show that its attention went through them.
+``LAUNCHES``, ``BWD_LAUNCHES``, ``FLASH_FWD_LAUNCHES``,
+``FLASH_DQ_LAUNCHES``, ``FLASH_DKV_LAUNCHES`` and ``FLASH_DQKV_LAUNCHES``
+count the kernels' launches, so a run can show that its attention went
+through them.
 """
 
 from __future__ import annotations
@@ -27,19 +39,38 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .attention import attention_bwd_reference, attention_reference
+from .attention import (attention_bwd_reference, attention_flash_bwd_reference,
+                        attention_flash_reference, attention_reference,
+                        flash_bwd_fused, plain_chunk)
 
 SOURCE = "attention_fwd"
 BWD_SOURCE = "attention_bwd"
+FLASH_BWD_SOURCE = "attention_flash_bwd"
 SUPPORTED_D = (2, 4, 8, 16, 32)
 SUPPORTED_C = (8, 16, 32, 64, 128)
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
+# the C entry points: {name: (source, tensor pointers)}; each also takes
+# b, n, m, d, c, is_bf16 and the stream
+_ENTRIES = {
+    "sagan_attention_fwd": (SOURCE, 4),                # q k v o
+    "sagan_attention_flash_fwd": (SOURCE, 5),          # q k v o lse
+    "sagan_attention_bwd": (BWD_SOURCE, 8),            # q k v g dq dk dv stats
+    "sagan_attention_flash_dq": (FLASH_BWD_SOURCE, 7),    # q k v g o lse dq
+    "sagan_attention_flash_dkv": (FLASH_BWD_SOURCE, 8),   # ... lse dk dv
+    "sagan_attention_flash_dqkv": (FLASH_BWD_SOURCE, 9),  # ... dk dv part
+}
+
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+FLASH_FWD_LAUNCHES = 0
+FLASH_DQ_LAUNCHES = 0
+FLASH_DKV_LAUNCHES = 0
+FLASH_DQKV_LAUNCHES = 0
 
 
-def build_specs(widths=SUPPORTED_C, sources=(SOURCE, BWD_SOURCE)) -> list:
+def build_specs(widths=SUPPORTED_C,
+                sources=(SOURCE, BWD_SOURCE, FLASH_BWD_SOURCE)) -> list:
     """``_build.build`` specs of the kernels: one library per source and
     value width."""
     return [(src, (f"-DSAGAN_ATTN_C={c}",)) for src in sources
@@ -47,59 +78,99 @@ def build_specs(widths=SUPPORTED_C, sources=(SOURCE, BWD_SOURCE)) -> list:
 
 
 @functools.cache
-def _entry(source: str, c: int):
-    """The C entry point of ``source``'s library for value width ``c``."""
-    lib = _build.load(*build_specs((c,), (source,))[0])
-    if source == SOURCE:
-        fn = lib.sagan_attention_fwd
-        pointers, ints = 4, 6   # q, k, v, o; b, n, m, d, c, is_bf16
-    else:
-        fn = lib.sagan_attention_bwd
-        pointers, ints = 8, 6   # q, k, v, g, dq, dk, dv, stats
+def _entry(name: str, c: int):
+    """The C entry point ``name`` of its library for value width ``c``."""
+    source, pointers = _ENTRIES[name]
+    fn = getattr(_build.load(*build_specs((c,), (source,))[0]), name)
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def keys_per_block(d: int, c: int) -> int:
+    """Keys each block of K5 and K6 owns at widths (d, c): K6 writes one
+    fp32 dq partial [N, d] per block of them."""
+    lib = _build.load(*build_specs((c,), (FLASH_BWD_SOURCE,))[0])
+    fn = lib.sagan_attention_flash_keys_per_block
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d)
+
+
+def dq_partial_shape(b: int, n: int, m: int, d: int, c: int) -> tuple:
+    """Shape of K6's fp32 dq partials: [B, ceil(M / keys_per_block), N, d]
+    (4 bytes an element)."""
+    return b, -(-m // keys_per_block(d, c)), n, d
+
+
+def _launch(name: str, tensors, q: torch.Tensor, c: int) -> None:
+    """Launch entry ``name`` on ``tensors`` (q first) on the current
+    stream; raises if the launch failed."""
+    b, n, d = q.shape
+    m = tensors[1].shape[1]
+    with torch.cuda.device(q.device):
+        err = _entry(name, c)(*(t.data_ptr() for t in tensors), b, n, m, d,
+                              c, _IS_BF16[q.dtype],
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           g: torch.Tensor | None = None) -> None:
-    named = {"q": q, "k": k, "v": v} | ({} if g is None else {"g": g})
+           g: torch.Tensor | None = None, o: torch.Tensor | None = None,
+           lse: torch.Tensor | None = None) -> None:
+    named = {"q": q, "k": k, "v": v} | ({} if g is None else {"g": g}) \
+        | ({} if o is None else {"o": o})
+    every = named | ({} if lse is None else {"lse": lse})
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in named.values()):
+    if dev.type != "cuda" or any(t.device != dev for t in every.values()):
         raise ValueError(
-            f"attention kernel needs {', '.join(named)} on one CUDA device, "
-            f"got {', '.join(str(t.device) for t in named.values())}")
+            f"attention kernel needs {', '.join(every)} on one CUDA device, "
+            f"got {', '.join(str(t.device) for t in every.values())}")
     if q.dtype not in _IS_BF16 or any(t.dtype != q.dtype
                                       for t in named.values()):
         raise TypeError(
             f"attention kernel takes float32 or bfloat16 {', '.join(named)} "
             f"of one dtype, got "
             f"{', '.join(str(t.dtype) for t in named.values())}")
-    if any(t.dim() != 3 for t in named.values()):
+    if any(t.dim() != 3 for t in every.values()):
         raise ValueError("attention kernel takes q [B,N,D], k [B,M,D], "
-                         "v [B,M,C] and g [B,N,C]")
+                         "v [B,M,C], g and o [B,N,C] and lse [B,N,1]")
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
-    if k.shape != (b, m, d) or v.shape[0] != b or (
-            g is not None and g.shape != (b, n, c)):
+    want = {"k": (b, m, d), "g": (b, n, c), "o": (b, n, c), "lse": (b, n, 1)}
+    if v.shape[0] != b or any(tuple(every[name].shape) != shape
+                              for name, shape in want.items()
+                              if name in every):
         raise ValueError(
             "attention shapes disagree: " + ", ".join(
-                f"{name} {tuple(t.shape)}" for name, t in named.items()))
+                f"{name} {tuple(t.shape)}" for name, t in every.items()))
+    if lse is not None and lse.dtype != torch.float32:
+        raise TypeError(f"attention kernel takes lse in float32, got "
+                        f"{lse.dtype}")
     if min(b, n, m) < 1 or b > 65535:
         raise ValueError(f"attention kernel needs 1 <= B <= 65535 and "
                          f"N, M >= 1, got B={b} N={n} M={m}")
     if d not in SUPPORTED_D or c not in SUPPORTED_C:
         raise ValueError(f"attention kernel is built for d in {SUPPORTED_D} "
                          f"and c in {SUPPORTED_C}, got d={d} c={c}")
-    if not all(t.is_contiguous() for t in named.values()):
+    if not all(t.is_contiguous() for t in every.values()):
         raise ValueError(
-            f"attention kernel needs contiguous {', '.join(named)}")
+            f"attention kernel needs contiguous {', '.join(every)}")
 
 
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _cpu_chunk(q: torch.Tensor, k: torch.Tensor) -> int | None:
+    """Query rows a CPU call of a plain flash version takes at a time:
+    church512's 512 map would otherwise hold [B, 262144, 65536] fp32
+    logits, 68 GB at B=1."""
+    return plain_chunk(q.shape[0], q.shape[1], k.shape[1])
 
 
 def attention_fused(q: torch.Tensor, k: torch.Tensor,
@@ -111,16 +182,10 @@ def attention_fused(q: torch.Tensor, k: torch.Tensor,
     if _on_cpu(q, k, v):
         return attention_reference(q, k, v)
     _check(q, k, v)
-    b, n, d = q.shape
-    m, c = v.shape[1], v.shape[2]
+    b, n, _ = q.shape
+    c = v.shape[2]
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    fn = _entry(SOURCE, c)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, n, m, d, c, _IS_BF16[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"attention_fwd launch failed: CUDA error {err}")
+    _launch("sagan_attention_fwd", (q, k, v, out), q, c)
     LAUNCHES += 1
     return out
 
@@ -133,22 +198,84 @@ def attention_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q, k, v, g):
         return attention_bwd_reference(q, k, v, g)
     _check(q, k, v, g)
-    b, n, d = q.shape
-    m, c = v.shape[1], v.shape[2]
+    b, n, _ = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     stats = torch.empty((3, b, n), dtype=torch.float32, device=q.device)
-    fn = _entry(BWD_SOURCE, c)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 stats.data_ptr(), b, n, m, d, c, _IS_BF16[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"attention_bwd launch failed: CUDA error {err}")
+    _launch("sagan_attention_bwd", (q, k, v, g, dq, dk, dv, stats), q,
+            v.shape[2])
     BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o, lse): softmax(q kᵀ) v in q.dtype and the row log-sum-exp of the
+    unscaled logits, fp32 [B, N, 1], as the flash backward takes them."""
+    global FLASH_FWD_LAUNCHES
+    if _on_cpu(q, k, v):
+        return attention_flash_reference(q, k, v, _cpu_chunk(q, k))
+    _check(q, k, v)
+    b, n, _ = q.shape
+    c = v.shape[2]
+    o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
+    _launch("sagan_attention_flash_fwd", (q, k, v, o, lse), q, c)
+    FLASH_FWD_LAUNCHES += 1
+    return o, lse
+
+
+def attention_flash_dq(q, k, v, o, lse, g) -> torch.Tensor:
+    """dq in q's dtype from the stored (o, lse) at cotangent g (K4)."""
+    global FLASH_DQ_LAUNCHES
+    if _on_cpu(q, k, v, o, lse, g):
+        return attention_flash_bwd_reference(q, k, v, o, lse, g,
+                                             _cpu_chunk(q, k))[0]
+    _check(q, k, v, g, o, lse)
+    dq = torch.empty_like(q)
+    _launch("sagan_attention_flash_dq", (q, k, v, g, o, lse, dq), q,
+            v.shape[2])
+    FLASH_DQ_LAUNCHES += 1
+    return dq
+
+
+def attention_flash_dkv(q, k, v, o, lse, g):
+    """(dk, dv), fp32 sums cast to k's and v's dtypes, from the stored
+    (o, lse) at cotangent g (K5)."""
+    global FLASH_DKV_LAUNCHES
+    if _on_cpu(q, k, v, o, lse, g):
+        return attention_flash_bwd_reference(q, k, v, o, lse, g,
+                                             _cpu_chunk(q, k))[1:]
+    _check(q, k, v, g, o, lse)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("sagan_attention_flash_dkv", (q, k, v, g, o, lse, dk, dv), q,
+            v.shape[2])
+    FLASH_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def attention_flash_dqkv(q, k, v, o, lse, g):
+    """(dq, dk, dv) from one score recompute (K6): dk and dv as in
+    :func:`attention_flash_dkv`, dq the sum of the kernel's fp32
+    per-key-block partials, cast to q's dtype."""
+    global FLASH_DQKV_LAUNCHES
+    if _on_cpu(q, k, v, o, lse, g):
+        return attention_flash_bwd_reference(q, k, v, o, lse, g,
+                                             _cpu_chunk(q, k))
+    _check(q, k, v, g, o, lse)
+    b, n, d = q.shape
+    m, c = v.shape[1], v.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    part = torch.empty(dq_partial_shape(b, n, m, d, c), dtype=torch.float32,
+                       device=q.device)
+    _launch("sagan_attention_flash_dqkv", (q, k, v, g, o, lse, dk, dv, part),
+            q, c)
+    FLASH_DQKV_LAUNCHES += 1
+    # the partials are summed outside the kernel, as the JAX package sums
+    # its slab outside its kernel (pallas_attention.py:737)
+    return part.sum(dim=1).to(q.dtype), dk, dv
 
 
 class FusedAttention(torch.autograd.Function):
@@ -170,3 +297,31 @@ class FusedAttention(torch.autograd.Function):
         # the cotangent arrives as a view through the caller's
         # transpose/reshape; the kernel takes contiguous rows
         return attention_bwd_fused(q, k, v, g.contiguous())
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q kᵀ) v on the flash path: forward
+    :func:`attention_flash_fwd`, which keeps (q, k, v, o, lse) only when a
+    gradient is needed (``_attention_flash_fwd``); backward
+    :func:`attention_flash_dqkv` where the JAX package takes its fused
+    backward, else :func:`attention_flash_dq` and
+    :func:`attention_flash_dkv` (``_flash_bwd_dispatch``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = attention_flash_fwd(q, k, v)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        g = g.contiguous()
+        b, n, d = q.shape
+        m, c = v.shape[1], v.shape[2]
+        if flash_bwd_fused(b, n, m, d, c, q.element_size()):
+            return attention_flash_dqkv(q, k, v, o, lse, g)
+        return (attention_flash_dq(q, k, v, o, lse, g),
+                *attention_flash_dkv(q, k, v, o, lse, g))

@@ -1,0 +1,56 @@
+"""What the breakdown tools share: the card's name and power limit, and
+the device time and launches of each kernel in a ``torch.profiler``
+trace, with the port's attention kernels picked out by name."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+# (label, the CUDA kernels' names as a profile shows them); a launch of
+# a wrapper is one launch of its first kernel (K2 runs two)
+ATTENTION_KERNELS = (
+    ("K1 attention_fwd", ("attention_fwd_kernel<",)),
+    ("K2 attention_bwd", ("attention_bwd_dq_kernel<",
+                          "attention_bwd_dkv_kernel<")),
+    ("K3 attention_flash_fwd", ("attention_flash_fwd_kernel<",)),
+    ("K4 attention_flash_dq", ("attention_flash_dq_kernel<",)),
+    ("K5 attention_flash_dkv", ("attention_flash_dkv_kernel<",)),
+    ("K6 attention_flash_dqkv", ("attention_flash_dqkv_kernel<",)),
+)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_kernels(prof) -> dict:
+    """{kernel name: (device ms, launches)} of a finished profile.
+    Device-side records of host annotations (the optimizer's
+    "Optimizer.step#Adam.step") span kernels counted on their own and
+    are left out."""
+    out = {}
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.key.startswith("Optimizer.")):
+            out[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
+    return out
+
+
+def attention_kernels(kernels: dict, per: int = 1) -> dict:
+    """{label: {"ms", "launches"}} of the port's attention kernels in
+    ``device_kernels``' result, divided by ``per`` (steps or calls)."""
+    rows = {}
+    for label, names in ATTENTION_KERNELS:
+        ms = sum(t for key, (t, _) in kernels.items()
+                 if any(name in key for name in names))
+        launches = sum(n for key, (_, n) in kernels.items()
+                       if names[0] in key)
+        rows[label] = {"ms": ms / per, "launches": launches / per}
+    return rows

@@ -1,11 +1,14 @@
 """Where a served request's time goes, on one GPU.
 
-    python -m sagan_tpu_torch.tools.serve_breakdown [--reps 10]
+    python -m sagan_tpu_torch.tools.serve_breakdown [--reps 10] \\
+        [--config example_configs/church64_attn.py] [--img_size 64] \\
+        [--batch 64] [--ladder 1,8]
 
-Serves the church64 generator (``example_configs/church64_attn.py`` at full
-width, bf16, seeded random weights with nonzero attention ``sigma``) from
-``GeneratorService(batch=64, ladder=(1, 8))`` behind ``make_server`` and,
-for each ladder rung n, reports medians over ``--reps`` runs of:
+Serves the config's generator (church64 by default: full width, the
+config's compute dtype, seeded random weights with nonzero attention
+``sigma``) at ``--img_size`` (the config files leave it to the dataset)
+from ``GeneratorService(batch, ladder)`` behind ``make_server`` and, for
+each ladder rung n, reports medians over ``--reps`` runs of:
 
 * ``device_ms``: one generator forward through the serve function, between
   two CUDA events (device time including the gaps the host leaves);
@@ -18,8 +21,9 @@ for each ladder rung n, reports medians over ``--reps`` runs of:
   forward, uint8 fetch);
 * ``http_ms``: ``GET /sample?n=<n>&format=raw`` on the host clock;
 * from one ``torch.profiler`` trace of a forward: the summed kernel time,
-  the attention kernel's part of it, and the kernels by time; the
-  device's busy share is the summed kernel time over ``device_ms``.
+  each attention kernel's time and launches (K1, or K3 on the flash path
+  of a large map), and the kernels by time; the device's busy share is
+  the summed kernel time over ``device_ms``.
 
 ``GET /healthz`` (no model work) gives the HTTP round trip alone.  Prints
 one line per measurement and, last, one JSON object of all of them.
@@ -31,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import threading
 import time
 import urllib.request
@@ -45,8 +48,7 @@ from ..nn.attention import SelfAttention
 from ..serve import GeneratorService, make_server
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
-
-RUNGS = (1, 8, 64)
+from .profiling import attention_kernels, card_line, device_kernels
 
 
 def _get_ms(url: str) -> float:
@@ -85,54 +87,54 @@ def _fresh_thread_ms(fn) -> float:
 
 
 def _kernel_times(fn) -> tuple[float, dict]:
-    """(wall ms of one ``fn`` call, {kernel name: device ms}) from a
-    profiler trace."""
+    """(wall ms of one ``fn`` call, {kernel name: (device ms, launches)})
+    from a profiler trace."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.key] = evt.self_device_time_total / 1e3
-    return wall, kernels
+    return wall, device_kernels(prof)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--config", default="example_configs/church64_attn.py")
+    ap.add_argument("--img_size", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=64,
+                    help="largest serving batch")
+    ap.add_argument("--ladder", default="1,8",
+                    help="smaller batch sizes, comma-separated")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
 
-    config = resolve_config(load_config_file(
-        "example_configs/church64_attn.py"))
-    config.update(img_size=64, num_classes=1)
+    config = resolve_config(load_config_file(args.config))
+    config.update(img_size=args.img_size, num_classes=1)
     gen = get_generator(config, rng=torch.Generator().manual_seed(0))
     with torch.no_grad():
         for mod in gen.modules():
             if isinstance(mod, SelfAttention):
                 mod.sigma.fill_(0.5)
     gen.to(device)
+    ladder = tuple(int(s) for s in args.ladder.split(",") if s.strip())
     svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
-                           batch=64, ladder=(1, 8))
+                           batch=args.batch, ladder=ladder)
     serve = build_serve_fn(gen)
     srv = make_server(svc, port=0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     base = "http://127.0.0.1:%d" % srv.server_address[1]
-    result = {"card": card, "rungs": {}}
+    result = {"card": card, "config": args.config,
+              "img_size": args.img_size,
+              "compute_dtype": config.get("compute_dtype"), "rungs": {}}
     try:
         healthz = [_get_ms(base + "/healthz") for _ in range(args.reps)]
         result["healthz_ms"] = statistics.median(healthz)
         print(f"/healthz median {result['healthz_ms']:.3f} ms ({card})")
-        for n in RUNGS:
+        for n in svc.ladder:
             z = torch.randn(n, config["z_dim"], device=device)
             labels = torch.zeros(n, dtype=torch.long, device=device)
             dev = [_device_ms(lambda: serve(z, labels))
@@ -149,9 +151,10 @@ def main(argv=None):
             http = [_get_ms(f"{base}/sample?n={n}&seed={rep}&format=raw")
                     for rep in range(args.reps)]
             wall, kernels = _kernel_times(lambda: serve(z, labels))
-            busy = sum(kernels.values())
-            attn = sum(v for k, v in kernels.items() if "attention_fwd" in k)
-            top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+            busy = sum(ms for ms, _ in kernels.values())
+            attn = attention_kernels(kernels)
+            top = sorted(((k, ms) for k, (ms, _) in kernels.items()),
+                         key=lambda kv: -kv[1])[:8]
             row = {"device_ms": statistics.median(dev),
                    "forward_ms": statistics.median(forward),
                    "fresh_thread_ms": statistics.median(fresh),
@@ -159,7 +162,7 @@ def main(argv=None):
                    "http_ms": statistics.median(http),
                    "profiled_wall_ms": wall, "kernel_ms": busy,
                    "busy_share": busy / statistics.median(dev),
-                   "attention_ms": attn,
+                   "attention": attn,
                    "kernels": len(kernels),
                    "top": [[k[:60], v] for k, v in top]}
             result["rungs"][n] = row
@@ -168,8 +171,11 @@ def main(argv=None):
                   f"{row['fresh_thread_ms']:.3f} sample_ms "
                   f"{row['sample_ms']:.3f} http_ms {row['http_ms']:.3f}; "
                   f"kernels {busy:.3f} ms (busy {row['busy_share']:.1%} of "
-                  f"device_ms), attention {attn:.3f} ms; profiled forward "
-                  f"wall {wall:.3f} ms ({card})")
+                  f"device_ms); profiled forward wall {wall:.3f} ms "
+                  f"({card})")
+            for label, row in attn.items():
+                print(f"    {label}: {row['ms']:.4f} ms, {row['launches']:g} "
+                      f"launches")
             for name, ms in top:
                 print(f"    {ms:9.4f} ms  {name[:90]}")
     finally:

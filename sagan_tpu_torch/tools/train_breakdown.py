@@ -1,11 +1,13 @@
-"""Where a church64 training step's time goes, on one GPU.
+"""Where a training step's time goes, on one GPU.
 
     python -m sagan_tpu_torch.tools.train_breakdown [--steps 20] \\
-        [--profile_steps 3] [--config example_configs/church64_attn.py]
+        [--profile_steps 3] [--config example_configs/church64_attn.py] \\
+        [--img_size 64]
 
 Runs the port's train step (``train/trainer.py``) on the config at full
-width (church64: bf16, batch 64, update_ratio 1) from a seeded init on
-random uint8 images, and reports, after 5 warm-up steps:
+width (church64 by default: bf16, batch 64, update_ratio 1) and
+``--img_size`` (the config files leave it to the dataset) from a seeded
+init on random uint8 images, and reports, after 5 warm-up steps:
 
 * the medians over ``--steps`` steps of each span of the step, between
   CUDA events the step records as each span ends (``TrainStep.mark``):
@@ -17,8 +19,10 @@ random uint8 images, and reports, after 5 warm-up steps:
 * from one ``torch.profiler`` trace of ``--profile_steps`` steps: the
   summed kernel time and kernel launches per step, the device's busy
   share (summed kernel time per step over ``step_device_ms``; the traced
-  wall time is longer, as the profiler slows the host), the attention
-  kernels' part, and the kernels by time.
+  wall time is longer, as the profiler slows the host), each attention
+  kernel's time and launches per step (K1/K2 on the single-pass path,
+  K3 and K6 or K4 + K5 on the flash path of a large map), and the
+  kernels by time.
 
 Prints one line per measurement and, last, one JSON object of all of
 them.  Needs a CUDA device.
@@ -28,8 +32,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
-import subprocess
 import time
 
 import torch
@@ -40,16 +44,9 @@ from ..train.optim import make_gan_optimizers
 from ..train.trainer import TrainState, build_train_step
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
+from .profiling import attention_kernels, card_line, device_kernels
 
 WARMUP = 5
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
 
 
 class _Events:
@@ -81,6 +78,7 @@ def main(argv=None):
     ap.add_argument("--config", default="example_configs/church64_attn.py")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--profile_steps", type=int, default=3)
+    ap.add_argument("--img_size", type=int, default=64)
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -88,7 +86,7 @@ def main(argv=None):
     card = card_line()
 
     config = resolve_config(load_config_file(args.config))
-    config.setdefault("img_size", 64)
+    config.update(img_size=args.img_size)
     config.setdefault("num_classes", 1)
     gen = get_generator(config, rng=torch.Generator().manual_seed(0))
     disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
@@ -137,23 +135,16 @@ def main(argv=None):
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    launches = 0
-    for evt in prof.key_averages():
-        # device-side records of host annotations (the optimizer's
-        # "Optimizer.step#Adam.step") span kernels counted on their own
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not evt.key.startswith("Optimizer.")):
-            kernels[evt.key] = evt.self_device_time_total / 1e3
-            launches += evt.count
-    busy = sum(kernels.values())
-    attn = {name: sum(v for k, v in kernels.items() if name in k)
-            / args.profile_steps
-            for name in ("attention_fwd", "attention_bwd")}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    kernels = device_kernels(prof)
+    busy = sum(ms for ms, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
+    attn = attention_kernels(kernels, args.profile_steps)
+    top = sorted(((k, ms) for k, (ms, _) in kernels.items()),
+                 key=lambda kv: -kv[1])[:12]
+    name = os.path.splitext(os.path.basename(args.config))[0]
 
     result = {
-        "card": card, "config": args.config, "batch": b,
+        "card": card, "config": args.config, "img_size": s, "batch": b,
         "compute_dtype": config.get("compute_dtype"),
         "steps": args.steps, "spans_ms": spans, "step_ms": step_ms,
         "imgs_per_s": b / step_ms * 1e3,
@@ -161,11 +152,11 @@ def main(argv=None):
         "kernel_ms_per_step": busy / args.profile_steps,
         "busy_share": busy / args.profile_steps / spans["step_device_ms"],
         "kernel_launches_per_step": launches / args.profile_steps,
-        "attention_ms_per_step": attn,
+        "attention_per_step": attn,
         "top": [[k[:80], v / args.profile_steps] for k, v in top],
     }
-    print(f"church64 train step, B={b} {config.get('compute_dtype')}, "
-          f"{card}:")
+    print(f"{name} train step, {s} px, B={b} "
+          f"{config.get('compute_dtype')}, {card}:")
     for k, v in spans.items():
         print(f"  {k:15s} {v:9.3f} ms (median of {args.steps})")
     print(f"  step_ms {step_ms:.3f} (host clock, {args.steps} steps) = "
@@ -174,8 +165,10 @@ def main(argv=None):
           f"per step (busy {result['busy_share']:.1%} of step_device_ms; "
           f"profiled wall {result['profiled_wall_ms_per_step']:.3f} ms), "
           f"{result['kernel_launches_per_step']:.0f} kernel launches per "
-          f"step; attention fwd {attn['attention_fwd']:.3f} ms, bwd "
-          f"{attn['attention_bwd']:.3f} ms per step")
+          f"step")
+    for label, row in attn.items():
+        print(f"    {label}: {row['ms']:.4f} ms, {row['launches']:g} "
+              f"launches per step")
     for name, ms in result["top"]:
         print(f"    {ms:9.4f} ms/step  {name}")
     print(json.dumps(result))

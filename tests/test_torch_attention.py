@@ -96,10 +96,11 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
 
 def test_kernel_builds_one_library_per_value_width():
     specs = cuda_attention.build_specs()
-    for source in ("attention_fwd", "attention_bwd"):
+    sources = ("attention_fwd", "attention_bwd", "attention_flash_bwd")
+    for source in sources:
         assert [defs for name, defs in specs if name == source] == [
             (f"-DSAGAN_ATTN_C={c}",) for c in cuda_attention.SUPPORTED_C]
-    assert len(specs) == 2 * len(cuda_attention.SUPPORTED_C)
+    assert len(specs) == len(sources) * len(cuda_attention.SUPPORTED_C)
 
 
 def _bwd_inputs(d, c, seed=2):

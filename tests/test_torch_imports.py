@@ -22,7 +22,9 @@ leaked = sorted(m for m in sys.modules
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the port, the training slice's included
+# every module of the port, the training slice's and the flash slice's
+# included (the flash path's plain versions and routing live in
+# ops.attention, its wrappers and autograd Function in ops.cuda_attention)
 MODULES = {
     "convert", "generate", "main", "serve",
     "data", "data.loader", "data.synthetic", "data.tfrecord",
@@ -30,7 +32,8 @@ MODULES = {
     "nn", "nn.attention", "nn.initializers", "nn.layers",
     "ops", "ops._build", "ops.attention", "ops.cuda_attention",
     "ops.losses", "ops.spectral",
-    "tools", "tools.serve_breakdown", "tools.train_breakdown",
+    "tools", "tools.profiling", "tools.serve_breakdown",
+    "tools.train_breakdown",
     "train", "train.checkpoint", "train.optim", "train.trainer",
     "utils", "utils.config", "utils.device", "utils.images",
     "utils.tb_writer", "utils.timing",
