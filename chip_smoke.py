@@ -63,7 +63,24 @@ Phases, each printed as it ends:
      exact K3/K6/K1/K2 launch counts and nonzero gradients of the 512
      site's theta/phi/g;
  13. one church512 training step at B=8, whose G backward takes K4 + K5
-     (the dq partials of K6 would pass the JAX package's slab limit).
+     (the dq partials of K6 would pass the JAX package's slab limit);
+ 14. the fused spectral norm (K7) against its plain version at every
+     distinct SN weight of imagenet128_cond and imagenet128_paper_gf64
+     (46, up to the [1128, 16384] stem), fp32: W_bar, u_new, v and sigma,
+     and the gradient through ``SpectralNormFused`` against autograd
+     through the plain function; times at the stem, a 3x3 256 -> 256 conv
+     and the smallest weight, with the L2 cache flushed;
+ 15. the full-width imagenet128_cond generator in fp32 on the card with
+     ``use_pallas_sn`` against the same generator with the plain SN;
+ 16. training imagenet128_cond (ResNet G and D, 1000 classes, update
+     ratio 2) with ``use_pallas_sn`` through the entry point on 512
+     synthetic labelled 128 px records for 2 epochs, and a restart for a
+     3rd, with exact K7 (159 a step), K1 and K2 launch counts;
+ 17. serving that checkpoint over HTTP per ``class_id`` at n = 1 and 8;
+ 18. one bf16 imagenet128_paper_gf64 training step at B=64 with
+     ``use_pallas_sn``;
+ 19. one epoch of the legacy CLI (``sagan_tpu_torch.legacy_main``) on the
+     same records.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -73,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -92,7 +110,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from sagan_tpu_torch import generate
+from sagan_tpu_torch import generate, legacy_main
 from sagan_tpu_torch import main as train_cli
 from sagan_tpu_torch.convert import export_generator_npz
 from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -100,12 +118,13 @@ from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
 from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn import layers
 from sagan_tpu_torch.nn.attention import SelfAttention
-from sagan_tpu_torch.ops import _build, cuda_attention
+from sagan_tpu_torch.ops import _build, cuda_attention, cuda_spectral
 from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference,
                                            flash_bwd_fused, plain_chunk)
+from sagan_tpu_torch.ops.spectral import spectral_normalize
 from sagan_tpu_torch.serve import GeneratorService, make_server
 from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
@@ -139,6 +158,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # whole generator, fp32 on the card vs fp32 on the CPU (tanh output in
 # [-1, 1]): cuDNN and the CPU sum the convolutions in other orders
 G_TOL = 1e-4
+# whole generator on the card with K7 vs the plain SN: the same cuDNN
+# convolutions, only the SN sums in another order (as the JAX test of the
+# fused SN holds a whole G, tests/test_pallas_kernels.py)
+G_SN_TOL = 1e-5
 
 # H100 SXM data sheet (dense): bytes/s of HBM3 and FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
@@ -176,7 +199,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    paths = _build.build(cuda_attention.build_specs())
+    paths = _build.build(cuda_attention.build_specs()
+                         + cuda_spectral.build_specs())
     seconds = time.perf_counter() - t0
     per_source = {}
     for (name, _), path in paths.items():
@@ -690,9 +714,10 @@ def phase_train_step(card: str) -> None:
 
 def _run_cli(config_file: Path, card: str, label: str) -> tuple:
     """``python -m sagan_tpu_torch.main --config_path config_file`` in
-    this process, its output shown and kept.  Returns (trainer, output,
-    K1 launches, K2 launches, sample-grid forwards), the launch counts
-    zeroed just before and read just after."""
+    this process, its output shown and kept (``label`` starts each line:
+    "<phase> <run>").  Returns (trainer, output, launches by kernel,
+    sample-grid forwards, epochs), the launch counts zeroed just before
+    and read just after."""
     grids = []
     sample = Trainer.sample_images
 
@@ -703,12 +728,12 @@ def _run_cli(config_file: Path, card: str, label: str) -> tuple:
     Trainer.sample_images = counted
     out = io.StringIO()
     try:
-        cuda_attention.LAUNCHES = cuda_attention.BWD_LAUNCHES = 0
+        _zero_counts()
         with contextlib.redirect_stdout(out):
             trainer = train_cli.main(["--config_path", str(config_file),
                                       "--device", "cuda"])
         torch.cuda.synchronize()
-        launches = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+        counts = _counts()
     finally:
         Trainer.sample_images = sample
     text = out.getvalue()
@@ -718,14 +743,14 @@ def _run_cli(config_file: Path, card: str, label: str) -> tuple:
     for line in text.splitlines():
         if line.startswith(("epoch ", "Restored", "Initializing",
                             "total steps", "resuming")):
-            print(f"phase 7 {label}: {line}", flush=True)
+            print(f"phase {label}: {line}", flush=True)
     for epoch, g_loss, d_loss, imgs_s, ms_step in epochs:
-        print(f"phase 7 {label} epoch {epoch}: {imgs_s} imgs/s, {ms_step} "
+        print(f"phase {label} epoch {epoch}: {imgs_s} imgs/s, {ms_step} "
               f"ms/step (host clock over the epoch, loader included) on "
               f"{card}", flush=True)
         require(math.isfinite(float(g_loss)) and math.isfinite(float(d_loss)),
                 f"epoch {epoch} losses are not finite: {g_loss} {d_loss}")
-    return trainer, text, launches[0], launches[1], len(grids), len(epochs)
+    return trainer, text, counts, len(grids), len(epochs)
 
 
 def phase_train_cli(card: str) -> tuple[int, int]:
@@ -755,8 +780,9 @@ def phase_train_cli(card: str) -> tuple[int, int]:
 
     results, first_step = {}, 0
     for label, epochs in (("run", 2), ("restart", 3)):
-        trainer, text, k1, k2, grids, n_epochs = _run_cli(files[epochs],
-                                                          card, label)
+        trainer, text, counts, grids, n_epochs = _run_cli(
+            files[epochs], card, f"7 {label}")
+        k1, k2 = counts["K1"], counts["K2"]
         steps = trainer.global_step() - first_step
         print(f"phase 7 {label}: {steps} steps, {grids} sample-grid "
               f"forwards; launches K1 {k1} (expected {8 * steps + 2 * grids})"
@@ -1087,6 +1113,7 @@ def _zero_counts() -> None:
                  "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
                  "FLASH_DQKV_LAUNCHES"):
         setattr(cuda_attention, name, 0)
+    cuda_spectral.LAUNCHES = 0
 
 
 def _counts() -> dict:
@@ -1094,7 +1121,8 @@ def _counts() -> dict:
     a = cuda_attention
     return {"K1": a.LAUNCHES, "K2": a.BWD_LAUNCHES,
             "K3": a.FLASH_FWD_LAUNCHES, "K4": a.FLASH_DQ_LAUNCHES,
-            "K5": a.FLASH_DKV_LAUNCHES, "K6": a.FLASH_DQKV_LAUNCHES}
+            "K5": a.FLASH_DKV_LAUNCHES, "K6": a.FLASH_DQKV_LAUNCHES,
+            "K7": cuda_spectral.LAUNCHES}
 
 
 def phase_flash_autograd() -> None:
@@ -1123,7 +1151,8 @@ def phase_flash_autograd() -> None:
         require(share <= 1 and fused, f"FlashAttention gradients {name}: "
                 f"{share:.3f} of tolerance")
         require(counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0,
-                           "K6": 1}, f"FlashAttention launched {counts}")
+                           "K6": 1, "K7": 0},
+                f"FlashAttention launched {counts}")
 
 
 def church512_config(dtype: str) -> dict:
@@ -1245,8 +1274,8 @@ def phase_serve512(card: str) -> int:
           f"generator forwards (one attention site each, on the flash "
           f"path)", flush=True)
     require(counts == {"K1": 0, "K2": 0, "K3": forwards, "K4": 0, "K5": 0,
-                       "K6": 0}, f"expected {forwards} K3 launches only, "
-                                 f"counted {counts}")
+                       "K6": 0, "K7": 0},
+            f"expected {forwards} K3 launches only, counted {counts}")
     return counts["K3"]
 
 
@@ -1319,7 +1348,7 @@ def phase_train512(card: str) -> dict:
     norms = _site_norms(trainer.train_step.g_names,
                         fetched[-1]["G_grad_norms"], 512)
     want = {"K1": 2 * steps, "K2": 2 * steps, "K3": 2 * steps + len(grids),
-            "K4": 0, "K5": 0, "K6": steps}
+            "K4": 0, "K5": 0, "K6": steps, "K7": 0}
     print(f"phase 12 train church512: {steps} steps at B=4, {len(grids)} "
           f"sample-grid forwards; launches {counts} (expected {want}); "
           f"512-site gradient norms of the last call {norms}", flush=True)
@@ -1356,7 +1385,7 @@ def phase_step512_b8(card: str) -> dict:
     counts = _counts()               # and ends here
     norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
     losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
-    want = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 1, "K6": 0}
+    want = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 1, "K6": 0, "K7": 0}
     print(f"phase 13 church512 train step B=8 bf16: losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); launches {counts} "
           f"(expected {want}); 512-site gradient norms {norms} on {card}",
@@ -1367,6 +1396,380 @@ def phase_step512_b8(card: str) -> dict:
     require(len(norms) == 3 and min(norms.values()) > 0,
             f"512-site attention weights without a gradient: {norms}")
     return counts
+
+
+IMAGENET128 = ROOT / "example_configs" / "imagenet128_cond.py"
+PAPER_GF64 = ROOT / "example_configs" / "imagenet128_paper_gf64.py"
+SN_EPS = 1e-12
+# K7 against its plain version on the same inputs, fp32: W_bar, u_new and
+# sigma within SN_TOL x max|plain| (the same multiply-and-reduce, summed in
+# another order); the gradient through SpectralNormFused against autograd
+# through the plain "xla" function within SN_GRAD_TOL x max|plain| (the
+# same closed form, from v and u of two iterations in other orders)
+SN_TOL = 1e-5
+SN_GRAD_TOL = 1e-4
+# the weights K7 is timed at: the imagenet128_cond G stem (the main
+# path's largest), a 3x3 256 -> 256 conv of its up8 block, the smallest
+SN_TIMED = {("Dense", (1128, 4096), -1): "stem",
+            ("Conv", (256, 256, 3, 3), 0): "3x3 conv 256->256"}
+# K7 launches a training step of imagenet128_cond: each of the 2 D updates
+# runs G for the fakes (25 SN layers) and one fused D forward (28); the G
+# update runs G and D once more
+SN_PER_STEP = 2 * (25 + 28) + 25 + 28
+SN_PER_G = 25
+# synthetic labelled 128 px records of the imagenet128_cond run: 8 steps an
+# epoch at B=64, 2 calls of steps_per_call 4
+SMOKE128_RECORDS = 512
+SMOKE128_BATCH = 64
+PAPER_BATCH = 64
+
+
+def imagenet_config(path: Path, dtype: str, **extra) -> dict:
+    config = resolve_config(load_config_file(str(path)))
+    config.update(img_size=128, num_classes=1000, compute_dtype=dtype,
+                  **extra)
+    return config
+
+
+def sn_shapes() -> dict:
+    """{(layer, weight shape, out_dim): [where]} of every spectrally
+    normalized weight of imagenet128_cond and imagenet128_paper_gf64, from
+    their nets built on the meta device."""
+    shapes = {}
+    for path in (IMAGENET128, PAPER_GF64):
+        config = imagenet_config(path, "float32")
+        with torch.device("meta"):
+            nets = (("G", get_generator(config)),
+                    ("D", get_discriminator(config)))
+        for tag, net in nets:
+            for name, m in net.named_modules():
+                if isinstance(m, layers._SNLayer) and m.sn:
+                    key = (type(m).__name__, tuple(m.w.shape), m.out_dim)
+                    shapes.setdefault(key, []).append(
+                        f"{path.stem} {tag}.{name}")
+    return shapes
+
+
+def sn_bound_ms(f: int, o: int, n_iter: int = 1) -> tuple[float, str]:
+    """Least time of one K7 call on W [F, O]: W read once, W_bar written
+    once, u read, u_new, v and sigma written (fp32) over the HBM rate, or
+    its (4 n_iter + 1) F O fp32 operations over the fp32 peak."""
+    bytes_ms = 4 * (2 * f * o + 2 * o + f + 1) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (4 * n_iter + 1) * f * o / PEAK_FLOPS[torch.float32] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one ``fn`` call with the L2 cache flushed before
+    it (a 256 MB write), between CUDA events around the call alone: a
+    weight is cold when a training step reaches its layer."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def phase_sn_kernels(card: str) -> dict:
+    """K7 against its plain version at every distinct SN weight of
+    imagenet128_cond and imagenet128_paper_gf64, fp32: W_bar, u_new, v and
+    sigma, and the gradient; times at the stem, a 3x3 conv and the
+    smallest weight.  Returns the stem's row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    shapes = sn_shapes()
+    smallest = min(shapes, key=lambda k: math.prod(k[1]))
+    timed = {**SN_TIMED, smallest: "smallest"}
+    worst = dict.fromkeys(("w_bar", "u_new", "v", "sigma", "grad"), 0.0)
+    head = None
+    for key in sorted(shapes, key=lambda k: math.prod(k[1])):
+        kind, shape, out_dim = key
+        a, o, r = cuda_spectral.sn_view(shape, out_dim)
+        w = 0.05 * torch.randn(shape, device="cuda", generator=gen)
+        u = torch.randn(o, device="cuda", generator=gen)
+        u = u / torch.linalg.vector_norm(u)
+        got = cuda_spectral.spectral_norm_fused(w, u, 1, SN_EPS, out_dim)
+        want = cuda_spectral.spectral_norm_reference(w, u, 1, SN_EPS,
+                                                     out_dim)
+        torch.cuda.synchronize()
+        errs, abs_err = {}, 0.0
+        for name, x, y in zip(("w_bar", "u_new", "v", "sigma"), got, want):
+            require(x.shape == y.shape and x.dtype == y.dtype == torch.float32,
+                    f"K7 {name} {tuple(x.shape)} vs plain {tuple(y.shape)}")
+            err = (x - y).abs().max().item()
+            abs_err = max(abs_err, err)
+            errs[name] = err / max(y.abs().max().item(), 1e-30)
+        t = torch.randn(shape, device="cuda", generator=gen)
+        grads = []
+        for backend in ("pallas", "xla"):
+            wg = w.clone().requires_grad_()
+            w_bar, _ = spectral_normalize(wg, u, 1, out_dim=out_dim,
+                                          backend=backend)
+            grads.append(torch.autograd.grad((w_bar * t).sum(), wg)[0])
+        errs["grad"] = ((grads[0] - grads[1]).abs().max().item()
+                        / grads[1].abs().max().item())
+        for name, e in errs.items():
+            worst[name] = max(worst[name], e)
+        ok = all(e <= SN_TOL for n, e in errs.items() if n != "grad") \
+            and errs["grad"] <= SN_GRAD_TOL
+        line = (f"phase 14 kernel spectral_norm {kind} {list(shape)} (A, O, "
+                f"R) = ({a}, {o}, {r}), {len(shapes[key])} layers, e.g. "
+                f"{shapes[key][0]}: errors / max|plain| "
+                + " ".join(f"{n} {e:.2g}" for n, e in errs.items())
+                + f" {'ok' if ok else 'FAIL'}")
+        if key in timed:
+            fused = functools.partial(cuda_spectral.spectral_norm_fused, w,
+                                      u, 1, SN_EPS, out_dim)
+            plain = functools.partial(cuda_spectral.spectral_norm_reference,
+                                      w, u, 1, SN_EPS, out_dim)
+            ms, plain_ms = cold_ms(fused), cold_ms(plain)
+            warm_ms = cuda_ms(fused)
+            bound, bound_by = sn_bound_ms(a * r, o)
+            line += (f"; {timed[key]}: ms {ms:.4f} (L2 flushed; "
+                     f"{warm_ms:.4f} back to back) plain_ms {plain_ms:.4f} "
+                     f"bound_ms {bound:.4g} ({bound_by}) library_ms None (no "
+                     f"PyTorch call computes power iteration and scale)")
+            if timed[key] == "stem":
+                # the largest |K7 - plain| over W_bar, u_new, v and sigma
+                head = {"max_abs_err": abs_err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": None}
+        print(f"{line} on {card}", flush=True)
+        require(ok, f"K7 disagrees with its plain version at {kind} "
+                    f"{list(shape)}: {errs}")
+    print(f"phase 14 kernel spectral_norm: all {len(shapes)} distinct SN "
+          f"weights of imagenet128_cond and imagenet128_paper_gf64, worst "
+          f"errors / max|plain| "
+          + " ".join(f"{n} {e:.2g}" for n, e in worst.items())
+          + f" (tol {SN_TOL:g}, gradient {SN_GRAD_TOL:g})", flush=True)
+    return head
+
+
+def phase_generator128(card: str) -> None:
+    """The full-width imagenet128_cond G in fp32 on the card (BN statistics
+    of one batch) with use_pallas_sn against the same G with the plain SN,
+    within G_SN_TOL; one K7 launch per SN layer."""
+    config = imagenet_config(IMAGENET128, "float32", use_pallas_sn=True)
+    gen = get_generator(config, rng=torch.Generator().manual_seed(SEED + 60))
+    gen.to("cuda")
+    _calibrate_bn(gen)
+    plain = copy.deepcopy(gen)
+    layers.set_sn_backend(plain, "xla")
+    rng = torch.Generator("cuda").manual_seed(SEED + 61)
+    z = torch.randn(8, 128, device="cuda", generator=rng)
+    labels = torch.randint(0, 1000, (8,), device="cuda", generator=rng)
+    with torch.inference_mode():
+        _zero_counts()
+        got = gen(z, labels)
+        torch.cuda.synchronize()
+        counts = _counts()
+        want = plain(z, labels)
+    err = (got - want).abs().max().item()
+    std = want.std().item()
+    print(f"phase 15 imagenet128_cond G fp32 B=8 with use_pallas_sn vs the "
+          f"plain SN on the card: shape {tuple(got.shape)} max_abs_err "
+          f"{err:.3g} (tol {G_SN_TOL:g}), output std {std:.3g}; launches "
+          f"{counts} on {card}", flush=True)
+    require(err <= G_SN_TOL and got.shape == (8, 3, 128, 128) and std > 1e-2
+            and counts["K7"] == SN_PER_G and counts["K1"] == 2,
+            "the imagenet128 G through K7 disagrees with the plain SN, or "
+            "did not launch K7 once per SN layer")
+
+
+def phase_train128(card: str) -> dict:
+    """Train imagenet128_cond with use_pallas_sn through the entry point
+    for 2 epochs on synthetic labelled 128 px records, restart it for a
+    3rd.  Returns the first run's launches by kernel."""
+    smoke = ROOT / "build" / "smoke"
+    data = smoke / "imagenet128_synthetic"
+    for sub in ("ckpt128", "logs128", "images128"):
+        shutil.rmtree(smoke / sub, ignore_errors=True)
+    if not (data / "metadata.pickle").exists():
+        t0 = time.perf_counter()
+        make_synthetic_dataset(str(data), num=SMOKE128_RECORDS, img_size=128,
+                               num_classes=1000, seed=SEED)
+        print(f"phase 16 data: {SMOKE128_RECORDS} synthetic 128 px records, "
+              f"1000 classes, in {time.perf_counter() - t0:.1f} s", flush=True)
+    files = {}
+    for epochs in (2, 3):
+        files[epochs] = smoke / f"imagenet128_smoke_e{epochs}.py"
+        files[epochs].write_text(
+            f"import runpy\n"
+            f"config = dict(runpy.run_path({str(IMAGENET128)!r})['config'])\n"
+            f"config.update(data_path={str(data)!r}, epoch={epochs}, "
+            f"fid_epoch_freq=0, use_pallas_sn=True, "
+            f"ckpt_dir={str(smoke / 'ckpt128')!r}, "
+            f"log_dir={str(smoke / 'logs128')!r}, "
+            f"img_dir={str(smoke / 'images128')!r}, print_variables=False)\n")
+    results, first_step = {}, 0
+    for label, epochs in (("run", 2), ("restart", 3)):
+        trainer, text, counts, grids, n_epochs = _run_cli(
+            files[epochs], card, f"16 imagenet128 {label}")
+        steps = trainer.global_step() - first_step
+        want = {"K1": 12 * steps + 2 * grids, "K2": 8 * steps, "K3": 0,
+                "K4": 0, "K5": 0, "K6": 0,
+                "K7": SN_PER_STEP * steps + SN_PER_G * grids}
+        print(f"phase 16 imagenet128 {label}: {steps} steps at B="
+              f"{trainer.config['global_batch_size']}, "
+              f"update_ratio 2, {grids} sample-grid forwards; launches "
+              f"{counts} (expected {want}): K7 "
+              f"{(counts['K7'] - SN_PER_G * grids) / steps:g} a step",
+              flush=True)
+        require(trainer.config["num_classes"] == 1000
+                and n_epochs == epochs - first_step // trainer.steps_per_epoch
+                and trainer.global_step() == epochs * trainer.steps_per_epoch,
+                f"{label}: {n_epochs} epochs, step {trainer.global_step()}")
+        require(counts == want, f"imagenet128 {label}: launches {counts}, "
+                                f"expected {want}")
+        if first_step:
+            require(f"Restored from checkpoint at step {first_step}" in text,
+                    "the restart did not restore the checkpoint")
+        else:
+            require("Initializing from scratch." in text,
+                    "the first run did not start from scratch")
+        results[label] = counts
+        first_step = trainer.global_step()
+    return results["run"]
+
+
+def phase_serve128(card: str) -> None:
+    """Serve the imagenet128_cond checkpoint (EMA G, bf16, use_pallas_sn)
+    over HTTP per class at n = 1 and 8."""
+    config = resolve_config(load_config_file(
+        str(ROOT / "build" / "smoke" / "imagenet128_smoke_e3.py")))
+    _zero_counts()                   # the serving path starts here
+    t0 = time.perf_counter()
+    gen = generate.load_generator(config, None, "cuda")
+    svc = GeneratorService(gen, z_dim=config["z_dim"],
+                           num_classes=config["num_classes"], batch=8,
+                           ladder=(1,))
+    startup_s = time.perf_counter() - t0
+    forwards = len(svc.ladder)
+    srv = make_server(svc, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % srv.server_address[1]
+    try:
+        status, _, body, _ = _get(base + "/meta")
+        meta = json.loads(body)
+        require(status == 200 and meta["img_size"] == 128
+                and meta["num_classes"] == 1000 and meta["ladder"] == [1, 8],
+                meta)
+        bodies = {}
+        for n in (1, 8):
+            times = []
+            for rep, class_id in enumerate((207, 980, 207)):
+                status, headers, body, sec = _get(
+                    f"{base}/sample?n={n}&seed=5&class_id={class_id}"
+                    f"&format=raw")
+                forwards += len(list(svc._chunks(n)))
+                imgs = np.frombuffer(body, np.uint8).reshape(n, 128, 128, 3)
+                require(status == 200
+                        and headers["X-Image-Shape"] == f"{n}x128x128x3",
+                        headers)
+                require(imgs.std() > 0, "served images are constant")
+                bodies[n, rep] = body
+                times.append(sec * 1e3)
+            require(bodies[n, 0] == bodies[n, 2]
+                    and bodies[n, 0] != bodies[n, 1],
+                    "class_id does not pin the class")
+            print(f"phase 17 serve imagenet128_cond /sample?n={n}&class_id="
+                  f"207|980|207&format=raw: 200, {n}x128x128x3 uint8; "
+                  f"latency ms {', '.join(f'{t:.2f}' for t in times)}; the "
+                  f"same seed and class give identical bytes, another class "
+                  f"others; startup {startup_s:.2f} s on {card}", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    counts = _counts()               # the serving path ends here
+    want = {"K1": 2 * forwards, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K7": SN_PER_G * forwards}
+    print(f"phase 17 serve imagenet128_cond: launches {counts} for {forwards}"
+          f" generator forwards (expected {want})", flush=True)
+    require(counts == want, f"serving launches {counts}, expected {want}")
+
+
+def phase_step_gf64(card: str) -> None:
+    """One bf16 imagenet128_paper_gf64 training step (gf = df = 64,
+    update_ratio 1) at B=64 with use_pallas_sn: its stem [1128, 16384] and
+    1024-channel convolutions go through K7."""
+    config = imagenet_config(PAPER_GF64, "bfloat16", use_pallas_sn=True)
+    config.update(batch_size=PAPER_BATCH, global_batch_size=PAPER_BATCH)
+    gen = get_generator(config, rng=torch.Generator().manual_seed(SEED + 70))
+    disc = get_discriminator(config,
+                             rng=torch.Generator().manual_seed(SEED + 71))
+    gen.to("cuda").train()
+    disc.to("cuda").train()
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, None)
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    rng = torch.Generator("cuda").manual_seed(SEED + 72)
+    images = torch.randint(0, 256, (1, PAPER_BATCH, 128, 128, 3),
+                           dtype=torch.uint8, device="cuda", generator=rng)
+    labels = torch.randint(0, 1000, (1, PAPER_BATCH), dtype=torch.int32,
+                           device="cuda", generator=rng)
+    _zero_counts()                   # the step starts here
+    t0 = time.perf_counter()
+    metrics = step(state, images, labels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()               # and ends here
+    losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
+    params = sum(p.numel() for net in (gen, disc) for p in net.parameters())
+    # one attention site a net (the 32 maps); update_ratio 1: G and D run
+    # once for D's update and once for G's
+    sn = sum(isinstance(m, layers._SNLayer) and m.sn
+             for net in (gen, disc) for m in net.modules())
+    want = {"K1": 4, "K2": 3, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K7": 2 * sn}
+    print(f"phase 18 imagenet128_paper_gf64 train step B={PAPER_BATCH} bf16 "
+          f"({params} parameters in G and D): losses {losses}, "
+          f"{seconds:.2f} s (first step, host clock); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; launches "
+          f"{counts} (expected {want}) on {card}", flush=True)
+    require(all(math.isfinite(x) for x in losses.values()),
+            f"paper_gf64 losses are not finite: {losses}")
+    require(counts == want, f"paper_gf64 launches {counts}, expected {want}")
+
+
+def phase_legacy(card: str) -> None:
+    """One epoch of the legacy CLI (``python -m
+    sagan_tpu_torch.legacy_main``, in-process) on the imagenet128 records."""
+    smoke = ROOT / "build" / "smoke"
+    root = smoke / "legacy"
+    shutil.rmtree(root, ignore_errors=True)
+    out = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        trainer = legacy_main.main([
+            "--data_path", str(smoke / "imagenet128_synthetic"),
+            "--path_root", str(root), "-b", str(SMOKE128_BATCH), "-e", "1",
+            "-n", "16",
+            "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    epochs = re.findall(r"^epoch \d+: G_loss=(\S+) D_loss=(\S+) .*$",
+                        out.getvalue(), re.MULTILINE)
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith("epoch ")]
+    print(f"phase 19 legacy CLI: {'; '.join(lines)}; {trainer.global_step()} "
+          f"steps; launches {counts} on {card}", flush=True)
+    require(len(epochs) == 1 and all(math.isfinite(float(x))
+                                     for x in epochs[0])
+            and trainer.global_step() == SMOKE128_RECORDS // SMOKE128_BATCH
+            and any((root / "checkpoints").iterdir()),
+            "the legacy CLI did not train its epoch")
 
 
 def main() -> int:
@@ -1394,11 +1797,19 @@ def main() -> int:
     phase_serve512(card)
     train512 = phase_train512(card)
     step_b8 = phase_step512_b8(card)
+    sn_head = phase_sn_kernels(card)
+    phase_generator128(card)
+    train128 = phase_train128(card)
+    phase_serve128(card)
+    phase_step_gf64(card)
+    phase_legacy(card)
     # launches: each kernel's count on the path that runs it, zeroed just
     # before and read just after: K1 and K2 on the church64 training
     # entry point's run (phase 7; phase 4 checks the serving path's own
     # count), K3 and K6 on the church512 one (phase 12; phase 11 checks
-    # church512 serving's), K4 and K5 on the B=8 church512 step (phase 13)
+    # church512 serving's), K4 and K5 on the B=8 church512 step (phase 13),
+    # K7 on the imagenet128_cond training entry point's run (phase 16;
+    # phase 17 checks its serving path's own count)
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
     kernels = [{"name": "attention_fwd", "route": "cuda",
@@ -1421,8 +1832,12 @@ def main() -> int:
                {"name": "attention_flash_dqkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
                 "replaces": ref + "665", "launches": train512["K6"],
-                **flash["dqkv"]}]
-    print(f"chip_smoke: phases 1-13 passed in {time.perf_counter() - t0:.0f} "
+                **flash["dqkv"]},
+               {"name": "spectral_norm", "route": "cuda",
+                "source": src + "spectral_norm.cu",
+                "replaces": "sagan_tpu/ops/pallas_spectral.py:31",
+                "launches": train128["K7"], **sn_head}]
+    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t0:.0f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

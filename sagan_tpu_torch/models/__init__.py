@@ -1,31 +1,35 @@
-"""Model registry: ``config['model']`` selects the family."""
+"""Model registry: ``config['model']`` selects the family, 'vanilla' or
+'resnet'; ``use_pallas_sn`` routes every spectral norm through the fused
+kernel K7 (``sagan_tpu/models/__init__.py``)."""
 
+from torch import nn
+
+from ..nn.layers import set_sn_backend
+from .resnet import ResDiscriminator, ResGenerator
 from .vanilla import Discriminator, Generator
 
+_FAMILIES = {"vanilla": (Generator, Discriminator),
+             "resnet": (ResGenerator, ResDiscriminator)}
 
-def _check_family(config) -> None:
+
+def _build(config, rng, which: int) -> nn.Module:
     model = config.get("model", "vanilla")
-    if model == "resnet":
-        raise NotImplementedError(
-            "the resnet family is not ported yet: ROADMAP.md Queue 1 item 10")
-    if model != "vanilla":
+    if model not in _FAMILIES:
         raise ValueError(f"Unsupported model type: {model!r}")
+    net = _FAMILIES[model][which](config, rng=rng)
     if config.get("use_pallas_sn"):
-        raise NotImplementedError(
-            "use_pallas_sn: the fused spectral-norm kernel (K7) is not "
-            "ported yet, ROADMAP.md Queue 1 item 12")
+        set_sn_backend(net, "pallas")
+    return net
 
 
-def get_generator(config, rng=None) -> Generator:
+def get_generator(config, rng=None) -> nn.Module:
     """The generator of ``config`` with weights drawn from ``rng`` (a CPU
     ``torch.Generator``), on the CPU in eval mode; move it with
     ``.to(device)``."""
-    _check_family(config)
-    return Generator(config, rng=rng)
+    return _build(config, rng, 0)
 
 
-def get_discriminator(config, rng=None) -> Discriminator:
+def get_discriminator(config, rng=None) -> nn.Module:
     """The discriminator of ``config``, like :func:`get_generator` but in
     training mode."""
-    _check_family(config)
-    return Discriminator(config, rng=rng)
+    return _build(config, rng, 1)

@@ -11,7 +11,8 @@ and ``aux/<path>/u`` the buffer ``<path>.u`` (``convert.py``).
 
 Spectral normalization runs ``sn_iters`` power iterations from the stored
 ``u`` on every forward; only a module in training mode stores the new
-``u`` (``sagan_tpu/nn/layers.py:33-46``).
+``u`` (``sagan_tpu/nn/layers.py:33-46``).  :func:`set_sn_backend` routes
+every SN layer of a model through the fused kernel K7 (``"pallas"``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class _SNLayer(nn.Module):
     over the output-channel axis ``out_dim`` of ``w``."""
 
     out_dim = -1
+    sn_backend = "xla"   # or "pallas" (K7), set by set_sn_backend
 
     def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng,
                  w_init=init.glorot_uniform):
@@ -47,7 +49,8 @@ class _SNLayer(nn.Module):
         if not self.sn:
             return self.w
         w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
-                                          out_dim=self.out_dim)
+                                          out_dim=self.out_dim,
+                                          backend=self.sn_backend)
         if self.training:
             with torch.no_grad():
                 self.u.copy_(u_new)
@@ -59,6 +62,17 @@ class _SNLayer(nn.Module):
             shape = (-1,) if y.dim() == 2 else (-1, 1, 1)
             y = y + self.b.view(shape)
         return y.to(self.dtype)
+
+
+def set_sn_backend(root: nn.Module, backend: str) -> None:
+    """Route every spectrally normalized layer under ``root`` through
+    ``backend``: ``"xla"`` (the plain function) or ``"pallas"`` (the fused
+    kernel K7).  Per model, not a process global, as in the JAX package."""
+    if backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown SN backend {backend!r}")
+    for m in root.modules():
+        if isinstance(m, _SNLayer) and m.sn:
+            m.sn_backend = backend
 
 
 class Dense(_SNLayer):
@@ -99,8 +113,21 @@ class Conv(_SNLayer):
                                    stride=self.stride))
 
 
+def _conv_transpose_padding(kernel: int, stride: int) -> tuple[int, int]:
+    """(padding, extra) of ``F.conv_transpose2d`` for TF/XLA 'SAME'
+    (``lax.conv_transpose``, output size x stride).  XLA pads the dilated
+    input by (k − 1 if s > k − 1 else ceil((k + s − 2) / 2), the rest of
+    k + s − 2) on the low and high sides; torch pads both by k − 1 −
+    padding, and ``extra`` rows and columns more (fewer when negative) on
+    the high side.  4x4/2: (1, 0); 3x3/2: (0, −1), the last row and
+    column dropped."""
+    total = kernel + stride - 2
+    low = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return kernel - 1 - low, (total - low) - low
+
+
 class ConvTranspose(_SNLayer):
-    """NCHW 4x4 stride-2 transposed conv ('SAME': 2x upsampling), weight
+    """NCHW transposed conv, 'SAME' (stride s: s× upsampling), weight
     IOHW.  Equals the JAX layer's ``lax.conv_transpose(...,
     transpose_kernel=True)`` of the HWIO kernel ``w.permute(2, 3, 0, 1)``
     with no spatial flip."""
@@ -109,19 +136,20 @@ class ConvTranspose(_SNLayer):
 
     def __init__(self, cin, cout, kernel=4, stride=2, use_bias=True,
                  sn=False, sn_iters=1, dtype=torch.float32, rng=None):
-        if (kernel, stride) != (4, 2):
-            raise NotImplementedError(
-                f"ConvTranspose is ported for kernel 4 stride 2 (the vanilla "
-                f"G), got kernel {kernel} stride {stride}; other 'SAME' "
-                f"paddings come with the resnet family, ROADMAP.md Queue 1 "
-                f"item 10")
         super().__init__((cin, cout, kernel, kernel), cout, use_bias, sn,
                          sn_iters, dtype, rng)
+        self.stride = stride
+        # extra < stride always (s − k when s > k − 1, else 0 or −1)
+        self.padding, self.extra = _conv_transpose_padding(kernel, stride)
 
     def forward(self, x):
-        return self._bias(F.conv_transpose2d(
-            x.to(self.dtype), self.weight().to(self.dtype), stride=2,
-            padding=1))
+        y = F.conv_transpose2d(
+            x.to(self.dtype), self.weight().to(self.dtype),
+            stride=self.stride, padding=self.padding,
+            output_padding=max(self.extra, 0))
+        if self.extra < 0:
+            y = y[:, :, :self.extra, :self.extra]
+        return self._bias(y)
 
 
 class Embedding(_SNLayer):

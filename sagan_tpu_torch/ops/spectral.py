@@ -13,11 +13,18 @@ not have (it clamps the norm, keeps its own ``u`` and matricizes
 
 sigma does not depend on the order of W's rows, so a layer passes its
 own layout and names the output-channel axis (``out_dim``).
+
+``backend`` picks the implementation, as in the JAX package: ``"xla"``,
+the plain function below (the JAX package computes that path outside any
+Pallas kernel), or ``"pallas"``, the fused kernel K7 through
+:class:`~sagan_tpu_torch.ops.cuda_spectral.SpectralNormFused`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .cuda_spectral import SpectralNormFused
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -40,9 +47,23 @@ def power_iterate(w_mat: torch.Tensor, u: torch.Tensor, n_iter: int = 1):
 
 
 def spectral_normalize(w: torch.Tensor, u: torch.Tensor, n_iter: int = 1,
-                       eps: float = 1e-12, out_dim: int = -1):
+                       eps: float = 1e-12, out_dim: int = -1,
+                       backend: str = "xla"):
     """(w / (sigma + eps), u_new) for a kernel of any rank whose output
-    channels lie on axis ``out_dim``; w_bar keeps w's shape and dtype."""
+    channels lie on axis ``out_dim``; w_bar keeps w's shape and dtype.
+    ``backend``: ``"xla"`` or ``"pallas"`` (K7)."""
+    if backend == "pallas":
+        # Every weight, of any size, goes through K7 on the card.  The JAX
+        # package sends weights above VMEM_LIMIT_BYTES to its XLA path
+        # (pallas_spectral.py:28,120-122), a TPU VMEM matter; a plain
+        # route for large weights on a CUDA tensor would be a hidden
+        # fallback.
+        w_bar, u_new = SpectralNormFused.apply(
+            w.float().contiguous(), u.float().contiguous(), n_iter, eps,
+            out_dim)
+        return w_bar.to(w.dtype), u_new
+    if backend != "xla":
+        raise ValueError(f"unknown SN backend {backend!r}")
     w32 = w.float()
     w_mat = w32.movedim(out_dim, -1).reshape(-1, w.shape[out_dim])
     sigma, u_new, _ = power_iterate(w_mat, u.float(), n_iter)

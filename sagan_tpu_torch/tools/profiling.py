@@ -1,6 +1,7 @@
 """What the breakdown tools share: the card's name and power limit, and
 the device time and launches of each kernel in a ``torch.profiler``
-trace, with the port's attention kernels picked out by name."""
+trace, with the port's kernels (attention K1-K6, the fused spectral norm
+K7) picked out by name."""
 
 from __future__ import annotations
 
@@ -19,6 +20,12 @@ ATTENTION_KERNELS = (
     ("K5 attention_flash_dkv", ("attention_flash_dkv_kernel<",)),
     ("K6 attention_flash_dqkv", ("attention_flash_dqkv_kernel<",)),
 )
+# K7 runs its finish kernel once a call (at the configs' sn_iters 1)
+SN_KERNELS = (
+    ("K7 spectral_norm", ("sn_finish_kernel<", "sn_rows_kernel<",
+                          "sn_colsum_kernel(")),
+)
+PORT_KERNELS = ATTENTION_KERNELS + SN_KERNELS
 
 
 def card_line() -> str:
@@ -43,11 +50,13 @@ def device_kernels(prof) -> dict:
     return out
 
 
-def attention_kernels(kernels: dict, per: int = 1) -> dict:
-    """{label: {"ms", "launches"}} of the port's attention kernels in
+def attention_kernels(kernels: dict, per: int = 1,
+                      table=ATTENTION_KERNELS) -> dict:
+    """{label: {"ms", "launches"}} of the port's kernels in ``table``
+    (the attention kernels by default, ``PORT_KERNELS`` for all) in
     ``device_kernels``' result, divided by ``per`` (steps or calls)."""
     rows = {}
-    for label, names in ATTENTION_KERNELS:
+    for label, names in table:
         ms = sum(t for key, (t, _) in kernels.items()
                  if any(name in key for name in names))
         launches = sum(n for key, (_, n) in kernels.items()

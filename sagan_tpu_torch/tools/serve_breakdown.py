@@ -2,13 +2,17 @@
 
     python -m sagan_tpu_torch.tools.serve_breakdown [--reps 10] \\
         [--config example_configs/church64_attn.py] [--img_size 64] \\
-        [--batch 64] [--ladder 1,8]
+        [--num_classes 1] [--batch 64] [--ladder 1,8] [--pallas_sn]
 
 Serves the config's generator (church64 by default: full width, the
 config's compute dtype, seeded random weights with nonzero attention
-``sigma``) at ``--img_size`` (the config files leave it to the dataset)
-from ``GeneratorService(batch, ladder)`` behind ``make_server`` and, for
-each ladder rung n, reports medians over ``--reps`` runs of:
+``sigma``; or the resnet family, ``example_configs/imagenet128_cond.py
+--img_size 128 --num_classes 1000``, one class a request) at
+``--img_size`` and ``--num_classes`` (the config files leave them to the
+dataset), with every spectral norm through the fused kernel K7 when
+``--pallas_sn``, from ``GeneratorService(batch, ladder)`` behind
+``make_server`` and, for each ladder rung n, reports medians over
+``--reps`` runs of:
 
 * ``device_ms``: one generator forward through the serve function, between
   two CUDA events (device time including the gaps the host leaves);
@@ -21,9 +25,9 @@ each ladder rung n, reports medians over ``--reps`` runs of:
   forward, uint8 fetch);
 * ``http_ms``: ``GET /sample?n=<n>&format=raw`` on the host clock;
 * from one ``torch.profiler`` trace of a forward: the summed kernel time,
-  each attention kernel's time and launches (K1, or K3 on the flash path
-  of a large map), and the kernels by time; the device's busy share is
-  the summed kernel time over ``device_ms``.
+  each of the port's kernels' time and launches (K1, or K3 on the flash
+  path of a large map; K7), and the kernels by time; the device's busy
+  share is the summed kernel time over ``device_ms``.
 
 ``GET /healthz`` (no model work) gives the HTTP round trip alone.  Prints
 one line per measurement and, last, one JSON object of all of them.
@@ -48,7 +52,8 @@ from ..nn.attention import SelfAttention
 from ..serve import GeneratorService, make_server
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
-from .profiling import attention_kernels, card_line, device_kernels
+from .profiling import (PORT_KERNELS, attention_kernels, card_line,
+                        device_kernels)
 
 
 def _get_ms(url: str) -> float:
@@ -107,12 +112,17 @@ def main(argv=None):
                     help="largest serving batch")
     ap.add_argument("--ladder", default="1,8",
                     help="smaller batch sizes, comma-separated")
+    ap.add_argument("--num_classes", type=int, default=1)
+    ap.add_argument("--pallas_sn", action="store_true",
+                    help="every spectral norm through K7 (use_pallas_sn)")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     card = card_line()
 
     config = resolve_config(load_config_file(args.config))
-    config.update(img_size=args.img_size, num_classes=1)
+    config.update(img_size=args.img_size, num_classes=args.num_classes)
+    if args.pallas_sn:
+        config["use_pallas_sn"] = True
     gen = get_generator(config, rng=torch.Generator().manual_seed(0))
     with torch.no_grad():
         for mod in gen.modules():
@@ -120,7 +130,8 @@ def main(argv=None):
                 mod.sigma.fill_(0.5)
     gen.to(device)
     ladder = tuple(int(s) for s in args.ladder.split(",") if s.strip())
-    svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
+    svc = GeneratorService(gen, z_dim=config["z_dim"],
+                           num_classes=args.num_classes,
                            batch=args.batch, ladder=ladder)
     serve = build_serve_fn(gen)
     srv = make_server(svc, port=0)
@@ -129,14 +140,17 @@ def main(argv=None):
     base = "http://127.0.0.1:%d" % srv.server_address[1]
     result = {"card": card, "config": args.config,
               "img_size": args.img_size,
-              "compute_dtype": config.get("compute_dtype"), "rungs": {}}
+              "compute_dtype": config.get("compute_dtype"),
+              "use_pallas_sn": bool(config.get("use_pallas_sn")),
+              "rungs": {}}
+    cls = args.num_classes - 1   # every request pins one class
     try:
         healthz = [_get_ms(base + "/healthz") for _ in range(args.reps)]
         result["healthz_ms"] = statistics.median(healthz)
         print(f"/healthz median {result['healthz_ms']:.3f} ms ({card})")
         for n in svc.ladder:
             z = torch.randn(n, config["z_dim"], device=device)
-            labels = torch.zeros(n, dtype=torch.long, device=device)
+            labels = torch.full((n,), cls, dtype=torch.long, device=device)
             dev = [_device_ms(lambda: serve(z, labels))
                    for _ in range(args.reps)]
             forward = [_host_ms(lambda: serve(z, labels))
@@ -146,13 +160,14 @@ def main(argv=None):
             host = []
             for rep in range(args.reps):
                 t0 = time.perf_counter()
-                svc.sample(n, seed=rep, class_id=-1, truncation=0.0)
+                svc.sample(n, seed=rep, class_id=cls, truncation=0.0)
                 host.append((time.perf_counter() - t0) * 1e3)
-            http = [_get_ms(f"{base}/sample?n={n}&seed={rep}&format=raw")
+            http = [_get_ms(f"{base}/sample?n={n}&seed={rep}"
+                            f"&class_id={cls}&format=raw")
                     for rep in range(args.reps)]
             wall, kernels = _kernel_times(lambda: serve(z, labels))
             busy = sum(ms for ms, _ in kernels.values())
-            attn = attention_kernels(kernels)
+            ports = attention_kernels(kernels, table=PORT_KERNELS)
             top = sorted(((k, ms) for k, (ms, _) in kernels.items()),
                          key=lambda kv: -kv[1])[:8]
             row = {"device_ms": statistics.median(dev),
@@ -162,7 +177,7 @@ def main(argv=None):
                    "http_ms": statistics.median(http),
                    "profiled_wall_ms": wall, "kernel_ms": busy,
                    "busy_share": busy / statistics.median(dev),
-                   "attention": attn,
+                   "kernels_by_port": ports,
                    "kernels": len(kernels),
                    "top": [[k[:60], v] for k, v in top]}
             result["rungs"][n] = row
@@ -173,7 +188,7 @@ def main(argv=None):
                   f"kernels {busy:.3f} ms (busy {row['busy_share']:.1%} of "
                   f"device_ms); profiled forward wall {wall:.3f} ms "
                   f"({card})")
-            for label, row in attn.items():
+            for label, row in ports.items():
                 print(f"    {label}: {row['ms']:.4f} ms, {row['launches']:g} "
                       f"launches")
             for name, ms in top:

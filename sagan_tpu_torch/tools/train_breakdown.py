@@ -2,12 +2,16 @@
 
     python -m sagan_tpu_torch.tools.train_breakdown [--steps 20] \\
         [--profile_steps 3] [--config example_configs/church64_attn.py] \\
-        [--img_size 64]
+        [--img_size 64] [--num_classes 1] [--pallas_sn]
 
 Runs the port's train step (``train/trainer.py``) on the config at full
-width (church64 by default: bf16, batch 64, update_ratio 1) and
-``--img_size`` (the config files leave it to the dataset) from a seeded
-init on random uint8 images, and reports, after 5 warm-up steps:
+width (church64 by default: bf16, batch 64, update_ratio 1; or the resnet
+family, ``example_configs/imagenet128_cond.py --img_size 128
+--num_classes 1000``) at ``--img_size`` and ``--num_classes`` (the config
+files leave them to the dataset), with every spectral norm through the
+fused kernel K7 when ``--pallas_sn`` (the config's ``use_pallas_sn``),
+from a seeded init on random uint8 images and labels, and reports, after
+5 warm-up steps:
 
 * the medians over ``--steps`` steps of each span of the step, between
   CUDA events the step records as each span ends (``TrainStep.mark``):
@@ -19,10 +23,10 @@ init on random uint8 images, and reports, after 5 warm-up steps:
 * from one ``torch.profiler`` trace of ``--profile_steps`` steps: the
   summed kernel time and kernel launches per step, the device's busy
   share (summed kernel time per step over ``step_device_ms``; the traced
-  wall time is longer, as the profiler slows the host), each attention
-  kernel's time and launches per step (K1/K2 on the single-pass path,
-  K3 and K6 or K4 + K5 on the flash path of a large map), and the
-  kernels by time.
+  wall time is longer, as the profiler slows the host), each of the
+  port's kernels' time and launches per step (K1/K2 on the single-pass
+  path, K3 and K6 or K4 + K5 on the flash path of a large map, K7), and
+  the kernels by time.
 
 Prints one line per measurement and, last, one JSON object of all of
 them.  Needs a CUDA device.
@@ -44,7 +48,8 @@ from ..train.optim import make_gan_optimizers
 from ..train.trainer import TrainState, build_train_step
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
-from .profiling import attention_kernels, card_line, device_kernels
+from .profiling import (PORT_KERNELS, attention_kernels, card_line,
+                        device_kernels)
 
 WARMUP = 5
 
@@ -79,6 +84,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--profile_steps", type=int, default=3)
     ap.add_argument("--img_size", type=int, default=64)
+    ap.add_argument("--num_classes", type=int, default=1)
+    ap.add_argument("--pallas_sn", action="store_true",
+                    help="every spectral norm through K7 (use_pallas_sn)")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,8 +94,9 @@ def main(argv=None):
     card = card_line()
 
     config = resolve_config(load_config_file(args.config))
-    config.update(img_size=args.img_size)
-    config.setdefault("num_classes", 1)
+    config.update(img_size=args.img_size, num_classes=args.num_classes)
+    if args.pallas_sn:
+        config["use_pallas_sn"] = True
     gen = get_generator(config, rng=torch.Generator().manual_seed(0))
     disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
     gen.to(device)
@@ -102,7 +111,8 @@ def main(argv=None):
     rng = torch.Generator(device=device).manual_seed(0)
     images = torch.randint(0, 256, (1, b, s, s, 3), dtype=torch.uint8,
                            device=device, generator=rng)
-    labels = torch.zeros(1, b, dtype=torch.int32, device=device)
+    labels = torch.randint(0, args.num_classes, (1, b), dtype=torch.int32,
+                           device=device, generator=rng)
 
     def run():
         step(state, images, labels)
@@ -138,7 +148,7 @@ def main(argv=None):
     kernels = device_kernels(prof)
     busy = sum(ms for ms, _ in kernels.values())
     launches = sum(n for _, n in kernels.values())
-    attn = attention_kernels(kernels, args.profile_steps)
+    ports = attention_kernels(kernels, args.profile_steps, PORT_KERNELS)
     top = sorted(((k, ms) for k, (ms, _) in kernels.items()),
                  key=lambda kv: -kv[1])[:12]
     name = os.path.splitext(os.path.basename(args.config))[0]
@@ -146,17 +156,19 @@ def main(argv=None):
     result = {
         "card": card, "config": args.config, "img_size": s, "batch": b,
         "compute_dtype": config.get("compute_dtype"),
+        "use_pallas_sn": bool(config.get("use_pallas_sn")),
         "steps": args.steps, "spans_ms": spans, "step_ms": step_ms,
         "imgs_per_s": b / step_ms * 1e3,
         "profiled_wall_ms_per_step": wall / args.profile_steps,
         "kernel_ms_per_step": busy / args.profile_steps,
         "busy_share": busy / args.profile_steps / spans["step_device_ms"],
         "kernel_launches_per_step": launches / args.profile_steps,
-        "attention_per_step": attn,
+        "kernels_per_step": ports,
         "top": [[k[:80], v / args.profile_steps] for k, v in top],
     }
     print(f"{name} train step, {s} px, B={b} "
-          f"{config.get('compute_dtype')}, {card}:")
+          f"{config.get('compute_dtype')}, use_pallas_sn "
+          f"{result['use_pallas_sn']}, {card}:")
     for k, v in spans.items():
         print(f"  {k:15s} {v:9.3f} ms (median of {args.steps})")
     print(f"  step_ms {step_ms:.3f} (host clock, {args.steps} steps) = "
@@ -166,7 +178,7 @@ def main(argv=None):
           f"profiled wall {result['profiled_wall_ms_per_step']:.3f} ms), "
           f"{result['kernel_launches_per_step']:.0f} kernel launches per "
           f"step")
-    for label, row in attn.items():
+    for label, row in ports.items():
         print(f"    {label}: {row['ms']:.4f} ms, {row['launches']:g} "
               f"launches per step")
     for name, ms in result["top"]:

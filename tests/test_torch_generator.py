@@ -17,6 +17,9 @@ from sagan_tpu.utils.config import resolve_config as jax_resolve
 from sagan_tpu.utils.trees import flatten_with_paths
 from sagan_tpu_torch.convert import state_from_jax
 from sagan_tpu_torch.models import get_generator
+from sagan_tpu_torch.models.resnet import ResGenerator
+from sagan_tpu_torch.models.vanilla import Generator
+from sagan_tpu_torch.nn.layers import _SNLayer
 from sagan_tpu_torch.utils.config import resolve_config
 
 TOL = 1e-5
@@ -112,11 +115,21 @@ def test_generator_init_is_reproducible_from_a_seed():
 
 
 @pytest.mark.parametrize("update,error", [
-    ({"model": "resnet"}, NotImplementedError),
-    ({"use_pallas_sn": True}, NotImplementedError),
+    ({"model": "resnet"}, None),
+    ({"use_pallas_sn": True}, None),
     ({"model": "nope"}, ValueError),
 ])
 def test_unported_or_unknown_models_raise(update, error):
+    """An unknown family raises; the resnet family and ``use_pallas_sn``,
+    which raised before they were ported, now build (the resnet G, and
+    every SN layer on the fused kernel K7)."""
     cfg = resolve_config({**SMALL_COND, **update}, num_local_devices=1)
-    with pytest.raises(error):
-        get_generator(cfg)
+    if error is not None:
+        with pytest.raises(error):
+            get_generator(cfg)
+        return
+    gen = get_generator(cfg)
+    assert type(gen) is (ResGenerator if "model" in update else Generator)
+    sn = {m.sn_backend for m in gen.modules()
+          if isinstance(m, _SNLayer) and m.sn}
+    assert sn == {"pallas" if "use_pallas_sn" in update else "xla"}

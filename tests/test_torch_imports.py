@@ -22,16 +22,18 @@ leaked = sorted(m for m in sys.modules
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the port, the training slice's and the flash slice's
-# included (the flash path's plain versions and routing live in
-# ops.attention, its wrappers and autograd Function in ops.cuda_attention)
+# every module of the port, the training slice's, the flash slice's and
+# the resnet slice's included (the flash path's plain versions and routing
+# live in ops.attention, its wrappers and autograd Function in
+# ops.cuda_attention; K7's wrapper, plain version and autograd Function in
+# ops.cuda_spectral)
 MODULES = {
-    "convert", "generate", "main", "serve",
+    "convert", "generate", "legacy_main", "main", "serve",
     "data", "data.loader", "data.synthetic", "data.tfrecord",
-    "models", "models.vanilla",
+    "models", "models.resnet", "models.vanilla",
     "nn", "nn.attention", "nn.initializers", "nn.layers",
     "ops", "ops._build", "ops.attention", "ops.cuda_attention",
-    "ops.losses", "ops.spectral",
+    "ops.cuda_spectral", "ops.losses", "ops.spectral",
     "tools", "tools.profiling", "tools.serve_breakdown",
     "tools.train_breakdown",
     "train", "train.checkpoint", "train.optim", "train.trainer",

@@ -116,6 +116,12 @@ LAYERS = {
     "conv_transpose_bias": (lambda: jlayers.ConvTranspose(5, 3),
                             lambda: tlayers.ConvTranspose(5, 3),
                             (2, 3, 5, 5)),
+    # the resnet G's 3x3/2 'SAME', padded (2, 1) by XLA: the last row and
+    # column of torch's padding-0 output dropped
+    "conv_transpose_3x3_stride2_sn": (
+        lambda: jlayers.ConvTranspose(6, 4, kernel=3, stride=2, sn=True),
+        lambda: tlayers.ConvTranspose(6, 4, kernel=3, stride=2, sn=True),
+        (2, 5, 4, 6)),
     "batch_norm": (lambda: jlayers.BatchNorm(6),
                    lambda: tlayers.BatchNorm(6), (3, 4, 4, 6)),
     "self_attention": (lambda: jattention.SelfAttention(16),
@@ -254,6 +260,24 @@ def test_global_sum_pool_is_an_fp32_spatial_sum():
     torch.testing.assert_close(out, torch.tensor([[66.0, 210.0]]))
 
 
-def test_conv_transpose_other_than_4x4_stride2_raises():
-    with pytest.raises(NotImplementedError, match="resnet"):
-        tlayers.ConvTranspose(4, 4, kernel=3, stride=2)
+@pytest.mark.parametrize("kernel,stride", [(3, 2), (3, 1), (1, 1), (5, 2),
+                                           (2, 2), (4, 1)])
+def test_conv_transpose_other_than_4x4_stride2_raises(kernel, stride):
+    """Kernels and strides other than the vanilla G's 4x4/2 no longer
+    raise (the resnet family brought the general 'SAME' padding): each
+    matches ``lax.conv_transpose(..., 'SAME', transpose_kernel=True)``."""
+    rs = np.random.RandomState(kernel * 10 + stride)
+    x = rs.randn(2, 5, 3, 4).astype(np.float32)
+    w = rs.randn(kernel, kernel, 4, 3).astype(np.float32)
+    want = jax.lax.conv_transpose(
+        jnp.asarray(x), jnp.swapaxes(jnp.asarray(w), 2, 3),
+        strides=(stride, stride), padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), transpose_kernel=True,
+        precision=jax.lax.Precision.HIGHEST)
+    layer = tlayers.ConvTranspose(4, 3, kernel=kernel, stride=stride,
+                                  use_bias=False)
+    with torch.no_grad():
+        layer.w.copy_(torch.from_numpy(w).permute(2, 3, 0, 1))
+        got = _nhwc(layer(_nchw(x)))
+    assert got.shape == (2, 5 * stride, 3 * stride, 3)
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
