@@ -80,7 +80,22 @@ Phases, each printed as it ends:
  18. one bf16 imagenet128_paper_gf64 training step at B=64 with
      ``use_pallas_sn``;
  19. one epoch of the legacy CLI (``sagan_tpu_torch.legacy_main``) on the
-     same records.
+     same records;
+ 20. the attention study kernels: every study library built (one nvcc
+     each, all together); every variant of the study forward (S1) against
+     its plain version at church64's 64 map, a 4,096-row chunk of the 256
+     and 512 maps and a ragged shape, bf16 and (fma engine) fp32, its fma
+     default against K1 bit for bit; both forms of the folded forward (S2)
+     against theirs; K1 and K3 at every forward tile point against the
+     plain forward, K4-K6 at every backward tile point against K4 + K5 at
+     the shipped tiles (B=2 at the 256 map); S1 and S2 timed at the 64 map;
+ 21. the four attention studies (``sagan_tpu_torch.tools.bench_attn_*``)
+     with ``--quick`` in process: every section present, every time > 0,
+     every max|Δ| within its limit (each kernel a study times, at the full
+     study shape it times it at, against its plain version on the first
+     2,048 query rows of batch 0 and the last 64 of the last batch
+     element; the tile variants of K4-K6 against K4 + K5), the study
+     kernels launched.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -118,18 +133,25 @@ from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
 from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn import layers
 from sagan_tpu_torch.nn.attention import SelfAttention
-from sagan_tpu_torch.ops import _build, cuda_attention, cuda_spectral
+from sagan_tpu_torch.ops import (_build, cuda_attention,
+                                 cuda_attention_study, cuda_spectral)
 from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference,
                                            flash_bwd_fused, plain_chunk)
+from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
+                                                 study_attention_reference)
 from sagan_tpu_torch.ops.spectral import spectral_normalize
 from sagan_tpu_torch.serve import GeneratorService, make_server
+from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
+                                   bench_attn_floor256, bench_attn_floor512)
 from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
                                            build_train_step)
+from sagan_tpu_torch.tools._study import sdpa_padded
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
+from sagan_tpu_torch.utils.timing import cuda_time_ms
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_configs" / "church64_attn.py"
@@ -182,41 +204,30 @@ def require(cond: bool, what) -> None:
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` calls, after
-    ``warmup`` calls, between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def _build_report(paths: dict) -> str:
+    """Kernels, registers and spill stores of each source's libraries,
+    from the compiler's ``-Xptxas -v`` reports beside them."""
+    per_source = {}
+    for (name, _), path in paths.items():
+        per_source[name] = per_source.get(name, "") + \
+            path.with_suffix(".log").read_text()
+    report = []
+    for name, logs in per_source.items():
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", logs)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             logs)]
+        report.append(f"{name} {len(regs)} kernels, registers max "
+                      f"{max(regs)}, spill stores max {max(spills)} bytes")
+    return "; ".join(report)
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
     paths = _build.build(cuda_attention.build_specs()
                          + cuda_spectral.build_specs())
-    seconds = time.perf_counter() - t0
-    per_source = {}
-    for (name, _), path in paths.items():
-        per_source[name] = per_source.get(name, "") + \
-            path.with_suffix(".log").read_text()
-    report, kernels = [], 0
-    for name, logs in per_source.items():
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", logs)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                             logs)]
-        kernels += len(regs)
-        report.append(f"{name} registers max {max(regs)}, spill stores max "
-                      f"{max(spills)} bytes")
-    print(f"phase 1 build: {len(paths)} libraries ({kernels} kernels), one "
-          f"nvcc each, all started together: {seconds:.1f} s in total; "
-          + "; ".join(report), flush=True)
+    print(f"phase 1 build: {len(paths)} libraries, one nvcc each, all "
+          f"started together: {time.perf_counter() - t0:.1f} s in total; "
+          f"{_build_report(paths)}", flush=True)
 
 
 def attention_bound_ms(b, n, m, d, c, dtype) -> tuple[float, str]:
@@ -250,10 +261,10 @@ def phase_kernels(card: str) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
             lib_err = (lib.float() - ref.float()).abs().max().item()
             ok = err <= TOL[dtype] * max(1.0, scale)
-            ms = cuda_ms(lambda: cuda_attention.attention_fused(q, k, v))
-            plain_ms = cuda_ms(lambda: attention_reference(q, k, v))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=1.0))
+            ms = cuda_time_ms(cuda_attention.attention_fused, q, k, v)[0]
+            plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v))[0]
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0))[0]
             bound_ms, bound_by = attention_bound_ms(b, n, m, d, c, dtype)
             name = str(dtype).removeprefix("torch.")
             print(f"phase 2 kernel attention_fwd {site} B={b} N={n} "
@@ -361,14 +372,14 @@ def phase_bwd_kernels(card: str) -> dict:
             for dtype in (torch.bfloat16, torch.float32):
                 q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
                 share, err = _bwd_errors(q, k, v, g, dtype)
-                ms = cuda_ms(lambda: cuda_attention.attention_bwd_fused(
-                    q, k, v, g))
-                plain_ms = cuda_ms(lambda: attention_bwd_reference(
-                    q, k, v, g))
+                ms = cuda_time_ms(lambda: cuda_attention.attention_bwd_fused(
+                    q, k, v, g))[0]
+                plain_ms = cuda_time_ms(lambda: attention_bwd_reference(
+                    q, k, v, g))[0]
                 qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
                 out = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
-                lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                    out, (qs, ks, vs), g, retain_graph=True))
+                lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                    out, (qs, ks, vs), g, retain_graph=True))[0]
                 bound_ms, bound_by = attention_bwd_bound_ms(b, n, m, d, c,
                                                             dtype)
                 name = str(dtype).removeprefix("torch.")
@@ -904,10 +915,11 @@ def _sdpa_flash(q, k, v, g, ref_o) -> dict:
                 why.append(f"{'padded' if pad else 'as given'}: "
                            + " / ".join(sorted(reasons)))
                 continue
-            fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qp, kp, vp, scale=1.0), iters=5, warmup=1)
-            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, (qp, kp, vp), g4, retain_graph=True), iters=3, warmup=1)
+            fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qp, kp, vp, scale=1.0), iters=5, warmup=1)[0]
+            bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                out, (qp, kp, vp), g4, retain_graph=True), iters=3,
+                warmup=1)[0]
         err = (out.squeeze(1).float() - ref_o.float()).abs().max().item()
         note = (f"q, k zero-padded {q.shape[2]} -> {q.shape[2] + pad}"
                 if pad else "as given")
@@ -982,10 +994,10 @@ def phase_flash_kernels(card: str) -> dict:
                     f"{lse_err:.3g} (tol {LSE_TOL:g} x max(1, "
                     f"{lse_scale:.3g})) {'ok' if ok else 'FAIL'}")
             if timed:
-                ms = cuda_ms(lambda: cuda_attention.attention_flash_fwd(
-                    q, k, v), iters=5, warmup=1)
-                plain_ms = cuda_ms(lambda: attention_flash_reference(
-                    q, k, v, chunk), iters=1, warmup=0)
+                ms = cuda_time_ms(lambda: cuda_attention.attention_flash_fwd(
+                    q, k, v), iters=5, warmup=1)[0]
+                plain_ms = cuda_time_ms(lambda: attention_flash_reference(
+                    q, k, v, chunk), iters=1, warmup=0)[0]
                 lib = _sdpa_flash(q, k, v, g, ref_o)
                 bound = _flash_bound_ms("fwd", b, n, m, d, c, dtype)
                 line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
@@ -1006,8 +1018,8 @@ def phase_flash_kernels(card: str) -> dict:
             want = attention_flash_bwd_reference(q, k, v, o, lse, g, chunk)
             tol = BWD_TOL[dtype]
             if timed:
-                plain_ms = cuda_ms(lambda: attention_flash_bwd_reference(
-                    q, k, v, o, lse, g, chunk), iters=1, warmup=0)
+                plain_ms = cuda_time_ms(lambda: attention_flash_bwd_reference(
+                    q, k, v, o, lse, g, chunk), iters=1, warmup=0)[0]
             calls = {
                 "dq": (lambda: (cuda_attention.attention_flash_dq(
                     q, k, v, o, lse, g),), want[:1]),
@@ -1024,7 +1036,7 @@ def phase_flash_kernels(card: str) -> dict:
                         f"of tol {tol:g} x max|plain| "
                         f"{'ok' if share <= 1 else 'FAIL'}")
                 if timed:
-                    ms = cuda_ms(fn, iters=3, warmup=1)
+                    ms = cuda_time_ms(fn, iters=3, warmup=1)[0]
                     bound = _flash_bound_ms(kind, b, n, m, d, c, dtype)
                     lib_ms = lib["bwd_ms"] if kind == "dqkv" else None
                     line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} (the "
@@ -1531,7 +1543,7 @@ def phase_sn_kernels(card: str) -> dict:
             plain = functools.partial(cuda_spectral.spectral_norm_reference,
                                       w, u, 1, SN_EPS, out_dim)
             ms, plain_ms = cold_ms(fused), cold_ms(plain)
-            warm_ms = cuda_ms(fused)
+            warm_ms = cuda_time_ms(fused)[0]
             bound, bound_by = sn_bound_ms(a * r, o)
             line += (f"; {timed[key]}: ms {ms:.4f} (L2 flushed; "
                      f"{warm_ms:.4f} back to back) plain_ms {plain_ms:.4f} "
@@ -1772,6 +1784,258 @@ def phase_legacy(card: str) -> None:
             "the legacy CLI did not train its epoch")
 
 
+# -- phases 20 and 21: the attention studies ---------------------------------
+
+# study kernels vs their plain versions: max|kernel - plain| <= tol x
+# max|plain|.  fp32 (the fma engine, S2): the same function summed in
+# another order with the SFU exponential (~2 ulp); bf16, and any variant
+# that rounds P to bf16 (e16): both round the output to bf16 (2^-8
+# relative) and round P at other places (the kernels against the running
+# max, the plain versions against the row's max): about two bf16 ulps
+STUDY_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# the study shapes as phase 20 holds them: church64's 64 map whole, and
+# a flash chunk of church256's and church512's maps (the first 4,096 query
+# rows of one batch element against all M keys: the plain versions of the
+# whole maps take seconds), and a ragged shape (N, M off the tiles and
+# off 16)
+STUDY_SITES = (("64 map", 64, 4096, 1024), ("256 map chunk", 1, 4096, 16384),
+               ("512 map chunk", 1, 4096, 65536), ("ragged", 3, 100, 37))
+STUDY_BWD_SITE = (2, 256 * 256, 128 * 128, 2, 8)  # K4-K6 tiles: B=2, 256 map
+
+
+def _study_tol(dtype, variant: str = "") -> float:
+    return STUDY_TOL[torch.bfloat16 if variant.endswith("e16") else dtype]
+
+
+def folded_bound_ms(b, n, m, dtype) -> tuple[float, str]:
+    """Least time of one folded forward (v given): x, xb, w, v read once, o
+    written once over the HBM rate, or its 2·B·N·(M·(Cin + c) + Cin²)
+    FLOPs over the operand type's peak, whichever is larger."""
+    cin, c = cuda_attention_study.CIN, cuda_attention_study.C
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = size * (b * n * cin + b * m * cin + cin * cin + b * m * c
+                     + b * n * c)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b * n * (m * (cin + c) + cin * cin) / PEAK_FLOPS[dtype] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def phase_study_kernels(card: str) -> dict:
+    """Build every study library (one nvcc each, all together), then hold
+    every S1 variant, both S2 forms and every tile variant of K1 and K3-K6
+    against the plain versions (``STUDY_TOL``), the S1 fma default against
+    K1 bit for bit; time S1 (mma) and S2 at the 64 map.  Returns their rows
+    of the kernels line."""
+    t0 = time.perf_counter()
+    paths = _build.build(cuda_attention_study.build_specs())
+    print(f"phase 20 build: {len(paths)} study libraries in "
+          f"{time.perf_counter() - t0:.1f} s; {_build_report(paths)}",
+          flush=True)
+    cas = cuda_attention_study
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    heads = {}
+
+    # S1, every variant at every site, bf16 and (fma engine) fp32
+    worst = {name: (0.0, 0.0, "") for name in VARIANTS}
+    for site, b, n, m in STUDY_SITES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _ = _bwd_inputs(gen, b, n, m, 2, 8, dtype)
+            chunk = plain_chunk(b, n, m)
+            for variant, (engine, _, _) in VARIANTS.items():
+                if engine == "mma" and dtype == torch.float32:
+                    continue
+                got = cas.attention_study(q, k, v, variant)
+                want = study_attention_reference(q, k, v, variant, chunk)
+                share, err = _grad_errors((got,), (want,),
+                                          _study_tol(dtype, variant))
+                if share >= worst[variant][0]:
+                    worst[variant] = (share, err, f"{site} {dtype}")
+                require(share <= 1, f"attention_study {variant} at {site} "
+                        f"{dtype}: {share:.3f} of its tolerance")
+            if site == "64 map":
+                same = torch.equal(cas.attention_study(q, k, v, "fma"),
+                                   cuda_attention.attention_fused(q, k, v))
+                print(f"phase 20 attention_study fma vs K1 at church64's 64 "
+                      f"map B={b} {dtype}: bit-identical {same}", flush=True)
+                require(same, f"attention_study fma is not K1's bits {dtype}")
+    for variant, (share, err, where) in worst.items():
+        print(f"phase 20 kernel attention_study {variant}: worst "
+              f"{share:.3f} of its tolerance (max_abs_err {err:.3g} at "
+              f"{where}) over {', '.join(s[0] for s in STUDY_SITES)}",
+              flush=True)
+
+    # S1's row of the kernels line: the mma engine at the 64 map, bf16
+    _, b, n, m = STUDY_SITES[0]
+    q, k, v, _ = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
+    err = _grad_errors((cas.attention_study(q, k, v, "mma"),),
+                       (study_attention_reference(q, k, v, "mma"),), 1.0)[1]
+    bound = attention_bound_ms(b, n, m, 2, 8, torch.bfloat16)
+    heads["study"] = {
+        "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: cas.attention_study(q, k, v, "mma"))[0],
+        "plain_ms": cuda_time_ms(lambda: study_attention_reference(
+            q, k, v, "mma"))[0],
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": cuda_time_ms(sdpa_padded, q, k, v)[0],
+        "at": f"variant mma, G 64map B={b} N={n} M={m} d=2 c=8 bfloat16"}
+    print(f"phase 20 kernel attention_study timed: {heads['study']} on "
+          f"{card}", flush=True)
+
+    # S2, both forms, vs folded_reference
+    cin = cas.CIN
+    share_f = 0.0
+    for site, b, n, m in STUDY_SITES[:2] + STUDY_SITES[3:]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(b, n, cin, device="cuda", generator=gen)
+            xb = torch.randn(b, m, cin, device="cuda", generator=gen)
+            w = torch.randn(cin, cin, device="cuda", generator=gen) / 8
+            v = torch.randn(b, m, 8, device="cuda", generator=gen)
+            wg = torch.randn(cin, 8, device="cuda", generator=gen) / 4
+            x, xb, w, v, wg = (t.to(dtype) for t in (x, xb, w, v, wg))
+            chunk = plain_chunk(b, n, m)
+            for form in ({"v": v}, {"wg": wg}):
+                share, err = _grad_errors(
+                    (cas.attention_folded(x, xb, w, **form),),
+                    (folded_reference(x, xb, w, **form, chunk=chunk),),
+                    _study_tol(dtype))
+                share_f = max(share_f, share)
+                require(share <= 1, f"attention_folded {list(form)} at "
+                        f"{site} {dtype}: {share:.3f} of its tolerance")
+            if site == "64 map" and dtype == torch.bfloat16:
+                err = _grad_errors((cas.attention_folded(x, xb, w, v=v),),
+                                   (folded_reference(x, xb, w, v=v),),
+                                   1.0)[1]
+                bound = folded_bound_ms(b, n, m, dtype)
+                heads["folded"] = {
+                    "max_abs_err": err,
+                    "ms": cuda_time_ms(lambda: cas.attention_folded(
+                        x, xb, w, v=v))[0],
+                    "plain_ms": cuda_time_ms(lambda: folded_reference(
+                        x, xb, w, v=v))[0],
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "library_ms": None,
+                    "at": f"v given, G 64map B={b} N={n} M={m} Cin={cin} "
+                          f"c=8 bfloat16"}
+    print(f"phase 20 kernel attention_folded, v given and V = xb Wg, at "
+          f"{', '.join(s[0] for s in STUDY_SITES[:2] + STUDY_SITES[3:])}, "
+          f"bf16 and fp32: worst {share_f:.3f} of its tolerance; timed: "
+          f"{heads['folded']} on {card}", flush=True)
+
+    # K1 and K3 at every forward tile point, vs the plain forward whose
+    # arithmetic they share (fp32 P: the study's "fma"); K3's lse vs the
+    # plain flash forward's
+    share_t = 0.0
+    for site, b, n, m in STUDY_SITES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, _ = _bwd_inputs(gen, b, n, m, 2, 8, dtype)
+            chunk = plain_chunk(b, n, m)
+            want = study_attention_reference(q, k, v, "fma", chunk)
+            want_lse = attention_flash_reference(q, k, v, chunk)[1]
+            tol = _study_tol(dtype)
+            for point in cas.FWD_POINTS:
+                tiles = cas.fwd_tiles(point)
+                o, lse = cuda_attention.attention_flash_fwd(q, k, v, tiles)
+                fused = cuda_attention.attention_fused(q, k, v, tiles)
+                share = max(
+                    _grad_errors((fused, o), (want, want), tol)[0],
+                    (lse - want_lse).abs().max().item()
+                    / (LSE_TOL * max(1.0, want_lse.abs().max().item())))
+                share_t = max(share_t, share)
+                require(share <= 1, f"K1/K3 at tiles {point} at {site} "
+                        f"{dtype}: {share:.3f} of its tolerance")
+    print(f"phase 20 K1 and K3 at the forward tile points "
+          f"{cas.FWD_POINTS}: worst {share_t:.3f} of its tolerance",
+          flush=True)
+
+    # K4, K5 and K6 at every backward tile point vs K4 + K5 at the shipped
+    # tiles, each output
+    b, n, m, d, c = STUDY_BWD_SITE
+    share_b = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
+        o, lse = cuda_attention.attention_flash_fwd(q, k, v)
+        args = (q, k, v, o, lse, g)
+        want = (cuda_attention.attention_flash_dq(*args),
+                *cuda_attention.attention_flash_dkv(*args))
+        tol = _study_tol(dtype)
+        for point in cas.BWD_POINTS:
+            tiles = cas.bwd_tiles(point)
+            got = {"K4": (cuda_attention.attention_flash_dq(*args, tiles),),
+                   "K5": cuda_attention.attention_flash_dkv(*args, tiles),
+                   "K6": cuda_attention.attention_flash_dqkv(*args, tiles)}
+            for kernel, outs in got.items():
+                ref = want[:1] if kernel == "K4" else (
+                    want[1:] if kernel == "K5" else want)
+                share = _grad_errors(outs, ref, tol)[0]
+                key = (kernel, str(dtype).removeprefix("torch."))
+                share_b[key] = max(share_b.get(key, 0.0), share)
+                require(share <= 1, f"{kernel} at tiles {point} {dtype}: "
+                        f"{share:.3f} of its tolerance")
+    print(f"phase 20 K4, K5, K6 at the backward tile points "
+          f"{cas.BWD_POINTS} vs K4 + K5 shipped, B={b} N={n} M={m}: worst "
+          f"share of the tolerance " + ", ".join(
+              f"{k} {t} {x:.3f}" for (k, t), x in share_b.items()),
+          flush=True)
+    return heads
+
+
+def _study_rows(result: dict):
+    for section, rows in result["sections"].items():
+        for key, row in rows.items():
+            yield f"{section}/{key}", row
+
+
+def _unheld(result: dict, held: tuple) -> list:
+    """The rows of a study's ``HELD`` sections (but their "best") that
+    carry no max|Δ|."""
+    return [name for name, row in _study_rows(result)
+            if (name in held or name.split("/")[0] in held)
+            and not name.endswith("/best") and "max_abs_err" not in row]
+
+
+def phase_studies(card: str) -> dict:
+    """Each study's ``main(["--quick"])`` in process: every section
+    present, every time > 0, every max|Δ| within its limit (the studies
+    hold what they time, at its full shape, against the plain versions on
+    their check rows: ``tools._study.held``), and the study kernels
+    launched.  Returns the study kernels' launches."""
+    cas = cuda_attention_study
+    cas.STUDY_LAUNCHES = cas.FOLDED_LAUNCHES = 0
+    for study in (bench_attn_floor, bench_attn_floor256, bench_attn_bwd256,
+                  bench_attn_floor512):
+        t0 = time.perf_counter()
+        result = study.main(["--quick"])
+        missing = set(study.SECTIONS) - set(result["sections"])
+        require(not missing, f"{result['study']} lacks {missing}")
+        unheld = _unheld(result, study.HELD)
+        require(not unheld, f"{result['study']}: no max|Δ| in {unheld}")
+        times, errors = 0, 0
+        for name, row in _study_rows(result):
+            for key, x in row.items():
+                if key.endswith("ms") and x is not None:
+                    require(x > 0, f"{result['study']} {name} {key} {x}")
+                    times += 1
+            errs, limits = row.get("max_abs_err"), row.get("limit")
+            if errs is not None:
+                errors += 1
+                pairs = zip(errs, limits) if isinstance(errs, list) \
+                    else [(errs, limits)]
+                require(all(e <= lim for e, lim in pairs),
+                        f"{result['study']} {name}: {errs} past {limits}")
+            require(row.get("ok", True), f"{result['study']} {name} failed")
+        print(f"phase 21 {result['study']} --quick: sections "
+              f"{list(result['sections'])}, {times} times > 0, "
+              f"{errors} rows' max|Δ| each within its limit, "
+              f"{time.perf_counter() - t0:.0f} s "
+              f"on {card}", flush=True)
+    launches = {"attention_study": cas.STUDY_LAUNCHES,
+                "attention_folded": cas.FOLDED_LAUNCHES}
+    print(f"phase 21 study kernel launches: {launches}", flush=True)
+    require(all(launches.values()), f"a study kernel never ran: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -1803,13 +2067,16 @@ def main() -> int:
     phase_serve128(card)
     phase_step_gf64(card)
     phase_legacy(card)
+    study_heads = phase_study_kernels(card)
+    study_launches = phase_studies(card)
     # launches: each kernel's count on the path that runs it, zeroed just
     # before and read just after: K1 and K2 on the church64 training
     # entry point's run (phase 7; phase 4 checks the serving path's own
     # count), K3 and K6 on the church512 one (phase 12; phase 11 checks
     # church512 serving's), K4 and K5 on the B=8 church512 step (phase 13),
     # K7 on the imagenet128_cond training entry point's run (phase 16;
-    # phase 17 checks its serving path's own count)
+    # phase 17 checks its serving path's own count), the study kernels on
+    # the four studies' runs (phase 21)
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
     kernels = [{"name": "attention_fwd", "route": "cuda",
@@ -1836,8 +2103,18 @@ def main() -> int:
                {"name": "spectral_norm", "route": "cuda",
                 "source": src + "spectral_norm.cu",
                 "replaces": "sagan_tpu/ops/pallas_spectral.py:31",
-                "launches": train128["K7"], **sn_head}]
-    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t0:.0f} "
+                "launches": train128["K7"], **sn_head},
+               {"name": "attention_study", "route": "cuda",
+                "source": src + "attention_study.cu",
+                "replaces": "tools/bench_attn_floor.py:82",
+                "launches": study_launches["attention_study"],
+                **study_heads["study"]},
+               {"name": "attention_folded", "route": "cuda",
+                "source": src + "attention_folded.cu",
+                "replaces": "tools/bench_attn_floor.py:173",
+                "launches": study_launches["attention_folded"],
+                **study_heads["folded"]}]
+    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t0:.0f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -71,18 +71,46 @@
 
 namespace {
 
+// The tiles may be set at build time for the tile studies
+// (sagan_tpu_torch/tools/bench_attn_bwd256.py, bench_attn_floor512.py):
+// -DSAGAN_BWD_ROWS=, -DSAGAN_BWD_KEY_TILE= (K4), -DSAGAN_BWD_THREADS= and
+// -DSAGAN_BWD_KPT= (K5/K6, keys a thread at the narrowest widths,
+// D + C <= 10). The defaults below are the shipped kernels.
+#ifdef SAGAN_BWD_ROWS
+constexpr int kRows = SAGAN_BWD_ROWS;
+#else
 constexpr int kRows = 64;  // K4: query rows per block, one per thread
+#endif
+#ifdef SAGAN_BWD_KEY_TILE
+constexpr int kKeyTile = SAGAN_BWD_KEY_TILE;
+#else
 // K4: keys per shared-memory tile
 constexpr int kKeyTile = SAGAN_ATTN_C >= 64 ? 16 : 32;
-constexpr int kGroupTiles = 1024 / kKeyTile;  // K4: tiles a dq group sums
+#endif
+// K4: tiles a dq group sums; the 1,024-key groups set the numerics and
+// stay fixed whatever the tile
+constexpr int kGroupTiles = 1024 / kKeyTile;
+static_assert(1024 % kKeyTile == 0, "kKeyTile must divide 1024");
+#ifdef SAGAN_BWD_THREADS
+constexpr int kThreads = SAGAN_BWD_THREADS;
+#else
 constexpr int kThreads = 256;  // K5/K6: threads per block
+#endif
+#ifdef SAGAN_BWD_KPT
+constexpr int kNarrowKeys = SAGAN_BWD_KPT;
+#else
+constexpr int kNarrowKeys = 4;
+#endif
 constexpr int kWarps = kThreads / 32;
+static_assert(kRows % 32 == 0 && kRows <= 1024, "kRows: whole warps");
+static_assert(kThreads % 32 == 0 && kThreads <= 1024,
+              "kThreads: whole warps");
 
 // K5/K6: keys each thread owns; narrow rows keep several keys' k, v, dk
 // and dv in registers (20 floats a key at D=2, C=8)
 template <int D, int C>
 __host__ __device__ constexpr int keys_per_thread() {
-  return D + C <= 10 ? 4 : D + C <= 20 ? 2 : 1;
+  return D + C <= 10 ? kNarrowKeys : D + C <= 20 ? 2 : 1;
 }
 // K5/K6: query rows per shared-memory tile (the widest D halves it to
 // keep the per-warp dq sums within 48 KB of static shared memory)
@@ -117,6 +145,8 @@ __global__ void __launch_bounds__(kRows)
                               const T* __restrict__ o,
                               const float* __restrict__ lse,
                               T* __restrict__ dq, int n, int m) {
+  static_assert(kKeyTile * (D + C) * sizeof(float) <= 48 * 1024,
+                "K/V tile past the 48 KB of static shared memory");
   __shared__ float ks[kKeyTile][D];
   __shared__ float vs[kKeyTile][C];
 
@@ -202,6 +232,9 @@ __device__ __forceinline__ void flash_kv(
   constexpr int KPT = keys_per_thread<D, C>();
   constexpr int KB = kThreads * KPT;
   constexpr int TQ = query_tile<D>();
+  static_assert((TQ * (D + C + 2) + (kDq ? kWarps : 1) * TQ * D) *
+                        sizeof(float) <= 48 * 1024,
+                "query tile past the 48 KB of static shared memory");
   __shared__ float qs[TQ][D];
   __shared__ float gs[TQ][C];
   __shared__ float ls[TQ];  // lse of the staged rows (+inf past N)

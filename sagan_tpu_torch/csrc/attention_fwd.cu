@@ -51,10 +51,22 @@
 
 namespace {
 
+// The tiles may be set at build time (-DSAGAN_FWD_ROWS=, -DSAGAN_FWD_TILE=)
+// for the tile studies (sagan_tpu_torch/tools/bench_attn_floor*.py); the
+// defaults below are the shipped kernels.
+#ifdef SAGAN_FWD_ROWS
+constexpr int kRows = SAGAN_FWD_ROWS;
+#else
 constexpr int kRows = 64;  // query rows per block, one per thread
+#endif
+#ifdef SAGAN_FWD_TILE
+constexpr int kTile = SAGAN_FWD_TILE;
+#else
 // keys staged in shared memory per step; wide values keep fewer logits
 // in registers beside acc[C] (and build in half the time)
 constexpr int kTile = SAGAN_ATTN_C >= 64 ? 16 : 32;
+#endif
+static_assert(kRows % 32 == 0 && kRows <= 1024, "kRows: whole warps");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -74,6 +86,8 @@ __device__ __forceinline__ void fwd_rows(const T* __restrict__ q,
                                          T* __restrict__ o,
                                          float* __restrict__ lse, int n,
                                          int m) {
+  static_assert(kTile * (D + C) * sizeof(float) <= 48 * 1024,
+                "K/V tile past the 48 KB of static shared memory");
   __shared__ float ks[kTile][D];
   __shared__ float vs[kTile][C];
 

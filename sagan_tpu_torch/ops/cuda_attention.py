@@ -28,6 +28,13 @@ There is no fallback from a failed build or launch.
 ``FLASH_DQ_LAUNCHES``, ``FLASH_DKV_LAUNCHES`` and ``FLASH_DQKV_LAUNCHES``
 count the kernels' launches, so a run can show that its attention went
 through them.
+
+The wrappers of K1 and K3-K6 take ``tiles``, ``-D`` defines that build
+their library at other tiles (``csrc/attention_fwd.cu``'s
+``SAGAN_FWD_ROWS``, ``SAGAN_FWD_TILE``; ``csrc/attention_flash_bwd.cu``'s
+``SAGAN_BWD_ROWS``, ``SAGAN_BWD_KEY_TILE``, ``SAGAN_BWD_THREADS``,
+``SAGAN_BWD_KPT``), for the tile studies; the default ``()`` is the
+shipped library, which the model's path runs.
 """
 
 from __future__ import annotations
@@ -70,18 +77,20 @@ FLASH_DQKV_LAUNCHES = 0
 
 
 def build_specs(widths=SUPPORTED_C,
-                sources=(SOURCE, BWD_SOURCE, FLASH_BWD_SOURCE)) -> list:
+                sources=(SOURCE, BWD_SOURCE, FLASH_BWD_SOURCE),
+                tiles: tuple = ()) -> list:
     """``_build.build`` specs of the kernels: one library per source and
-    value width."""
-    return [(src, (f"-DSAGAN_ATTN_C={c}",)) for src in sources
+    value width (and tile defines ``tiles``)."""
+    return [(src, (f"-DSAGAN_ATTN_C={c}", *tiles)) for src in sources
             for c in widths]
 
 
 @functools.cache
-def _entry(name: str, c: int):
-    """The C entry point ``name`` of its library for value width ``c``."""
+def _entry(name: str, c: int, tiles: tuple = ()):
+    """The C entry point ``name`` of its library for value width ``c``
+    built with ``tiles``."""
     source, pointers = _ENTRIES[name]
-    fn = getattr(_build.load(*build_specs((c,), (source,))[0]), name)
+    fn = getattr(_build.load(*build_specs((c,), (source,), tiles)[0]), name)
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
@@ -90,31 +99,34 @@ def _entry(name: str, c: int):
 
 
 @functools.cache
-def keys_per_block(d: int, c: int) -> int:
-    """Keys each block of K5 and K6 owns at widths (d, c): K6 writes one
-    fp32 dq partial [N, d] per block of them."""
-    lib = _build.load(*build_specs((c,), (FLASH_BWD_SOURCE,))[0])
+def keys_per_block(d: int, c: int, tiles: tuple = ()) -> int:
+    """Keys each block of K5 and K6 (built with ``tiles``) owns at widths
+    (d, c): K6 writes one fp32 dq partial [N, d] per block of them."""
+    lib = _build.load(*build_specs((c,), (FLASH_BWD_SOURCE,), tiles)[0])
     fn = lib.sagan_attention_flash_keys_per_block
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(d)
 
 
-def dq_partial_shape(b: int, n: int, m: int, d: int, c: int) -> tuple:
+def dq_partial_shape(b: int, n: int, m: int, d: int, c: int,
+                     tiles: tuple = ()) -> tuple:
     """Shape of K6's fp32 dq partials: [B, ceil(M / keys_per_block), N, d]
     (4 bytes an element)."""
-    return b, -(-m // keys_per_block(d, c)), n, d
+    return b, -(-m // keys_per_block(d, c, tiles)), n, d
 
 
-def _launch(name: str, tensors, q: torch.Tensor, c: int) -> None:
-    """Launch entry ``name`` on ``tensors`` (q first) on the current
-    stream; raises if the launch failed."""
+def _launch(name: str, tensors, q: torch.Tensor, c: int,
+            tiles: tuple = ()) -> None:
+    """Launch entry ``name`` of the library built with ``tiles`` on
+    ``tensors`` (q first) on the current stream; raises if the launch
+    failed."""
     b, n, d = q.shape
     m = tensors[1].shape[1]
     with torch.cuda.device(q.device):
-        err = _entry(name, c)(*(t.data_ptr() for t in tensors), b, n, m, d,
-                              c, _IS_BF16[q.dtype],
-                              torch.cuda.current_stream().cuda_stream)
+        err = _entry(name, c, tuple(tiles))(
+            *(t.data_ptr() for t in tensors), b, n, m, d, c,
+            _IS_BF16[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -173,8 +185,8 @@ def _cpu_chunk(q: torch.Tensor, k: torch.Tensor) -> int | None:
     return plain_chunk(q.shape[0], q.shape[1], k.shape[1])
 
 
-def attention_fused(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    tiles: tuple = ()) -> torch.Tensor:
     """softmax(q kᵀ) v with unscaled logits.  q [B,N,D], k [B,M,D],
     v [B,M,C] -> [B,N,C] in q.dtype.  Not differentiable itself: the
     model calls it through :class:`FusedAttention`."""
@@ -185,7 +197,7 @@ def attention_fused(q: torch.Tensor, k: torch.Tensor,
     b, n, _ = q.shape
     c = v.shape[2]
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    _launch("sagan_attention_fwd", (q, k, v, out), q, c)
+    _launch("sagan_attention_fwd", (q, k, v, out), q, c, tiles)
     LAUNCHES += 1
     return out
 
@@ -209,7 +221,8 @@ def attention_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
-def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        tiles: tuple = ()):
     """(o, lse): softmax(q kᵀ) v in q.dtype and the row log-sum-exp of the
     unscaled logits, fp32 [B, N, 1], as the flash backward takes them."""
     global FLASH_FWD_LAUNCHES
@@ -220,12 +233,13 @@ def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     c = v.shape[2]
     o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
-    _launch("sagan_attention_flash_fwd", (q, k, v, o, lse), q, c)
+    _launch("sagan_attention_flash_fwd", (q, k, v, o, lse), q, c, tiles)
     FLASH_FWD_LAUNCHES += 1
     return o, lse
 
 
-def attention_flash_dq(q, k, v, o, lse, g) -> torch.Tensor:
+def attention_flash_dq(q, k, v, o, lse, g,
+                       tiles: tuple = ()) -> torch.Tensor:
     """dq in q's dtype from the stored (o, lse) at cotangent g (K4)."""
     global FLASH_DQ_LAUNCHES
     if _on_cpu(q, k, v, o, lse, g):
@@ -234,12 +248,12 @@ def attention_flash_dq(q, k, v, o, lse, g) -> torch.Tensor:
     _check(q, k, v, g, o, lse)
     dq = torch.empty_like(q)
     _launch("sagan_attention_flash_dq", (q, k, v, g, o, lse, dq), q,
-            v.shape[2])
+            v.shape[2], tiles)
     FLASH_DQ_LAUNCHES += 1
     return dq
 
 
-def attention_flash_dkv(q, k, v, o, lse, g):
+def attention_flash_dkv(q, k, v, o, lse, g, tiles: tuple = ()):
     """(dk, dv), fp32 sums cast to k's and v's dtypes, from the stored
     (o, lse) at cotangent g (K5)."""
     global FLASH_DKV_LAUNCHES
@@ -250,32 +264,39 @@ def attention_flash_dkv(q, k, v, o, lse, g):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("sagan_attention_flash_dkv", (q, k, v, g, o, lse, dk, dv), q,
-            v.shape[2])
+            v.shape[2], tiles)
     FLASH_DKV_LAUNCHES += 1
     return dk, dv
 
 
-def attention_flash_dqkv(q, k, v, o, lse, g):
+def attention_flash_dqkv(q, k, v, o, lse, g, tiles: tuple = ()):
     """(dq, dk, dv) from one score recompute (K6): dk and dv as in
     :func:`attention_flash_dkv`, dq the sum of the kernel's fp32
     per-key-block partials, cast to q's dtype."""
-    global FLASH_DQKV_LAUNCHES
     if _on_cpu(q, k, v, o, lse, g):
         return attention_flash_bwd_reference(q, k, v, o, lse, g,
                                              _cpu_chunk(q, k))
+    part, dk, dv = attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles)
+    # the partials are summed outside the kernel, as the JAX package sums
+    # its slab outside its kernel (pallas_attention.py:737)
+    return part.sum(dim=1).to(q.dtype), dk, dv
+
+
+def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = ()):
+    """K6's launch alone, on CUDA tensors: (the fp32 dq partials
+    [B, NKB, N, d], dk, dv)."""
+    global FLASH_DQKV_LAUNCHES
     _check(q, k, v, g, o, lse)
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    part = torch.empty(dq_partial_shape(b, n, m, d, c), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(dq_partial_shape(b, n, m, d, c, tuple(tiles)),
+                       dtype=torch.float32, device=q.device)
     _launch("sagan_attention_flash_dqkv", (q, k, v, g, o, lse, dk, dv, part),
-            q, c)
+            q, c, tiles)
     FLASH_DQKV_LAUNCHES += 1
-    # the partials are summed outside the kernel, as the JAX package sums
-    # its slab outside its kernel (pallas_attention.py:737)
-    return part.sum(dim=1).to(q.dtype), dk, dv
+    return part, dk, dv
 
 
 class FusedAttention(torch.autograd.Function):

@@ -1,0 +1,193 @@
+"""Wrappers of the attention study kernels, for the studies of
+``sagan_tpu_torch/tools/bench_attn_*.py``:
+
+* :func:`attention_study`, the study forward (``csrc/attention_study.cu``,
+  S1), the port of the TPU study kernels of ``tools/bench_attn_floor.py``
+  (``_call`` and its bodies) and of the flash floors of
+  ``tools/bench_attn_floor256.py`` (``_floor_kernel``), one ``variant`` of
+  :data:`~sagan_tpu_torch.ops.attention_study.VARIANTS` a call;
+* :func:`attention_folded`, the folded-projection forward
+  (``csrc/attention_folded.cu``, S2), the port of ``k_folded``
+  (``tools/bench_attn_floor.py``) and ``_folded_kernel``
+  (``tools/bench_attn_floor256.py``).
+
+Each launches its kernel for tensors on the card and raises on anything
+the kernel does not take; it runs the plain version
+(:mod:`~sagan_tpu_torch.ops.attention_study`) only for tensors on the CPU.
+``STUDY_LAUNCHES`` and ``FOLDED_LAUNCHES`` count the launches.
+
+The tile points of the studies' sweeps of the shipped kernels are here
+too (``FWD_POINTS``, ``BWD_POINTS``), with :func:`build_specs`, every
+library the studies load, for one parallel build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .attention import plain_chunk
+from .attention_study import (VARIANTS, folded_reference,
+                              study_attention_reference)
+from .cuda_attention import _IS_BF16, _check, _on_cpu
+from .cuda_attention import build_specs as attention_specs
+
+SOURCE = "attention_study"
+FOLDED_SOURCE = "attention_folded"
+D, C, CIN = 2, 8, 16  # the widths of every study shape
+
+STUDY_LAUNCHES = 0
+FOLDED_LAUNCHES = 0
+
+# K1/K3 (csrc/attention_fwd.cu): (query rows a block, keys a tile); the
+# first is the shipped point
+FWD_POINTS = ((64, 32), (128, 32), (32, 32), (64, 16), (64, 64))
+# K4 (query rows a block, keys a tile) and K5/K6 (threads a block, keys a
+# thread) of csrc/attention_flash_bwd.cu, one library each; the first is
+# the shipped point
+BWD_POINTS = ((64, 32, 256, 4), (128, 32, 128, 4), (32, 32, 512, 2),
+              (64, 64, 256, 1))
+
+
+def fwd_tiles(point) -> tuple:
+    """The ``-D`` defines of forward tile point ``(rows, tile)``; the
+    shipped point's are ``()``, the library the model runs."""
+    if tuple(point) == FWD_POINTS[0]:
+        return ()
+    rows, tile = point
+    return f"-DSAGAN_FWD_ROWS={rows}", f"-DSAGAN_FWD_TILE={tile}"
+
+
+def bwd_tiles(point) -> tuple:
+    """The ``-D`` defines of backward tile point ``(rows, key_tile,
+    threads, keys_per_thread)``; the shipped point's are ``()``."""
+    if tuple(point) == BWD_POINTS[0]:
+        return ()
+    rows, tile, threads, kpt = point
+    return (f"-DSAGAN_BWD_ROWS={rows}", f"-DSAGAN_BWD_KEY_TILE={tile}",
+            f"-DSAGAN_BWD_THREADS={threads}", f"-DSAGAN_BWD_KPT={kpt}")
+
+
+def build_specs() -> list:
+    """``_build.build`` specs of every library the studies load: S1 at
+    every forward tile point (its fma engine takes K1's tile defines), S2,
+    and K1/K3 and K4-K6 at value width 8 at every tile point."""
+    specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
+    specs.append((FOLDED_SOURCE, ()))
+    for p in FWD_POINTS:
+        specs += attention_specs((C,), ("attention_fwd",), fwd_tiles(p))
+    for p in BWD_POINTS:
+        specs += attention_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
+    return specs
+
+
+@functools.cache
+def _study_entry(tiles: tuple):
+    fn = _build.load(SOURCE, tiles).sagan_attention_study
+    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _folded_entry():
+    fn = _build.load(FOLDED_SOURCE).sagan_attention_folded
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def attention_study(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    variant: str, tiles: tuple = ()) -> torch.Tensor:
+    """The study forward ``variant`` of q [B,N,2], k [B,M,2], v [B,M,8]
+    -> [B,N,8] in q.dtype; ``tiles`` are K1's tile defines for the fma
+    engine (:func:`fwd_tiles`)."""
+    global STUDY_LAUNCHES
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown study variant {variant!r}; one of "
+                         f"{', '.join(VARIANTS)}")
+    if _on_cpu(q, k, v):
+        return study_attention_reference(
+            q, k, v, variant, plain_chunk(q.shape[0], q.shape[1],
+                                          k.shape[1]))
+    _check(q, k, v)
+    b, n, d = q.shape
+    m, c = v.shape[1], v.shape[2]
+    if (d, c) != (D, C):
+        raise ValueError(f"the study kernel is built for d={D}, c={C}, got "
+                         f"d={d} c={c}")
+    if VARIANTS[variant][0] == "mma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"study variant {variant} runs on the tensor cores "
+                        f"in bf16, got {q.dtype}")
+    if any(t.data_ptr() % (16 if t is v else 4) for t in (q, k, v)):
+        raise ValueError("the study kernel reads rows of q, k as 4-byte and "
+                         "of v as 16-byte words: their storage must be "
+                         "aligned so")
+    o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _study_entry(tuple(tiles))(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, m,
+            d, c, list(VARIANTS).index(variant), _IS_BF16[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"attention_study {variant} launch failed: CUDA "
+                           f"error {err}")
+    STUDY_LAUNCHES += 1
+    return o
+
+
+def attention_folded(x: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
+                     v: torch.Tensor | None = None,
+                     wg: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax((x W) xbᵀ) V of x [B,N,16], xb [B,M,16], w [16,16], with
+    V = v [B,M,8] given or xb·wg (wg [16,8]) in the kernel -> [B,N,8] in
+    x.dtype."""
+    global FOLDED_LAUNCHES
+    if (v is None) == (wg is None):
+        raise ValueError("attention_folded takes exactly one of v and wg")
+    vw = v if wg is None else wg
+    if _on_cpu(x, xb, w, vw):
+        return folded_reference(x, xb, w, v, wg, plain_chunk(
+            x.shape[0], x.shape[1], xb.shape[1]))
+    named = {"x": x, "xb": xb, "w": w, "v" if wg is None else "wg": vw}
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in named.values()):
+        raise ValueError("attention_folded needs x, xb, w and v (or wg) on "
+                         "one CUDA device")
+    if x.dtype not in _IS_BF16 or any(t.dtype != x.dtype
+                                      for t in named.values()):
+        raise TypeError("attention_folded takes float32 or bfloat16 "
+                        "tensors of one dtype")
+    if x.dim() != 3 or xb.dim() != 3:
+        raise ValueError("attention_folded takes x [B,N,16], xb [B,M,16]")
+    b, n, cin = x.shape
+    m = xb.shape[1]
+    want = {"x": (b, n, CIN), "xb": (b, m, CIN), "w": (CIN, CIN),
+            "v": (b, m, C), "wg": (CIN, C)}
+    if any(tuple(t.shape) != want[name] for name, t in named.items()):
+        raise ValueError(
+            f"attention_folded is built for Cin={CIN}, c={C}; got "
+            + ", ".join(f"{name} {tuple(t.shape)}"
+                        for name, t in named.items()))
+    if min(b, n, m) < 1 or b > 65535:
+        raise ValueError(f"attention_folded needs 1 <= B <= 65535 and "
+                         f"N, M >= 1, got B={b} N={n} M={m}")
+    if not all(t.is_contiguous() for t in named.values()):
+        raise ValueError("attention_folded needs contiguous tensors")
+    o = torch.empty((b, n, C), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _folded_entry()(
+            x.data_ptr(), xb.data_ptr(), w.data_ptr(), vw.data_ptr(),
+            o.data_ptr(), b, n, m, cin, C, int(wg is None),
+            _IS_BF16[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"attention_folded launch failed: CUDA error "
+                           f"{err}")
+    FOLDED_LAUNCHES += 1
+    return o

@@ -1,0 +1,92 @@
+"""Tile and floor study of the flash attention path at church512 G's
+512-map site, [B=4, N=262144, M=65536, d=2, c=8] bf16, on one GPU.
+
+    python -m sagan_tpu_torch.tools.bench_attn_floor512 [--quick]
+
+The port of the JAX package's TPU study ``tools/bench_attn_floor512.py``
+(T5). Sections:
+
+  k3_tiles    the flash forward K3 at each tile point (``FWD_POINTS``),
+              the shipped one marked, each held against the plain forward
+              on the check rows (``held``)
+  floors      the study forward's ``nomax`` and ``noexp`` floors beside
+              its default, on both engines, the fma engine at the fastest
+              K3 point, each held against its plain version (as
+              ``bench_attn_floor256``)
+  k6_tiles    the fused backward K6 at each point (``BWD_POINTS``) with
+              the size of its fp32 dq partials and its max|Δ| against
+              K4 + K5 at the shipped points
+  slab        K6's launch alone against K6 with the sum of its partials
+              (``part.sum(dim=1)``), at the shipped point
+  two_kernel  K4 + K5 against K6 at B = 4, the shipped points
+  library     ``sdpa_padded`` forward, and its backward through autograd
+              (the plain versions at this map: chip_smoke phase 8)
+  step        a church512 training step (example_configs/church512_attn.py,
+              B = 4) with and without attention
+
+No number in the JAX study's docstring is a target here: those are TPU
+v5e numbers.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ..ops import cuda_attention as ca
+from ..ops.cuda_attention_study import BWD_POINTS, bwd_tiles
+from ._study import (SHAPES, Study, church512_config, floors, k3_sweep,
+                     sdpa_padded, step_segments)
+from .bench_attn_bwd256 import deltas
+
+SECTIONS = ("k3_tiles", "floors", "k6_tiles", "slab", "two_kernel", "library",
+            "step")
+HELD = ("k3_tiles", "floors", "k6_tiles")  # as bench_attn_floor's
+TIMING = (5, 3, 1)
+
+
+def main(argv=None) -> dict:
+    st = Study("bench_attn_floor512", SHAPES["512"], argv, TIMING, __doc__)
+    q, k, v, g = st.data()
+    floors(st, q, k, v, k3_sweep(st, q, k, v))
+
+    o, lse = ca.attention_flash_fwd(q, k, v)
+    args = (q, k, v, o, lse, g)
+    want = (ca.attention_flash_dq(*args), *ca.attention_flash_dkv(*args))
+    b, n, m, d, c = st.shape
+
+    def k6(p):
+        tiles = bwd_tiles(p)
+        part = (ca.dq_partial_shape(b, n, m, d, c, tiles) if st.on_card
+                else None)
+        return ca.attention_flash_dqkv, (*args, tiles), {
+            **deltas(ca.attention_flash_dqkv(*args, tiles), want),
+            "partials": part,
+            "partial_mb": None if part is None else 4 * math.prod(part) / 1e6}
+
+    st.sweep("k6_tiles", BWD_POINTS, k6)
+    del want
+    if st.on_card:
+        # the kernel alone writes the partials; the wrapper adds their sum
+        st.record("slab", "k6_kernel", st.time(
+            ca.attention_flash_dqkv_partials, *args))
+    full = st.record("slab", "k6_with_sum",
+                     st.time(ca.attention_flash_dqkv, *args))
+    if st.on_card:
+        diff = full["ms"] - st.sections["slab"]["k6_kernel"]["ms"]
+        st.record("slab", "sum", {"difference": diff,
+                                  "share": diff / full["ms"]})
+    st.record("two_kernel", "k4_k5", st.time(lambda: (
+        ca.attention_flash_dq(*args), ca.attention_flash_dkv(*args))))
+    st.record("two_kernel", "k6", st.time(ca.attention_flash_dqkv, *args))
+    del o, lse, args
+    st.record("library", "sdpa", st.time(sdpa_padded, q, k, v))
+    st.record("library", "sdpa_bwd", st.time(sdpa_padded(q, k, v, g)))
+    del q, k, v, g
+
+    st.record("step", "church512", step_segments(
+        st, church512_config(), steps=3 if st.quick else 10))
+    return st.finish()
+
+
+if __name__ == "__main__":
+    main()

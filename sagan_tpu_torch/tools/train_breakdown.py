@@ -78,6 +78,34 @@ class _Events:
         return out
 
 
+def build_step(config: dict, device: torch.device):
+    """(the train step of ``config`` from a seeded init on ``device``, a
+    closure that takes one step of it on one batch of random uint8 images
+    and labels).  The train step and the attention studies'
+    ``step_segments`` time it."""
+    gen = get_generator(config, rng=torch.Generator().manual_seed(0))
+    disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
+    gen.to(device)
+    disc.to(device)
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1000)
+    ema = ({n: p.detach().clone() for n, p in gen.named_parameters()}
+           if config.get("g_ema_decay", 0.0) > 0 else None)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, ema)
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    b, s = config["global_batch_size"], config["img_size"]
+    rng = torch.Generator(device=device).manual_seed(0)
+    images = torch.randint(0, 256, (1, b, s, s, 3), dtype=torch.uint8,
+                           device=device, generator=rng)
+    labels = torch.randint(0, config.get("num_classes", 1), (1, b),
+                           dtype=torch.int32, device=device, generator=rng)
+
+    def run():
+        step(state, images, labels)
+
+    return step, run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="example_configs/church64_attn.py")
@@ -97,25 +125,8 @@ def main(argv=None):
     config.update(img_size=args.img_size, num_classes=args.num_classes)
     if args.pallas_sn:
         config["use_pallas_sn"] = True
-    gen = get_generator(config, rng=torch.Generator().manual_seed(0))
-    disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
-    gen.to(device)
-    disc.to(device)
-    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
-        config, gen.parameters(), disc.parameters(), steps_per_epoch=1000)
-    ema = ({n: p.detach().clone() for n, p in gen.named_parameters()}
-           if config.get("g_ema_decay", 0.0) > 0 else None)
-    state = TrainState(gen, disc, opt_g, opt_d, 0, ema)
-    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    step, run = build_step(config, device)
     b, s = config["global_batch_size"], config["img_size"]
-    rng = torch.Generator(device=device).manual_seed(0)
-    images = torch.randint(0, 256, (1, b, s, s, 3), dtype=torch.uint8,
-                           device=device, generator=rng)
-    labels = torch.randint(0, args.num_classes, (1, b), dtype=torch.int32,
-                           device=device, generator=rng)
-
-    def run():
-        step(state, images, labels)
 
     for _ in range(WARMUP):
         run()

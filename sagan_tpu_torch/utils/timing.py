@@ -1,15 +1,41 @@
-"""Step timing for the training loop.
+"""Step timing for the training loop, and kernel timing on the card.
 
 PyTorch returns from a CUDA call before the card has run it, so a host
 clock read after a step measures its enqueue.  :class:`StepTimer` takes
 fetch-to-fetch deltas instead: ``tick(steps)`` is called only where the
 loop has just waited for the card (a metrics fetch), with the number of
-steps run since the previous tick.
+steps run since the previous tick.  :func:`cuda_time_ms` times calls
+between CUDA events, the counterpart of the JAX package's
+``timeit_best`` (``sagan_tpu/utils/timing.py``).
 """
 
 from __future__ import annotations
 
+import statistics
 import time
+
+import torch
+
+
+def cuda_time_ms(fn, *args, iters: int = 20, reps: int = 1,
+                 warmup: int = 3) -> tuple[float, float]:
+    """(median, minimum) over ``reps`` repeats of the mean ms per call of
+    ``fn(*args)``, each the device time of ``iters`` chained calls between
+    two CUDA events, after ``warmup`` calls.  Back-to-back calls: inputs
+    that fit the 50 MB L2 stay warm in it."""
+    for _ in range(warmup):
+        fn(*args)
+    means = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means), min(means)
 
 
 class StepTimer:

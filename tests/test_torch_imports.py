@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``sagan_tpu_torch``
-and ``chip_smoke`` loads neither JAX nor the JAX package, and needs no
-nvcc or card (kernels build at first use, not at import)."""
+and ``chip_smoke`` loads neither JAX nor the JAX package (nor the JAX
+studies of ``tools/`` or ``bench.py``), and needs no nvcc or card (kernels
+build at first use, not at import)."""
 
 import os
 import subprocess
@@ -17,24 +18,29 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-                or m == "sagan_tpu" or m.startswith("sagan_tpu."))
+                if m.split(".")[0] in ("jax", "jaxlib", "sagan_tpu", "tools",
+                                       "bench"))
 print(" ".join(names), "|", leaked)
 """
 
-# every module of the port, the training slice's, the flash slice's and
-# the resnet slice's included (the flash path's plain versions and routing
-# live in ops.attention, its wrappers and autograd Function in
-# ops.cuda_attention; K7's wrapper, plain version and autograd Function in
-# ops.cuda_spectral)
+# every module of the port, the training slice's, the flash slice's, the
+# resnet slice's and the study slice's included (the flash path's plain
+# versions and routing live in ops.attention, its wrappers and autograd
+# Function in ops.cuda_attention; K7's wrapper, plain version and autograd
+# Function in ops.cuda_spectral; the study kernels' plain versions in
+# ops.attention_study, their wrappers in ops.cuda_attention_study, the
+# studies in tools.bench_attn_* and tools._study)
 MODULES = {
     "convert", "generate", "legacy_main", "main", "serve",
     "data", "data.loader", "data.synthetic", "data.tfrecord",
     "models", "models.resnet", "models.vanilla",
     "nn", "nn.attention", "nn.initializers", "nn.layers",
-    "ops", "ops._build", "ops.attention", "ops.cuda_attention",
+    "ops", "ops._build", "ops.attention", "ops.attention_study",
+    "ops.cuda_attention", "ops.cuda_attention_study",
     "ops.cuda_spectral", "ops.losses", "ops.spectral",
-    "tools", "tools.profiling", "tools.serve_breakdown",
+    "tools", "tools._study", "tools.bench_attn_bwd256",
+    "tools.bench_attn_floor", "tools.bench_attn_floor256",
+    "tools.bench_attn_floor512", "tools.profiling", "tools.serve_breakdown",
     "tools.train_breakdown",
     "train", "train.checkpoint", "train.optim", "train.trainer",
     "utils", "utils.config", "utils.device", "utils.images",
