@@ -2,16 +2,19 @@
 GPU: the quickest proof that the port starts, builds its kernels, agrees
 with its plain versions, serves and trains.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE ...]
 
-Phases, each printed as it ends:
+Phases, each printed as it ends (``--only`` runs the phases named, after
+the build, and prints neither the kernels line nor the result line):
   1. the card (``nvidia-smi``) and the build of every CUDA kernel from the
      sources in this checkout (``nvcc``, into ``build/kernels/``);
   2. the attention forward (K1) against its plain PyTorch version on the
      card, at G's sites at the serving batches and D's at the training
      batches (church64's and church512's D sites), in bf16 and fp32, with times of the kernel, the plain version
-     and one PyTorch library call, and every (dtype, d, c) instance at a
-     ragged shape;
+     and one PyTorch library call (at G's 64 map, B=64, bf16 also SDPA on
+     q and k zero-padded to 8, which takes a backend that does not
+     materialise the logits: K1's library column), and every (dtype, d,
+     c) instance at a ragged shape;
   3. the full-width church64 generator from a seeded init (every attention
      ``sigma`` nonzero): fp32 on the card through the kernel against fp32
      on the CPU through the plain version, and bf16 on the card finite;
@@ -23,8 +26,9 @@ Phases, each printed as it ends:
      attention site of a church64 training step and at church512's D
      site, bf16 and fp32, with
      times (the library call is autograd through
-     ``scaled_dot_product_attention``), and every (dtype, d, c) instance
-     at a ragged shape;
+     ``scaled_dot_product_attention``; at G's 64 map, B=64, bf16 also
+     through it on q and k zero-padded to 8: K2's library column), and
+     every (dtype, d, c) instance at a ragged shape;
   6. one fp32 training step of the full-width church64 G and D (every
      attention ``sigma`` nonzero) on the card against the same step on the
      CPU, twice: with D's learning rate 0, losses and all per-variable
@@ -44,26 +48,37 @@ Phases, each printed as it ends:
   8. the flash kernels at the church512 512-map site (N=262144, M=65536,
      d=2, c=8) at the config's B=4 and at B=8, bf16 and fp32: the forward
      K3 (o and lse), the backward kernels K4, K5 and K6 on K3's (o, lse),
-     each against its plain version run in query-row chunks, K6 against
-     K4 + K5, and in fp32 each dq against float64 on the rows where they
-     differ most; at B=4 with times of the kernels, the plain versions and
-     ``scaled_dot_product_attention`` on a backend that does not
-     materialise the logits (q and k zero-padded to a width it takes);
-  9. K3-K6 at every (dtype, d, c) instance at two ragged shapes, one of
-     them past K6's key block;
+     K3 and K6 on the dtype's engine (bf16: the tensor cores,
+     ``csrc/attention_flash_mma.cu``) and in bf16 also on the CUDA cores
+     (``engine="fma"``), each against its plain version run in query-row
+     chunks, K6 against K4 + K5, and in fp32 each dq against float64 on
+     the rows where they differ most; at B=4 with times of the kernels,
+     the plain versions and ``scaled_dot_product_attention`` on a backend
+     that does not materialise the logits (q and k zero-padded to a width
+     it takes); then both engines of K3 and K6 timed at church256's 256
+     map (B=16), held against the plain versions on the studies' check
+     rows;
+  9. every K6 key block against the one the route rule counts, and K3-K6
+     at every (dtype, engine, d, c) instance at three ragged shapes: N
+     and M off every tile, M under one key tile with N under 16, and M
+     past K6's key block;
  10. ``FlashAttention`` gradients at a small flash-routed shape against
-     autograd through the plain forward, on the card;
+     autograd through the plain forward, on the card: bf16 through the
+     tensor-core K3 and K6, fp32 through the CUDA-core ones;
  11. serving church512: the fp32 generator at 512 px (BN statistics of
-     one batch, as an untrained G's eval output is flat) through K3
-     against the same weights with ``use_pallas=False`` (the chunked
-     plain forward), then the bf16 generator over HTTP at n = 1 and 4,
-     with the K3 launches zeroed just before and read just after;
+     one batch, as an untrained G's eval output is flat) through the
+     CUDA-core K3 against the same weights with ``use_pallas=False`` (the
+     chunked plain forward), then the bf16 generator over HTTP at n = 1
+     and 4, with the launches zeroed just before and read just after:
+     the tensor-core K3 once a forward, no other kernel;
  12. training church512 through the entry point on 64 synthetic 512 px
      records for one epoch at the config's B=4, ``steps_per_call`` 4, with
-     exact K3/K6/K1/K2 launch counts and nonzero gradients of the 512
-     site's theta/phi/g;
- 13. one church512 training step at B=8, whose G backward takes K4 + K5
-     (the dq partials of K6 would pass the JAX package's slab limit);
+     exact launch counts (the tensor-core K3 2 a step and 1 a grid, the
+     tensor-core K6 1 a step, K1 and K2 2 a step, no CUDA-core K3 or K6)
+     and nonzero gradients of the 512 site's theta/phi/g;
+ 13. one church512 training step at B=8, a shape past the route's slab
+     budget, whose G backward takes K4 + K5 (K6's fp32 dq partials would
+     be 1.07 GB, past ``DQ_SLAB_BUDGET``);
  14. the fused spectral norm (K7) against its plain version at every
      distinct SN weight of imagenet128_cond and imagenet128_paper_gf64
      (46, up to the [1128, 16384] stem), fp32: W_bar, u_new, v and sigma,
@@ -103,6 +118,7 @@ CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import functools
@@ -139,7 +155,8 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference,
-                                           flash_bwd_fused, plain_chunk)
+                                           flash_bwd_fused,
+                                           fused_keys_per_block, plain_chunk)
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.ops.spectral import spectral_normalize
@@ -149,7 +166,7 @@ from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
 from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
                                            build_train_step)
-from sagan_tpu_torch.tools._study import sdpa_padded
+from sagan_tpu_torch.tools._study import held, max_delta, sdpa_padded
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
 from sagan_tpu_torch.utils.timing import cuda_time_ms
 
@@ -278,9 +295,19 @@ def phase_kernels(card: str) -> dict:
             require(ok, f"attention_fwd disagrees with the plain "
                         f"version at {site} B={b} {name}")
             if head is None:
+                # the library column: SDPA on d = 2 as given runs the
+                # math backend; with q, k zero-padded to 8 it takes a
+                # backend that does not materialise the logits
+                padded = sdpa_padded(q, k, v)
+                pad_err = (padded.float() - ref.float()).abs().max().item()
+                pad_ms = cuda_time_ms(sdpa_padded, q, k, v)[0]
+                print(f"phase 2 K1's library call at {site} B={b} {name}: "
+                      f"sdpa_padded (q, k zero-padded to 8) ms {pad_ms:.4f} "
+                      f"(err {pad_err:.3g}) against K1's {ms:.4f}: "
+                      f"{ms / pad_ms:.2f}x on {card}", flush=True)
                 head = {"max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "bound_by": bound_by, "library_ms": pad_ms,
                         "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
                               f"{name}"}
     return head
@@ -393,9 +420,17 @@ def phase_bwd_kernels(card: str) -> dict:
                 require(share <= 1, f"attention_bwd disagrees with the "
                                     f"plain backward at {site} B={b} {name}")
                 if head is None:
+                    # the library column: autograd through sdpa_padded, as
+                    # K1's (the call above took the math backend)
+                    pad_ms = cuda_time_ms(sdpa_padded(q, k, v, g))[0]
+                    print(f"phase 5 K2's library call at {site} B={b} "
+                          f"{name}: autograd through sdpa_padded (q, k "
+                          f"zero-padded to 8) ms {pad_ms:.4f} against K2's "
+                          f"{ms:.4f}: {ms / pad_ms:.2f}x on {card}",
+                          flush=True)
                     head = {"max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": lib_ms,
+                            "bound_by": bound_by, "library_ms": pad_ms,
                             "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
                                   f"{name}"}
     return head
@@ -841,6 +876,9 @@ FLASH_SITE = (4, 512 * 512, 256 * 256, 2, 8)
 # phase 8's batches there: the config's, whose backward takes K6 (timed),
 # and that of phase 13's step, whose backward takes K4 + K5
 FLASH_BATCHES = (4, 8)
+# church256 G's 256-map site (bench.py CHURCH256), where phase 8 also
+# times both engines of K3 and K6
+FLASH_256 = (16, 256 * 256, 128 * 128, 2, 8)
 # the flash kernels vs their plain versions.  K3's o per query row: the
 # row's max|kernel - plain| <= TOL x the row's max|plain| (ROW_FLOOR
 # where that is smaller).  A scale of the whole tensor would not do: at the
@@ -961,11 +999,20 @@ def _dq_f64(q, k, v, o, lse, g, dqs: dict) -> dict:
             for name, x in dqs.items()}
 
 
+def _row(err, ms, plain_ms, bound, lib_ms) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms}
+
+
 def phase_flash_kernels(card: str) -> dict:
     """K3-K6 against their plain versions at the church512 512-map site,
-    bf16 and fp32, at B=4 and 8, K6 against K4 + K5 on the same (o, lse),
-    and in fp32 each dq against float64 on its worst rows; times at B=4.
-    Returns {kernel: its bf16 B=4 row}."""
+    bf16 and fp32, at B=4 and 8: K3 and K6 on the dtype's engine (the
+    tensor cores in bf16), and in bf16 also on the CUDA cores
+    (``engine="fma"``); K6 against K4 + K5 on the same (o, lse), and in
+    fp32 each dq against float64 on its worst rows; times at B=4, bf16 on
+    both engines, beside padded SDPA and the plain versions.  Then the
+    same engines timed at church256's 256 map (``_flash_256``).  Returns
+    {kernel: its bf16 B=4 row}."""
     _, n, m, d, c = FLASH_SITE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     heads = {}
@@ -976,69 +1023,84 @@ def phase_flash_kernels(card: str) -> dict:
         part = cuda_attention.dq_partial_shape(b, n, m, d, c)
         print(f"phase 8 K6 dq partials at {site}: "
               f"{cuda_attention.keys_per_block(d, c)} keys a block, {part} "
-              f"fp32, {4 * math.prod(part) / 1e6:.1f} MB; plain versions in "
-              f"chunks of {chunk} query rows", flush=True)
+              f"fp32, {4 * math.prod(part) / 1e6:.1f} MB (either engine); "
+              f"route {'K6' if flash_bwd_fused(b, n, m, d, c, 2) else 'K4 + K5'}"
+              f"; plain versions in chunks of {chunk} query rows", flush=True)
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).removeprefix("torch.")
+            bf16 = dtype == torch.bfloat16
+            # the dtype's engine, and the CUDA-core one beside it in bf16
+            engines = ("mma", "fma") if bf16 else ("fma",)
             q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
-            o, lse = cuda_attention.attention_flash_fwd(q, k, v)
             ref_o, ref_lse = attention_flash_reference(q, k, v, chunk)
-            share, err, o_max = _o_errors(o, ref_o, dtype)
-            lse_scale = max(1.0, ref_lse.abs().max().item())
-            lse_err = (lse - ref_lse).abs().max().item()
-            ok = share <= 1 and lse_err <= LSE_TOL * lse_scale
-            line = (f"phase 8 kernel attention_flash_fwd (K3) {site} {name}: "
-                    f"o max_abs_err {err:.3g} (max|plain| {o_max:.3g}), worst "
-                    f"row {share:.3f} of tol {TOL[dtype]:g} x max(row "
-                    f"max|plain|, {ROW_FLOOR:g}); lse max_abs_err "
-                    f"{lse_err:.3g} (tol {LSE_TOL:g} x max(1, "
-                    f"{lse_scale:.3g})) {'ok' if ok else 'FAIL'}")
             if timed:
-                ms = cuda_time_ms(lambda: cuda_attention.attention_flash_fwd(
-                    q, k, v), iters=5, warmup=1)[0]
                 plain_ms = cuda_time_ms(lambda: attention_flash_reference(
                     q, k, v, chunk), iters=1, warmup=0)[0]
                 lib = _sdpa_flash(q, k, v, g, ref_o)
                 bound = _flash_bound_ms("fwd", b, n, m, d, c, dtype)
-                line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                         f"{lib['fwd_ms']} (sdpa {lib['note']}; err "
-                         f"{lib['err']}) bound_ms {bound[0]:.4g} "
-                         f"({bound[1]})")
-                if dtype == torch.bfloat16:
-                    heads["fwd"] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": plain_ms,
-                                    "bound_ms": bound[0],
-                                    "bound_by": bound[1],
-                                    "library_ms": lib["fwd_ms"]}
-            print(f"{line} on {card}", flush=True)
-            require(ok, f"attention_flash_fwd disagrees with the plain "
-                        f"version at {site} {name}")
+            for engine in engines:
+                o, lse = cuda_attention.attention_flash_fwd(q, k, v,
+                                                            engine=engine)
+                share, err, o_max = _o_errors(o, ref_o, dtype)
+                lse_scale = max(1.0, ref_lse.abs().max().item())
+                lse_err = (lse - ref_lse).abs().max().item()
+                ok = share <= 1 and lse_err <= LSE_TOL * lse_scale
+                line = (f"phase 8 kernel attention_flash_fwd (K3, {engine}) "
+                        f"{site} {name}: o max_abs_err {err:.3g} (max|plain| "
+                        f"{o_max:.3g}), worst row {share:.3f} of tol "
+                        f"{TOL[dtype]:g} x max(row max|plain|, "
+                        f"{ROW_FLOOR:g}); lse max_abs_err {lse_err:.3g} (tol "
+                        f"{LSE_TOL:g} x max(1, {lse_scale:.3g})) "
+                        f"{'ok' if ok else 'FAIL'}")
+                if timed:
+                    ms = cuda_time_ms(lambda: cuda_attention.attention_flash_fwd(
+                        q, k, v, engine=engine), iters=5, warmup=1)[0]
+                    line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                             f"library_ms {lib['fwd_ms']} (sdpa "
+                             f"{lib['note']}; err {lib['err']}) bound_ms "
+                             f"{bound[0]:.4g} ({bound[1]})")
+                    if bf16:
+                        heads["fwd" if engine == "mma" else "fwd_fma"] = \
+                            _row(err, ms, plain_ms, bound, lib["fwd_ms"])
+                print(f"{line} on {card}", flush=True)
+                require(ok, f"attention_flash_fwd ({engine}) disagrees with "
+                            f"the plain version at {site} {name}")
+                if engine == engines[0]:
+                    keep = o, lse       # the backward's (o, lse)
             del ref_o, ref_lse
+            o, lse = keep
 
             want = attention_flash_bwd_reference(q, k, v, o, lse, g, chunk)
             tol = BWD_TOL[dtype]
             if timed:
                 plain_ms = cuda_time_ms(lambda: attention_flash_bwd_reference(
                     q, k, v, o, lse, g, chunk), iters=1, warmup=0)[0]
+            args = (q, k, v, o, lse, g)
             calls = {
-                "dq": (lambda: (cuda_attention.attention_flash_dq(
-                    q, k, v, o, lse, g),), want[:1]),
-                "dkv": (lambda: cuda_attention.attention_flash_dkv(
-                    q, k, v, o, lse, g), want[1:]),
-                "dqkv": (lambda: cuda_attention.attention_flash_dqkv(
-                    q, k, v, o, lse, g), want)}
+                "dq": (lambda: (cuda_attention.attention_flash_dq(*args),),
+                       want[:1]),
+                "dkv": (lambda: cuda_attention.attention_flash_dkv(*args),
+                        want[1:])}
+            for engine in engines:
+                calls["dqkv" if engine == engines[0] else "dqkv_fma"] = (
+                    functools.partial(cuda_attention.attention_flash_dqkv,
+                                      *args, engine=engine), want)
             got = {}
             for kind, (fn, ref) in calls.items():
                 got[kind] = fn()
                 share, err = _grad_errors(got[kind], ref, tol)
-                line = (f"phase 8 kernel attention_flash_{kind} {site} "
+                label = {"dqkv": f"dqkv ({engines[0]})",
+                         "dqkv_fma": "dqkv (fma)"}.get(kind, kind)
+                line = (f"phase 8 kernel attention_flash_{label} {site} "
                         f"{name}: max_abs_err {err:.3g}, worst {share:.3f} "
                         f"of tol {tol:g} x max|plain| "
                         f"{'ok' if share <= 1 else 'FAIL'}")
                 if timed:
                     ms = cuda_time_ms(fn, iters=3, warmup=1)[0]
-                    bound = _flash_bound_ms(kind, b, n, m, d, c, dtype)
-                    lib_ms = lib["bwd_ms"] if kind == "dqkv" else None
+                    bound = _flash_bound_ms(kind.removesuffix("_fma"), b, n,
+                                            m, d, c, dtype)
+                    lib_ms = lib["bwd_ms"] if kind.startswith("dqkv") \
+                        else None
                     line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} (the "
                              f"plain backward computes all three) "
                              f"library_ms {lib_ms} ("
@@ -1046,22 +1108,19 @@ def phase_flash_kernels(card: str) -> dict:
                                 if lib_ms else "no PyTorch call computes "
                                                "this part alone")
                              + f") bound_ms {bound[0]:.4g} ({bound[1]})")
-                    if dtype == torch.bfloat16:
-                        heads[kind] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms,
-                                       "bound_ms": bound[0],
-                                       "bound_by": bound[1],
-                                       "library_ms": lib_ms}
+                    if bf16:
+                        heads[kind] = _row(err, ms, plain_ms, bound, lib_ms)
                 print(f"{line} on {card}", flush=True)
-                require(share <= 1, f"attention_flash_{kind} disagrees with "
-                                    f"the plain backward at {site} {name}")
+                require(share <= 1, f"attention_flash_{label} disagrees "
+                                    f"with the plain backward at {site} "
+                                    f"{name}")
             share, err = _grad_errors(got["dqkv"], got["dq"] + got["dkv"], tol)
             same = all(torch.equal(x, y)
                        for x, y in zip(got["dqkv"][1:], got["dkv"]))
-            print(f"phase 8 K6 vs K4 + K5 on the same (o, lse) at {site} "
-                  f"{name}: max_abs_err {err:.3g}, worst {share:.3f} of tol "
-                  f"{tol:g} x max|K4 + K5|; dk, dv bitwise equal {same}",
-                  flush=True)
+            print(f"phase 8 K6 ({engines[0]}) vs K4 + K5 on the same (o, lse) "
+                  f"at {site} {name}: max_abs_err {err:.3g}, worst "
+                  f"{share:.3f} of tol {tol:g} x max|K4 + K5|; dk, dv "
+                  f"bitwise equal {same}", flush=True)
             require(share <= 1, f"K6 disagrees with K4 + K5 at {site} {name}")
             if dtype == torch.float32:
                 scale = want[0].abs().max().item()
@@ -1075,14 +1134,64 @@ def phase_flash_kernels(card: str) -> dict:
                           for key, x in errs.items()), flush=True)
                 require(all(x <= tol * scale for x in errs.values()),
                         f"a dq is off its float64 value: {errs}")
-            del want, got
+            del want, got, keep
+    _flash_256(card)
     return heads
 
 
-def _flash_errors(q, k, v, g, dtype) -> float:
-    """Worst error of K3-K6 against the plain versions, and of K6 against
-    K4 + K5, as a share of each tolerance."""
+def _flash_256(card: str) -> None:
+    """K3 and K6 on both engines at church256 G's 256 map, B=16, bf16:
+    times beside padded SDPA (forward, and backward through autograd)
+    and the bounds; each held against the plain versions on the study
+    check rows (``tools._study.held``: K3's o, K6's dq), K6's dk and dv
+    against K5's at ``BWD_TOL``."""
+    b, n, m, d, c = FLASH_256
+    site = f"church256 G 256map B={b} N={n} M={m} d={d} c={c} bfloat16"
+    q, k, v, g = _bwd_inputs(torch.Generator(device="cuda").manual_seed(
+        SEED + 23), b, n, m, d, c, torch.bfloat16)
     o, lse = cuda_attention.attention_flash_fwd(q, k, v)
+    args = (q, k, v, o, lse, g)
+    dk5, dv5 = cuda_attention.attention_flash_dkv(*args)
+    lib = {"fwd": cuda_time_ms(sdpa_padded, q, k, v, iters=5, warmup=1)[0],
+           "dqkv": cuda_time_ms(sdpa_padded(q, k, v, g), iters=3,
+                                warmup=1)[0]}
+    for kind in ("fwd", "dqkv"):
+        bound = _flash_bound_ms(kind, b, n, m, d, c, torch.bfloat16)
+        for engine in ("mma", "fma"):
+            if kind == "fwd":
+                fn = functools.partial(cuda_attention.attention_flash_fwd,
+                                       q, k, v, engine=engine)
+                out = fn()[0]
+                checks = [held(out, lambda q, k, v: attention_flash_reference(
+                    q, k, v)[0], (q,), (k, v), TOL[torch.bfloat16])]
+            else:
+                fn = functools.partial(cuda_attention.attention_flash_dqkv,
+                                       *args, engine=engine)
+                dq, dk, dv = fn()
+                checks = [held(dq, lambda q, o, lse, g, k, v:
+                               attention_flash_bwd_reference(
+                                   q, k, v, o, lse, g)[0], (q, o, lse, g),
+                               (k, v), BWD_TOL[torch.bfloat16]),
+                          max_delta(dk, dk5, BWD_TOL[torch.bfloat16]),
+                          max_delta(dv, dv5, BWD_TOL[torch.bfloat16])]
+            ms = cuda_time_ms(fn, iters=3, warmup=1)[0]
+            ok = all(x["ok"] for x in checks)
+            print(f"phase 8 kernel attention_flash_{kind} ({engine}) at "
+                  f"{site}: ms {ms:.4f} library_ms {lib[kind]:.4f} (sdpa "
+                  f"padded{', autograd' if kind == 'dqkv' else ''}) "
+                  f"bound_ms {bound[0]:.4g} ({bound[1]}); max_abs_err "
+                  + ", ".join(f"{x['max_abs_err']:.3g} (limit "
+                              f"{x['limit']:.3g})" for x in checks)
+                  + f" {'ok' if ok else 'FAIL'} on {card}", flush=True)
+            require(ok, f"attention_flash_{kind} ({engine}) disagrees at "
+                        f"{site}: {checks}")
+
+
+def _flash_errors(q, k, v, g, dtype, engine=None) -> float:
+    """Worst error of K3-K6 (K3 and K6 on ``engine``, by default the
+    dtype's) against the plain versions, and of K6 against K4 + K5, as a
+    share of each tolerance."""
+    o, lse = cuda_attention.attention_flash_fwd(q, k, v, engine=engine)
     ref_o, ref_lse = attention_flash_reference(q, k, v)
     share = max(_o_errors(o, ref_o, dtype)[0],
                 (lse - ref_lse).abs().max().item()
@@ -1091,55 +1200,87 @@ def _flash_errors(q, k, v, g, dtype) -> float:
     want = attention_flash_bwd_reference(q, k, v, o, lse, g)
     dq = cuda_attention.attention_flash_dq(q, k, v, o, lse, g)
     dk, dv = cuda_attention.attention_flash_dkv(q, k, v, o, lse, g)
-    fused = cuda_attention.attention_flash_dqkv(q, k, v, o, lse, g)
+    fused = cuda_attention.attention_flash_dqkv(q, k, v, o, lse, g,
+                                                engine=engine)
     for got, ref in (((dq, dk, dv), want), (fused, want),
                      (fused, (dq, dk, dv))):
         share = max(share, _grad_errors(got, ref, tol)[0])
     return share
 
 
+# phase 9's ragged shapes (B, N, M): N, M off every tile, M under one
+# key tile of K3 (64) with N under one m16 row tile, and M past the key
+# block of K5 and K6 at every width
+FLASH_RAGGED = ((3, 100, 37), (2, 9, 70), (2, 300, 2100))
+
+
 def phase_flash_all_widths() -> None:
-    """Every (dtype, d, c) instance of K3-K6 against the plain versions at
-    two ragged shapes: B=3, N=100, M=37, and B=2, N=300, M=2100, past the
-    key block of K5 and K6 at every width."""
+    """Every (dtype, engine, d, c) instance of K3-K6 against the plain
+    versions at ``FLASH_RAGGED``: bf16 on the tensor cores and on the CUDA
+    cores, fp32 on the CUDA cores; and each library's K6 key block against
+    the one the route rule sizes the slab by."""
+    for c in cuda_attention.SUPPORTED_C:
+        for d in cuda_attention.SUPPORTED_D:
+            for engine, itemsize in (("mma", 2), ("fma", 4)):
+                got = cuda_attention.keys_per_block(d, c, engine=engine)
+                want = fused_keys_per_block(d, c, itemsize)
+                require(got == want, f"K6 ({engine}) at d={d} c={c}: "
+                        f"{got} keys a block, the route counts {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    worst, count = 0.0, 0
-    for b, n, m in ((3, 100, 37), (2, 300, 2100)):
-        for dtype in (torch.bfloat16, torch.float32):
+    worst, count = {}, 0
+    for b, n, m in FLASH_RAGGED:
+        for dtype, engine in ((torch.bfloat16, "mma"),
+                              (torch.bfloat16, "fma"),
+                              (torch.float32, "fma")):
             for d in cuda_attention.SUPPORTED_D:
                 for c in cuda_attention.SUPPORTED_C:
                     share = _flash_errors(
-                        *_bwd_inputs(gen, b, n, m, d, c, dtype), dtype)
-                    worst = max(worst, share)
+                        *_bwd_inputs(gen, b, n, m, d, c, dtype), dtype,
+                        engine)
+                    key = f"{str(dtype).removeprefix('torch.')} {engine}"
+                    worst[key] = max(worst.get(key, 0.0), share)
                     count += 1
-                    require(share <= 1, f"flash kernels at B={b} N={n} M={m} "
-                            f"d={d} c={c} {dtype}: {share:.3f} of tolerance")
-    print(f"phase 9 kernels attention_flash_fwd/dq/dkv/dqkv, all "
-          f"{count // 2} (dtype, d, c) instances at B=3 N=100 M=37 and B=2 "
-          f"N=300 M=2100: worst error {worst:.3f} of its tolerance",
-          flush=True)
+                    require(share <= 1, f"flash kernels ({engine}) at B={b} "
+                            f"N={n} M={m} d={d} c={c} {dtype}: {share:.3f} "
+                            f"of tolerance")
+    print(f"phase 9 kernels attention_flash_fwd/dq/dkv/dqkv, all {count} "
+          f"(dtype, engine, d, c, shape) instances at (B, N, M) in "
+          f"{FLASH_RAGGED}: worst error as a share of its tolerance "
+          + ", ".join(f"{key} {x:.3f}" for key, x in worst.items())
+          + "; every K6 key block as the route rule counts it", flush=True)
+
+
+# the launch counters by kernel: K3 and K6 on the CUDA cores ("K3", "K6")
+# and on the tensor cores ("K3mma", "K6mma")
+COUNTERS = {"K1": "LAUNCHES", "K2": "BWD_LAUNCHES",
+            "K3": "FLASH_FWD_LAUNCHES", "K3mma": "FLASH_FWD_MMA_LAUNCHES",
+            "K4": "FLASH_DQ_LAUNCHES", "K5": "FLASH_DKV_LAUNCHES",
+            "K6": "FLASH_DQKV_LAUNCHES", "K6mma": "FLASH_DQKV_MMA_LAUNCHES"}
 
 
 def _zero_counts() -> None:
-    for name in ("LAUNCHES", "BWD_LAUNCHES", "FLASH_FWD_LAUNCHES",
-                 "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
-                 "FLASH_DQKV_LAUNCHES"):
+    for name in COUNTERS.values():
         setattr(cuda_attention, name, 0)
     cuda_spectral.LAUNCHES = 0
 
 
 def _counts() -> dict:
     """Launches since the last ``_zero_counts``, by kernel."""
-    a = cuda_attention
-    return {"K1": a.LAUNCHES, "K2": a.BWD_LAUNCHES,
-            "K3": a.FLASH_FWD_LAUNCHES, "K4": a.FLASH_DQ_LAUNCHES,
-            "K5": a.FLASH_DKV_LAUNCHES, "K6": a.FLASH_DQKV_LAUNCHES,
-            "K7": cuda_spectral.LAUNCHES}
+    return {key: getattr(cuda_attention, name)
+            for key, name in COUNTERS.items()} | {
+        "K7": cuda_spectral.LAUNCHES}
 
 
-def phase_flash_autograd() -> None:
+def _launches(**some) -> dict:
+    """Every counter's expected launches: ``some``, and 0 for the rest."""
+    return {key: some.get(key, 0) for key in (*COUNTERS, "K7")}
+
+
+def phase_flash_autograd() -> dict:
     """``FlashAttention`` through ``attention()`` at a small flash-routed
-    shape, gradients against autograd through the plain forward."""
+    shape, gradients against autograd through the plain forward: bf16
+    through the tensor-core K3 and K6, fp32 through the CUDA-core ones.
+    Returns the fp32 run's launches (the fp32 path of the op)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     b, n, m, d, c = 2, 1024, 8192, 2, 8
     for dtype in (torch.bfloat16, torch.float32):
@@ -1162,9 +1303,11 @@ def phase_flash_autograd() -> None:
               flush=True)
         require(share <= 1 and fused, f"FlashAttention gradients {name}: "
                 f"{share:.3f} of tolerance")
-        require(counts == {"K1": 0, "K2": 0, "K3": 1, "K4": 0, "K5": 0,
-                           "K6": 1, "K7": 0},
-                f"FlashAttention launched {counts}")
+        want = _launches(K3mma=1, K6mma=1) if dtype == torch.bfloat16 \
+            else _launches(K3=1, K6=1)
+        require(counts == want, f"FlashAttention launched {counts}, "
+                f"expected {want}")
+    return counts
 
 
 def church512_config(dtype: str) -> dict:
@@ -1203,10 +1346,12 @@ def _calibrate_bn(gen) -> None:
         gen.eval()
 
 
-def phase_serve512(card: str) -> int:
-    """church512 served: fp32 G (BN statistics of one batch) through K3
-    against the chunked plain forward on the card, then bf16 over HTTP.
-    Returns the K3 launches of the HTTP path."""
+def phase_serve512(card: str) -> dict:
+    """church512 served: fp32 G (BN statistics of one batch) through the
+    CUDA-core K3 against the chunked plain forward on the card, then bf16
+    over HTTP through the tensor-core K3.  Returns the launches of the
+    HTTP path ("serve", tensor-core K3) and of the fp32 forward ("fp32",
+    CUDA-core K3)."""
     gen32, _ = _church512_nets(church512_config("float32"), SEED + 30)
     gen32.to("cuda")
     _calibrate_bn(gen32)
@@ -1221,7 +1366,7 @@ def phase_serve512(card: str) -> int:
         _zero_counts()
         got = gen32(z, labels)
         torch.cuda.synchronize()
-        counts = _counts()
+        counts = fp32_counts = _counts()
         t0 = time.perf_counter()
         want = plain(z, labels)
         torch.cuda.synchronize()
@@ -1233,7 +1378,7 @@ def phase_serve512(card: str) -> int:
           f"{tuple(got.shape)} max_abs_err {err:.3g} (tol {G_TOL:g}), "
           f"output std {std:.3g}; launches {counts} on {card}", flush=True)
     require(err <= G_TOL and got.shape == (1, 3, 512, 512) and std > 1e-2
-            and counts["K3"] == 1 and bool(torch.isfinite(got).all()),
+            and counts == _launches(K3=1) and bool(torch.isfinite(got).all()),
             "church512 G through K3 disagrees with the plain forward")
     del plain, got, want
 
@@ -1285,10 +1430,10 @@ def phase_serve512(card: str) -> int:
     print(f"phase 11 serve church512: launches {counts} for {forwards} "
           f"generator forwards (one attention site each, on the flash "
           f"path)", flush=True)
-    require(counts == {"K1": 0, "K2": 0, "K3": forwards, "K4": 0, "K5": 0,
-                       "K6": 0, "K7": 0},
-            f"expected {forwards} K3 launches only, counted {counts}")
-    return counts["K3"]
+    require(counts == _launches(K3mma=forwards),
+            f"expected {forwards} tensor-core K3 launches only, counted "
+            f"{counts}")
+    return {"serve": counts["K3mma"], "fp32": fp32_counts["K3"]}
 
 
 def _site_norms(names, norms, side: int) -> dict:
@@ -1359,8 +1504,8 @@ def phase_train512(card: str) -> dict:
                 f"church512 losses are not finite: {g_loss} {d_loss}")
     norms = _site_norms(trainer.train_step.g_names,
                         fetched[-1]["G_grad_norms"], 512)
-    want = {"K1": 2 * steps, "K2": 2 * steps, "K3": 2 * steps + len(grids),
-            "K4": 0, "K5": 0, "K6": steps, "K7": 0}
+    want = _launches(K1=2 * steps, K2=2 * steps,
+                     K3mma=2 * steps + len(grids), K6mma=steps)
     print(f"phase 12 train church512: {steps} steps at B=4, {len(grids)} "
           f"sample-grid forwards; launches {counts} (expected {want}); "
           f"512-site gradient norms of the last call {norms}", flush=True)
@@ -1374,8 +1519,8 @@ def phase_train512(card: str) -> dict:
 
 def phase_step512_b8(card: str) -> dict:
     """One church512 training step at B=8 (bf16, the config's learning
-    rates): the G backward's dq partials would pass the slab limit, so it
-    takes K4 + K5.  Returns the launches by kernel."""
+    rates): K6's dq partials would be 1.07 GB, past ``DQ_SLAB_BUDGET``,
+    so the G backward takes K4 + K5.  Returns the launches by kernel."""
     config = church512_config("bfloat16")
     config.update(batch_size=8, global_batch_size=8)
     gen, disc = _church512_nets(config, SEED + 40)
@@ -1397,7 +1542,7 @@ def phase_step512_b8(card: str) -> dict:
     counts = _counts()               # and ends here
     norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
     losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
-    want = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 1, "K6": 0, "K7": 0}
+    want = _launches(K1=2, K2=2, K3mma=2, K4=1, K5=1)
     print(f"phase 13 church512 train step B=8 bf16: losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); launches {counts} "
           f"(expected {want}); 512-site gradient norms {norms} on {card}",
@@ -1626,9 +1771,8 @@ def phase_train128(card: str) -> dict:
         trainer, text, counts, grids, n_epochs = _run_cli(
             files[epochs], card, f"16 imagenet128 {label}")
         steps = trainer.global_step() - first_step
-        want = {"K1": 12 * steps + 2 * grids, "K2": 8 * steps, "K3": 0,
-                "K4": 0, "K5": 0, "K6": 0,
-                "K7": SN_PER_STEP * steps + SN_PER_G * grids}
+        want = _launches(K1=12 * steps + 2 * grids, K2=8 * steps,
+                         K7=SN_PER_STEP * steps + SN_PER_G * grids)
         print(f"phase 16 imagenet128 {label}: {steps} steps at B="
               f"{trainer.config['global_batch_size']}, "
               f"update_ratio 2, {grids} sample-grid forwards; launches "
@@ -1704,8 +1848,7 @@ def phase_serve128(card: str) -> None:
         svc.close()
         thread.join(timeout=30)
     counts = _counts()               # the serving path ends here
-    want = {"K1": 2 * forwards, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-            "K7": SN_PER_G * forwards}
+    want = _launches(K1=2 * forwards, K7=SN_PER_G * forwards)
     print(f"phase 17 serve imagenet128_cond: launches {counts} for {forwards}"
           f" generator forwards (expected {want})", flush=True)
     require(counts == want, f"serving launches {counts}, expected {want}")
@@ -1743,8 +1886,7 @@ def phase_step_gf64(card: str) -> None:
     # once for D's update and once for G's
     sn = sum(isinstance(m, layers._SNLayer) and m.sn
              for net in (gen, disc) for m in net.modules())
-    want = {"K1": 4, "K2": 3, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-            "K7": 2 * sn}
+    want = _launches(K1=4, K2=3, K7=2 * sn)
     print(f"phase 18 imagenet128_paper_gf64 train step B={PAPER_BATCH} bf16 "
           f"({params} parameters in G and D): losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); peak memory "
@@ -1935,7 +2077,8 @@ def phase_study_kernels(card: str) -> dict:
             tol = _study_tol(dtype)
             for point in cas.FWD_POINTS:
                 tiles = cas.fwd_tiles(point)
-                o, lse = cuda_attention.attention_flash_fwd(q, k, v, tiles)
+                o, lse = cuda_attention.attention_flash_fwd(q, k, v, tiles,
+                                                            "fma")
                 fused = cuda_attention.attention_fused(q, k, v, tiles)
                 share = max(
                     _grad_errors((fused, o), (want, want), tol)[0],
@@ -1963,7 +2106,8 @@ def phase_study_kernels(card: str) -> dict:
             tiles = cas.bwd_tiles(point)
             got = {"K4": (cuda_attention.attention_flash_dq(*args, tiles),),
                    "K5": cuda_attention.attention_flash_dkv(*args, tiles),
-                   "K6": cuda_attention.attention_flash_dqkv(*args, tiles)}
+                   "K6": cuda_attention.attention_flash_dqkv(*args, tiles,
+                                                             "fma")}
             for kernel, outs in got.items():
                 ref = want[:1] if kernel == "K4" else (
                     want[1:] if kernel == "K5" else want)
@@ -2036,7 +2180,13 @@ def phase_studies(card: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
+                    help="run only these phases (1 always runs; 4 needs 3) "
+                         "and print no kernels line and no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
@@ -2046,76 +2196,115 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
+    on = set(range(1, 22)) if args.only is None else set(args.only) | {1}
+    r = {}
     phase_build()
-    head = phase_kernels(card)
-    phase_all_widths()
-    gen32 = phase_generator(card)
-    phase_serve(gen32, card)
-    bwd_head = phase_bwd_kernels(card)
-    phase_bwd_all_widths()
-    phase_train_step(card)
-    fwd_launches, bwd_launches = phase_train_cli(card)
-    flash = phase_flash_kernels(card)
-    phase_flash_all_widths()
-    phase_flash_autograd()
-    phase_serve512(card)
-    train512 = phase_train512(card)
-    step_b8 = phase_step512_b8(card)
-    sn_head = phase_sn_kernels(card)
-    phase_generator128(card)
-    train128 = phase_train128(card)
-    phase_serve128(card)
-    phase_step_gf64(card)
-    phase_legacy(card)
-    study_heads = phase_study_kernels(card)
-    study_launches = phase_studies(card)
+    if 2 in on:
+        r["head"] = phase_kernels(card)
+        phase_all_widths()
+    if {3, 4} & on:
+        gen32 = phase_generator(card)
+        if 4 in on:
+            phase_serve(gen32, card)
+        del gen32
+    if 5 in on:
+        r["bwd_head"] = phase_bwd_kernels(card)
+        phase_bwd_all_widths()
+    if 6 in on:
+        phase_train_step(card)
+    if 7 in on:
+        r["fwd_launches"], r["bwd_launches"] = phase_train_cli(card)
+    if 8 in on:
+        r["flash"] = phase_flash_kernels(card)
+    if 9 in on:
+        phase_flash_all_widths()
+    if 10 in on:
+        r["autograd"] = phase_flash_autograd()
+    if 11 in on:
+        r["serve512"] = phase_serve512(card)
+    if 12 in on:
+        r["train512"] = phase_train512(card)
+    if 13 in on:
+        r["step_b8"] = phase_step512_b8(card)
+    if 14 in on:
+        r["sn_head"] = phase_sn_kernels(card)
+    if 15 in on:
+        phase_generator128(card)
+    if 16 in on:
+        r["train128"] = phase_train128(card)
+    if 17 in on:
+        phase_serve128(card)
+    if 18 in on:
+        phase_step_gf64(card)
+    if 19 in on:
+        phase_legacy(card)
+    if 20 in on:
+        r["study_heads"] = phase_study_kernels(card)
+    if 21 in on:
+        r["study_launches"] = phase_studies(card)
+    print(f"chip_smoke: phases {', '.join(map(str, sorted(on)))} passed in "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    if args.only is not None:
+        return 0
     # launches: each kernel's count on the path that runs it, zeroed just
     # before and read just after: K1 and K2 on the church64 training
     # entry point's run (phase 7; phase 4 checks the serving path's own
-    # count), K3 and K6 on the church512 one (phase 12; phase 11 checks
-    # church512 serving's), K4 and K5 on the B=8 church512 step (phase 13),
-    # K7 on the imagenet128_cond training entry point's run (phase 16;
-    # phase 17 checks its serving path's own count), the study kernels on
-    # the four studies' runs (phase 21)
+    # count), the tensor-core K3 and K6 on the church512 one (phase 12;
+    # phase 11 checks church512 serving's), the CUDA-core K3 on the fp32
+    # church512 G forward (phase 11) and the CUDA-core K6 on the fp32
+    # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 step
+    # (phase 13), K7 on the imagenet128_cond training entry point's run
+    # (phase 16; phase 17 checks its serving path's own count), the study
+    # kernels on the four studies' runs (phase 21)
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
+    flash, train512 = r["flash"], r["train512"]
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": src + "attention_fwd.cu", "replaces": ref + "157",
-                "launches": fwd_launches, **head},
+                "launches": r["fwd_launches"], **r["head"]},
                {"name": "attention_bwd", "route": "cuda",
                 "source": src + "attention_bwd.cu", "replaces": ref + "207",
-                "launches": bwd_launches, **bwd_head},
+                "launches": r["bwd_launches"], **r["bwd_head"]},
+               {"name": "attention_flash_fwd_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "368", "launches": train512["K3mma"],
+                **flash["fwd"]},
                {"name": "attention_flash_fwd", "route": "cuda",
                 "source": src + "attention_fwd.cu", "replaces": ref + "368",
-                "launches": train512["K3"], **flash["fwd"]},
+                "launches": r["serve512"]["fp32"], **flash["fwd_fma"]},
                {"name": "attention_flash_dq", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
-                "replaces": ref + "444", "launches": step_b8["K4"],
+                "replaces": ref + "444", "launches": r["step_b8"]["K4"],
                 **flash["dq"]},
                {"name": "attention_flash_dkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
-                "replaces": ref + "515", "launches": step_b8["K5"],
+                "replaces": ref + "515", "launches": r["step_b8"]["K5"],
                 **flash["dkv"]},
+               {"name": "attention_flash_dqkv_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "665", "launches": train512["K6mma"],
+                **flash["dqkv"]},
                {"name": "attention_flash_dqkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
-                "replaces": ref + "665", "launches": train512["K6"],
-                **flash["dqkv"]},
+                "replaces": ref + "665", "launches": r["autograd"]["K6"],
+                **flash["dqkv_fma"]},
                {"name": "spectral_norm", "route": "cuda",
                 "source": src + "spectral_norm.cu",
                 "replaces": "sagan_tpu/ops/pallas_spectral.py:31",
-                "launches": train128["K7"], **sn_head},
+                "launches": r["train128"]["K7"], **r["sn_head"]},
                {"name": "attention_study", "route": "cuda",
                 "source": src + "attention_study.cu",
                 "replaces": "tools/bench_attn_floor.py:82",
-                "launches": study_launches["attention_study"],
-                **study_heads["study"]},
+                "launches": r["study_launches"]["attention_study"],
+                **r["study_heads"]["study"]},
                {"name": "attention_folded", "route": "cuda",
                 "source": src + "attention_folded.cu",
                 "replaces": "tools/bench_attn_floor.py:173",
-                "launches": study_launches["attention_folded"],
-                **study_heads["folded"]}]
-    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t0:.0f} "
-          f"s", flush=True)
+                "launches": r["study_launches"]["attention_folded"],
+                **r["study_heads"]["folded"]}]
+    require(all(row["launches"] > 0 for row in kernels),
+            f"a kernel was never launched on its path: "
+            f"{[(row['name'], row['launches']) for row in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,868 @@
+// SAGAN attention flash forward and fused flash backward in bf16 on
+// Hopper's tensor cores (sm_90a, mma.sync bf16 -> fp32).
+//
+// Replaces two TPU kernels of sagan_tpu/ops/pallas_attention.py on bf16
+// operands (fp32 operands keep the CUDA-core kernels of attention_fwd.cu
+// and attention_flash_bwd.cu: the tensor cores take fp32 only as TF32):
+//  * _flash_fwd_kernel (K3, launched by _flash_fwd):
+//    attention_flash_fwd_mma_kernel here. fp32 scores, online max and sum,
+//    E rounded to bf16 for the E.V product (the mma's operand type, as
+//    the TPU kernel casts e to v's type), o = acc / l in bf16 and
+//    lse = max + log l in fp32.
+//  * _flash_dqkv_kernel (K6, launched by _flash_bwd_fused, with
+//    _bwd_tile_grads and _accum_dkv): attention_flash_dqkv_mma_kernel
+//    here, after attention_flash_delta_kernel. p = exp(s - lse) and
+//    delta = sum g o in fp32; dl = p (g.v - delta) rounded to bf16 (k's
+//    type) before the dK and dQ products; dV from p rounded to bf16 (v's
+//    type). The mma operands are bf16, so both roundings are the TPU
+//    kernel's by construction.
+//
+//   q [B, N, D]  k [B, M, D]  v [B, M, C]  g, o [B, N, C]  lse [B, N] fp32
+//   -> o [B, N, C], lse (K3)
+//   -> dk [B, M, D], dv [B, M, C] and dq partials fp32 [B, NKB, N, D] (K6,
+//      NKB key blocks, summed by the caller in key-block order)
+//
+// What bounds them on the H100: per (query, key) pair one exponential on
+// the SFUs (16 a clock an SM: 16.4 ms for the 6.9e10 pairs of church512's
+// 512 map at B = 4), a few fp32 instructions (the exponent's FFMA, the
+// row max and sum in K3; dl's FSUB and FMUL in K6; bf16 packing) and, on
+// the tensor cores, the thin contractions padded to the mma's shapes:
+// d = 2 padded to k = 8 (m16n8k8) for the scores, c = 8 exactly n8 or
+// k8. The bytes are a few tens of MB (~20 us), so the SFU and the rate
+// at which those instructions are issued bind, not memory.
+//
+// K3's design (FlashAttention-2's forward on mma.sync), each choice the
+// fastest of the alternatives the study times (the switches below;
+// PERF.md §6 has the readings):
+//  * a block of 4 warps, a warp one m16 row tile; Q's A fragments stay in
+//    registers, zero past d and past N;
+//  * K and V walked in 64-key tiles, each staged by cp.async between two
+//    barriers (the SM's other blocks run while one loads), zero-filled
+//    past M; staged rows are 16-byte multiples, padded to an odd count of
+//    16-byte units so ldmatrix reads them without bank conflicts;
+//  * the exponent is one FFMA, s log2e - m log2e, into ex2.approx; the
+//    rescale factor is exactly 1 while a row's max holds, and every tile
+//    rescales (4 multiplies a lane);
+//  * only a ragged last tile masks keys past M (full tiles run no mask);
+//  * the scores' C fragments are, packed to bf16, the A fragments of P.V
+//    (two n8 score tiles are one k16 tile of P), and V's B fragments come
+//    from ldmatrix.trans of the row-major staged V.
+//
+// K6's design (FlashAttention-2's backward, key-major as the CUDA-core
+// K6):
+//  * attention_flash_delta_kernel first writes, for every query row,
+//    (-lse log2e, delta = g . o) fp32, rows padded to the query tile with
+//    (-inf, 0) so that a padded row's p is exactly 0;
+//  * a block of 8 warps owns a key block of 8 x KT m16 key tiles (KT from
+//    the register budget of the dK and dV accumulators: 8 at d = 2,
+//    c = 8, so 1,024 keys), staged once in shared memory; dK and dV
+//    accumulate in fp32 C fragments;
+//  * the block walks the query rows in 64-row tiles (Q, dO and the
+//    (-lse log2e, delta) pairs) staged by cp.async in a ring of 3;
+//  * S^T = K Q^T and dP^T = V dO^T on the mma with keys as its M rows, so
+//    P^T and dS^T, packed to bf16, are the A fragments of dV += P^T dO and
+//    dK += dS^T Q; dS itself, for dQ = dS K, is dS^T transposed in
+//    registers by movmatrix (four 8x8 blocks make the A fragment), one
+//    mma per 16 queries and 16 keys rather than D FMAs a pair on the CUDA
+//    cores, and with dl rounded to bf16 as the TPU kernel rounds it;
+//  * keys past M are staged as zeros, so their dQ terms are 0 and their dK
+//    and dV are not written; no pair needs a mask;
+//  * each warp sums its key tiles' dQ in its mma accumulators, the warps'
+//    sums meet in shared memory in warp order, and the block writes its
+//    fp32 dq partial rows once: no atomics, the same bits every run.
+//
+// The value width C is fixed per build (-DSAGAN_ATTN_C=8, 16, ...), one
+// small library per width holding all three kernels; D in {2, 4, 8, 16,
+// 32} is a template argument.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
+
+#ifndef SAGAN_ATTN_C
+#error "build with -DSAGAN_ATTN_C=<value width>"
+#endif
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 16-byte units of a staged row of w bf16: at least one (narrow rows are
+// zero-padded to 8 values), and an odd count, so that the 8 rows an
+// ldmatrix reads fall in distinct banks
+__host__ __device__ constexpr int row_units(int w) {
+  return w < 8 ? 1 : (w / 8) % 2 ? w / 8 : w / 8 + 1;
+}
+
+// cp.async rows [r0, r0 + rows) of a row-major [total, W] bf16 matrix to
+// dst, whose rows are row_units(W) * 16 bytes; rows past `total` are
+// zero-filled. A chunk is one row of up to 16 bytes, or 16 bytes of one.
+template <int W, int kThreads>
+__device__ __forceinline__ void stage_rows(char* dst, const bf16* src,
+                                           int r0, int rows, int total) {
+  constexpr int kChunk = 2 * W < 16 ? 2 * W : 16;
+  constexpr int kPer = 2 * W / kChunk;
+  constexpr int kStride = row_units(W) * 16;
+  for (int i = threadIdx.x; i < rows * kPer; i += kThreads) {
+    const int r = i / kPer, part = i % kPer;
+    const bool in = r0 + r < total;
+    const char* s = reinterpret_cast<const char*>(
+                        src + (size_t)(in ? r0 + r : 0) * W) + part * kChunk;
+    cp_async<kChunk>(dst + r * kStride + part * kChunk, s, in ? kChunk : 0);
+  }
+}
+
+__device__ __forceinline__ void zero_smem(char* p, int bytes, int threads) {
+  for (int i = threadIdx.x; i < bytes / 16; i += threads)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// ---- K3: the forward ------------------------------------------------------
+
+// Each of K3's design choices can be flipped at build time, for the study
+// of what each is worth (sagan_tpu_torch/tools/bench_attn_floor512.py):
+// -DSAGAN_MMA_STAGES=3 stages the tiles by cp.async in a ring of 3 (the
+// next two load while one is used), -DSAGAN_MMA_ROW_TILES=2 gives a warp
+// two m16 row tiles,
+// -DSAGAN_MMA_MASK_ALL=1 masks every tile, -DSAGAN_MMA_EXPF=1 takes S1's
+// exponent (__expf(s - m), a rescale __expf(m_old - m_new)) and
+// -DSAGAN_MMA_VOTE=1 skips the rescale in a tile where no row's max moved
+// (a warp vote). The defaults are the shipped kernel.
+#ifdef SAGAN_MMA_STAGES
+constexpr int kFwdStages = SAGAN_MMA_STAGES;
+#else
+constexpr int kFwdStages = 1;
+#endif
+#ifdef SAGAN_MMA_MASK_ALL
+constexpr bool kMaskAll = SAGAN_MMA_MASK_ALL;
+#else
+constexpr bool kMaskAll = false;
+#endif
+#ifdef SAGAN_MMA_EXPF
+constexpr bool kExpf = SAGAN_MMA_EXPF;
+#else
+constexpr bool kExpf = false;
+#endif
+#ifdef SAGAN_MMA_VOTE
+constexpr bool kVote = SAGAN_MMA_VOTE;
+#else
+constexpr bool kVote = false;
+#endif
+static_assert(kFwdStages >= 1, "SAGAN_MMA_STAGES: at least one stage");
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdTile = 64;  // keys a stage
+constexpr int kFwdGroups = kFwdTile / 8;  // n8 key groups a tile
+
+// m16 row tiles a warp
+#ifdef SAGAN_MMA_ROW_TILES
+constexpr int kRowTiles = SAGAN_MMA_ROW_TILES;
+#else
+constexpr int kRowTiles = 1;
+#endif
+
+template <int D, int C>
+struct FwdSmem {
+  static constexpr int kKRow = row_units(D) * 16;
+  static constexpr int kVRow = row_units(C) * 16;
+  static constexpr int kK = kFwdTile * kKRow;
+  static constexpr int kStage = kK + kFwdTile * kVRow;
+  static constexpr int kBytes = kFwdStages * kStage;
+};
+
+template <int D, int C>
+__global__ void __launch_bounds__(kFwdThreads)
+    attention_flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                                   const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   bf16* __restrict__ o,
+                                   float* __restrict__ lse, int n, int m) {
+  constexpr int RT = kRowTiles;
+  constexpr bool kK8 = D <= 8;       // scores on m16n8k8
+  constexpr int KS = kK8 ? 1 : D / 16;  // k16 steps of the scores
+  constexpr int NT = C / 8;          // n8 channel tiles
+  using S = FwdSmem<D, C>;
+  extern __shared__ __align__(16) char smem[];
+
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // rows g and g + 8 of each row tile
+  const int t = lane & 3;   // keys (channels) 2t and 2t + 1 of each n8
+  const int row0 = (blockIdx.x * kFwdWarps + warp) * 16 * RT;
+  const bf16* kb = k + (size_t)b * m * D;
+  const bf16* vb = v + (size_t)b * m * C;
+  const int tiles = (m + kFwdTile - 1) / kFwdTile;
+
+  // the padding of staged rows is never written by cp.async: zero it
+  zero_smem(smem, S::kBytes, kFwdThreads);
+  __syncthreads();
+  auto load = [&](int tile) {
+    if (tile < tiles) {
+      char* st = smem + (tile % kFwdStages) * S::kStage;
+      stage_rows<D, kFwdThreads>(st, kb, tile * kFwdTile, kFwdTile, m);
+      stage_rows<C, kFwdThreads>(st + S::kK, vb, tile * kFwdTile, kFwdTile,
+                                 m);
+    }
+    cp_async_commit();  // an empty group past the last tile keeps the count
+  };
+#pragma unroll
+  for (int s = 0; s < kFwdStages - 1; ++s) load(s);
+
+  // Q's A fragments: a row's d values are d/2 words; zero past d and N
+  const uint32_t* qw =
+      reinterpret_cast<const uint32_t*>(q) + (size_t)b * n * (D / 2);
+  auto qword = [&](int row, int word) -> uint32_t {
+    return row < n && 2 * word < D ? qw[(size_t)row * (D / 2) + word] : 0u;
+  };
+  uint32_t qa[RT][KS][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+    const int lo = row0 + 16 * rt + g;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qa[rt][ks][0] = qword(lo, 8 * ks + t);
+      qa[rt][ks][1] = qword(lo + 8, 8 * ks + t);
+      qa[rt][ks][2] = qword(lo, 8 * ks + 4 + t);
+      qa[rt][ks][3] = qword(lo + 8, 8 * ks + 4 + t);
+    }
+  }
+
+  float acc[RT][NT][4];
+  float mx[RT][2], nm[RT][2], l[RT][2];  // running max, -max log2e, sum
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[rt][j][0] = acc[rt][j][1] = acc[rt][j][2] = acc[rt][j][3] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[rt][r] = -INFINITY;
+      nm[rt][r] = INFINITY;
+      l[rt][r] = 0.f;
+    }
+  }
+
+  for (int it = 0; it < tiles; ++it) {
+    if constexpr (kFwdStages == 1) {
+      __syncthreads();  // every thread is done with tile it - 1
+      load(it);
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<kFwdStages - 2>();  // tile `it` has landed
+      __syncthreads();  // ... for every thread, all done with it - 1
+      load(it + kFwdStages - 1);
+    }
+    const char* ks_ = smem + (it % kFwdStages) * S::kStage;
+    const char* vs = ks_ + S::kK;
+
+    // B fragments of K^T: key group h's rows, d values as the mma's k
+    uint32_t kf[kFwdGroups][KS][2];
+    if constexpr (kK8) {
+#pragma unroll
+      for (int h0 = 0; h0 < kFwdGroups; h0 += 4)
+        ldsm_x4(kf[h0][0][0], kf[h0 + 1][0][0], kf[h0 + 2][0][0],
+                kf[h0 + 3][0][0], ks_ + (8 * h0 + lane) * S::kKRow);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int h0 = 0; h0 < kFwdGroups; h0 += 2)
+          ldsm_x4(kf[h0][ks][0], kf[h0][ks][1], kf[h0 + 1][ks][0],
+                  kf[h0 + 1][ks][1],
+                  ks_ + (8 * (h0 + (lane >> 4)) + (lane & 7)) * S::kKRow +
+                      (2 * ks + ((lane >> 3) & 1)) * 16);
+      }
+    }
+
+    // scores: s[rt][h][0..1] row g, s[rt][h][2..3] row g + 8, keys
+    // 8h + 2t, + 1
+    float s[RT][kFwdGroups][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+      for (int h = 0; h < kFwdGroups; ++h) {
+        s[rt][h][0] = s[rt][h][1] = s[rt][h][2] = s[rt][h][3] = 0.f;
+        if constexpr (kK8) {
+          mma_bf16_k8(s[rt][h], qa[rt][0][0], qa[rt][0][1], kf[h][0][0]);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks)
+            mma_bf16(s[rt][h], qa[rt][ks][0], qa[rt][ks][1], qa[rt][ks][2],
+                     qa[rt][ks][3], kf[h][ks][0], kf[h][ks][1]);
+        }
+      }
+    }
+    const int tm = m - it * kFwdTile;
+    // keys past M weigh 0: only the ragged last tile has them
+    if (kMaskAll || tm < kFwdTile) {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < kFwdGroups; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * h + 2 * t + (e & 1) >= tm) s[rt][h][e] = -INFINITY;
+    }
+
+    // the online softmax: e = 2^(s log2e - m log2e) in place of s
+    float scale[RT][2], tl[RT][2];
+    bool moved = false;
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int h = 0; h < kFwdGroups; ++h)
+          tmax = fmaxf(tmax, fmaxf(s[rt][h][2 * r], s[rt][h][2 * r + 1]));
+        const float m_new = fmaxf(mx[rt][r], quad_max(tmax));
+        const float nm_new = -m_new * kLog2e;
+        // exactly 1 while the max holds; 0 on the first tile
+        const bool up = nm_new != nm[rt][r];
+        moved |= up;
+        if constexpr (kExpf)
+          scale[rt][r] = __expf(mx[rt][r] - m_new);
+        else
+          scale[rt][r] = up ? ex2(nm_new - nm[rt][r]) : 1.f;
+        mx[rt][r] = m_new;
+        nm[rt][r] = nm_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int h = 0; h < kFwdGroups; ++h) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[rt][h][e] = kExpf ? __expf(s[rt][h][e] - m_new)
+                                : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
+            sum += s[rt][h][e];
+          }
+        }
+        tl[rt][r] = sum;  // the tile's terms, added to l once
+      }
+    }
+    if (!kVote || kExpf || __any_sync(kFull, moved)) {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[rt][j][0] *= scale[rt][0];
+          acc[rt][j][1] *= scale[rt][0];
+          acc[rt][j][2] *= scale[rt][1];
+          acc[rt][j][3] *= scale[rt][1];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[rt][r] = fmaf(l[rt][r], scale[rt][r],
+                                                    tl[rt][r]);
+      }
+    } else {  // every scale is 1: the same bits as fmaf(l, 1, tl)
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[rt][r] += tl[rt][r];
+    }
+
+    // acc += P V, 16 keys an mma: key groups 2u and 2u + 1 of the scores
+    // are the A fragment of keys 16u..16u+15; V's B fragments by
+    // ldmatrix.trans of its staged rows, two k16 steps at a time
+#pragma unroll
+    for (int u = 0; u < kFwdGroups / 2; u += 2) {
+      uint32_t pa[RT][2][4];
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const float* lo = s[rt][2 * (u + w)];
+          const float* hi = s[rt][2 * (u + w) + 1];
+          pa[rt][w][0] = pack_bf16(lo[0], lo[1]);
+          pa[rt][w][1] = pack_bf16(lo[2], lo[3]);
+          pa[rt][w][2] = pack_bf16(hi[0], hi[1]);
+          pa[rt][w][3] = pack_bf16(hi[2], hi[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t vf[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0, %1, %2, %3}, [%4];\n"
+            : "=r"(vf[0]), "=r"(vf[1]), "=r"(vf[2]), "=r"(vf[3])
+            : "r"(smem_addr(vs + (16 * u + lane) * S::kVRow + 16 * j)));
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w)
+            mma_bf16(acc[rt][j], pa[rt][w][0], pa[rt][w][1], pa[rt][w][2],
+                     pa[rt][w][3], vf[2 * w], vf[2 * w + 1]);
+        }
+      }
+    }
+  }
+
+  uint32_t* ow = reinterpret_cast<uint32_t*>(o) + (size_t)b * n * (C / 2);
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lsum = quad_sum(l[rt][r]);
+      const int row = row0 + 16 * rt + g + 8 * r;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        ow[(size_t)row * (C / 2) + 4 * j + t] =
+            pack_bf16(acc[rt][j][2 * r] / lsum, acc[rt][j][2 * r + 1] / lsum);
+      if (t == 0) lse[(size_t)b * n + row] = mx[rt][r] + logf(lsum);
+    }
+  }
+}
+
+// ---- K6: the fused backward -----------------------------------------------
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdQTile = 64;  // query rows a stage
+constexpr int kBwdStages = 3;
+constexpr int kDeltaThreads = 256;
+
+// m16 key tiles a warp owns: as many as keep its dK and dV accumulators
+// (4 floats a lane per n8 tile) within 64 registers
+template <int D, int C>
+__host__ __device__ constexpr int bwd_key_tiles() {
+  return 4 * ((D + 7) / 8 + C / 8) <= 8    ? 8
+         : 4 * ((D + 7) / 8 + C / 8) <= 16 ? 4
+         : 4 * ((D + 7) / 8 + C / 8) <= 32 ? 2
+                                           : 1;
+}
+template <int D, int C>
+__host__ __device__ constexpr int bwd_keys_per_block() {
+  return kBwdWarps * 16 * bwd_key_tiles<D, C>();
+}
+
+template <int D, int C>
+struct BwdSmem {
+  static constexpr int KB = bwd_keys_per_block<D, C>();
+  static constexpr int kDRow = row_units(D) * 16;
+  static constexpr int kCRow = row_units(C) * 16;
+  static constexpr int kV = KB * kDRow;              // offset of V's rows
+  static constexpr int kRing = kV + KB * kCRow;      // offset of the ring
+  static constexpr int kG = kBwdQTile * kDRow;       // in a stage: dO
+  static constexpr int kLd = kG + kBwdQTile * kCRow;  // (-lse log2e, delta)
+  static constexpr int kStage = kLd + kBwdQTile * 8;
+  static constexpr int kRed = kRing + kBwdStages * kStage;  // dq sums
+  static constexpr int kBytes = kRed + kBwdWarps * kBwdQTile * D * 4;
+};
+
+// (-lse log2e, delta = g . o) fp32 of every query row, rows n..npad-1
+// (the last query tile's padding) (-inf, 0)
+template <int C>
+__global__ void __launch_bounds__(kDeltaThreads)
+    attention_flash_delta_kernel(const bf16* __restrict__ g,
+                                 const bf16* __restrict__ o,
+                                 const float* __restrict__ lse,
+                                 float2* __restrict__ ld, int n, int npad) {
+  const int b = blockIdx.y;
+  const int row = blockIdx.x * kDeltaThreads + threadIdx.x;
+  if (row >= npad) return;
+  float2 out = make_float2(-INFINITY, 0.f);
+  if (row < n) {
+    const size_t r = (size_t)b * n + row;
+    const uint4* g4 = reinterpret_cast<const uint4*>(g + r * C);
+    const uint4* o4 = reinterpret_cast<const uint4*>(o + r * C);
+    float delta = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i) {
+      const uint4 a = g4[i], c = o4[i];
+      const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t cw[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 x = unpack_bf16(aw[w]), y = unpack_bf16(cw[w]);
+        delta = fmaf(x.x, y.x, delta);
+        delta = fmaf(x.y, y.y, delta);
+      }
+    }
+    out = make_float2(-lse[r] * kLog2e, delta);
+  }
+  ld[(size_t)b * npad + row] = out;
+}
+
+template <int D, int C>
+__global__ void __launch_bounds__(kBwdThreads)
+    attention_flash_dqkv_mma_kernel(const bf16* __restrict__ q,
+                                    const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v,
+                                    const bf16* __restrict__ g,
+                                    const float2* __restrict__ ld,
+                                    bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv,
+                                    float* __restrict__ dq_part, int n,
+                                    int m, int npad) {
+  constexpr int KT = bwd_key_tiles<D, C>();
+  constexpr bool kDK8 = D <= 8;       // S^T on m16n8k8
+  constexpr int DS = kDK8 ? 1 : D / 16;  // its k16 steps
+  constexpr bool kCK8 = C == 8;       // dP^T on m16n8k8
+  constexpr int CS = kCK8 ? 1 : C / 16;
+  constexpr int DT = (D + 7) / 8;     // n8 tiles of dK and dQ
+  constexpr int NT = C / 8;           // n8 tiles of dV
+  using S = BwdSmem<D, C>;
+  extern __shared__ __align__(16) char smem[];
+
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;  // C rows g, g + 8: keys (dQ: queries)
+  const int t = lane & 3;    // C cols 2t, 2t + 1: queries (dims, channels)
+  const int key0 = blockIdx.x * S::KB;
+  const int tiles = npad / kBwdQTile;
+  const bf16* qb = q + (size_t)b * n * D;
+  const bf16* gb = g + (size_t)b * n * C;
+  const float2* ldb = ld + (size_t)b * npad;
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+
+  zero_smem(smem, S::kRed, kBwdThreads);  // padding of the staged rows
+  __syncthreads();
+  stage_rows<D, kBwdThreads>(smem, k + (size_t)b * m * D, key0, S::KB, m);
+  stage_rows<C, kBwdThreads>(smem + S::kV, v + (size_t)b * m * C, key0,
+                             S::KB, m);
+  cp_async_commit();
+  auto load = [&](int tile) {
+    if (tile < tiles) {
+      char* st = smem + S::kRing + (tile % kBwdStages) * S::kStage;
+      const int r0 = tile * kBwdQTile;
+      stage_rows<D, kBwdThreads>(st, qb, r0, kBwdQTile, n);
+      stage_rows<C, kBwdThreads>(st + S::kG, gb, r0, kBwdQTile, n);
+      for (int i = threadIdx.x; i < kBwdQTile; i += kBwdThreads)
+        cp_async<8>(st + S::kLd + 8 * i, ldb + r0 + i, 8);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) load(s);
+
+  float dka[KT][DT][4], dva[KT][NT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      dka[kt][j][0] = dka[kt][j][1] = dka[kt][j][2] = dka[kt][j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      dva[kt][j][0] = dva[kt][j][1] = dva[kt][j][2] = dva[kt][j][3] = 0.f;
+  }
+  const int lrow = lane & 15;  // the ldmatrix row this lane addresses
+  const char* kst = smem + (warp * KT * 16 + lrow) * S::kDRow;
+  const char* vst = smem + S::kV + (warp * KT * 16 + lrow) * S::kCRow;
+
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<kBwdStages - 2>();  // the key block and tile `it`
+    __syncthreads();  // every thread is done with tile it - 1 and red
+    load(it + kBwdStages - 1);
+    const char* st = smem + S::kRing + (it % kBwdStages) * S::kStage;
+    const float2* lds = reinterpret_cast<const float2*>(st + S::kLd);
+
+#pragma unroll 1
+    for (int qc = 0; qc < kBwdQTile / 16; ++qc) {
+      // what the warp's key tiles share for these 16 queries: the B
+      // fragments of Q^T and dO^T (queries as n, in two n8 groups), of dO
+      // (queries as k, for dV) and of Q (queries as k, for dK), and the
+      // (-lse log2e, delta) of the lane's queries 2t, 2t + 1 of each group
+      const char* qs = st + (16 * qc + lrow) * S::kDRow;
+      const char* gs = st + S::kG + (16 * qc + lrow) * S::kCRow;
+      uint32_t qb2[2][DS][2], gb2[2][CS][2], gt[NT][2], qt[DT][2];
+      if constexpr (kDK8) {
+        ldsm_x2(qb2[0][0][0], qb2[1][0][0], qs);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < DS; ++ks) {
+          // matrices: (queries 0-7, 8 dims), (0-7, next 8), (8-15, ...)
+          const char* a = st + (16 * qc + 8 * (lane >> 4) + (lane & 7)) *
+                                   S::kDRow + (2 * ks + ((lane >> 3) & 1)) * 16;
+          ldsm_x4(qb2[0][ks][0], qb2[0][ks][1], qb2[1][ks][0], qb2[1][ks][1],
+                  a);
+        }
+      }
+      if constexpr (kCK8) {
+        ldsm_x2(gb2[0][0][0], gb2[1][0][0], gs);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < CS; ++ks) {
+          const char* a = st + S::kG +
+                          (16 * qc + 8 * (lane >> 4) + (lane & 7)) * S::kCRow +
+                          (2 * ks + ((lane >> 3) & 1)) * 16;
+          ldsm_x4(gb2[0][ks][0], gb2[0][ks][1], gb2[1][ks][0], gb2[1][ks][1],
+                  a);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) ldsm_x2_t(gt[j][0], gt[j][1], gs + 16 * j);
+#pragma unroll
+      for (int j = 0; j < DT; ++j) ldsm_x2_t(qt[j][0], qt[j][1], qs + 16 * j);
+      float2 lq[2][2];
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) lq[grp][e] = lds[16 * qc + 8 * grp + 2 * t + e];
+
+      float dq[DT][4];
+#pragma unroll
+      for (int j = 0; j < DT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        // A fragments of K and V (keys as rows), B fragments of K (keys
+        // as k, for dQ)
+        const char* kr = kst + kt * 16 * S::kDRow;
+        const char* vr = vst + kt * 16 * S::kCRow;
+        uint32_t ka[DS][4], va[CS][4], kbq[DT][2];
+        if constexpr (kDK8) {
+          ldsm_x2(ka[0][0], ka[0][1], kr);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < DS; ++ks)
+            ldsm_x4(ka[ks][0], ka[ks][1], ka[ks][2], ka[ks][3],
+                    kr + (2 * ks + (lane >> 4)) * 16);
+        }
+        if constexpr (kCK8) {
+          ldsm_x2(va[0][0], va[0][1], vr);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < CS; ++ks)
+            ldsm_x4(va[ks][0], va[ks][1], va[ks][2], va[ks][3],
+                    vr + (2 * ks + (lane >> 4)) * 16);
+        }
+#pragma unroll
+        for (int j = 0; j < DT; ++j) ldsm_x2_t(kbq[j][0], kbq[j][1], kr + 16 * j);
+
+        // S^T and dP^T: keys g, g + 8 (rows) by queries 2t, 2t + 1 of
+        // each n8 group
+        float sT[2][4], dpT[2][4];
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sT[grp][e] = dpT[grp][e] = 0.f;
+          if constexpr (kDK8) {
+            mma_bf16_k8(sT[grp], ka[0][0], ka[0][1], qb2[grp][0][0]);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < DS; ++ks)
+              mma_bf16(sT[grp], ka[ks][0], ka[ks][1], ka[ks][2], ka[ks][3],
+                       qb2[grp][ks][0], qb2[grp][ks][1]);
+          }
+          if constexpr (kCK8) {
+            mma_bf16_k8(dpT[grp], va[0][0], va[0][1], gb2[grp][0][0]);
+          } else {
+#pragma unroll
+            for (int ks = 0; ks < CS; ++ks)
+              mma_bf16(dpT[grp], va[ks][0], va[ks][1], va[ks][2], va[ks][3],
+                       gb2[grp][ks][0], gb2[grp][ks][1]);
+          }
+        }
+        // p = exp(s - lse) and dl = p (dp - delta), in place
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = lq[grp][e & 1];
+            sT[grp][e] = ex2(fmaf(sT[grp][e], kLog2e, x.x));
+            dpT[grp][e] = sT[grp][e] * (dpT[grp][e] - x.y);
+          }
+        }
+        // P^T and dS^T in bf16 as A fragments (keys by 16 queries);
+        // blocks (keys 0-7 | 8-15, queries 0-7 | 8-15)
+        const uint32_t p00 = pack_bf16(sT[0][0], sT[0][1]);
+        const uint32_t p10 = pack_bf16(sT[0][2], sT[0][3]);
+        const uint32_t p01 = pack_bf16(sT[1][0], sT[1][1]);
+        const uint32_t p11 = pack_bf16(sT[1][2], sT[1][3]);
+        const uint32_t d00 = pack_bf16(dpT[0][0], dpT[0][1]);
+        const uint32_t d10 = pack_bf16(dpT[0][2], dpT[0][3]);
+        const uint32_t d01 = pack_bf16(dpT[1][0], dpT[1][1]);
+        const uint32_t d11 = pack_bf16(dpT[1][2], dpT[1][3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_bf16(dva[kt][j], p00, p10, p01, p11, gt[j][0], gt[j][1]);
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+          mma_bf16(dka[kt][j], d00, d10, d01, d11, qt[j][0], qt[j][1]);
+        // dS (queries by keys) from dS^T's four blocks transposed
+        const uint32_t s00 = movmatrix_t(d00), s01 = movmatrix_t(d01);
+        const uint32_t s10 = movmatrix_t(d10), s11 = movmatrix_t(d11);
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+          mma_bf16(dq[j], s00, s01, s10, s11, kbq[j][0], kbq[j][1]);
+      }
+
+      // this warp's dq of the 16 queries: rows g, g + 8, dims 8j + 2t, + 1
+      float* rw = red + (warp * kBwdQTile + 16 * qc) * D;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int dim = 8 * j + 2 * t;
+        if (dim < D) {
+          rw[gq * D + dim] = dq[j][0];
+          rw[gq * D + dim + 1] = dq[j][1];
+          rw[(gq + 8) * D + dim] = dq[j][2];
+          rw[(gq + 8) * D + dim + 1] = dq[j][3];
+        }
+      }
+    }
+
+    __syncthreads();  // every warp's dq sums are in red
+    const int r0 = it * kBwdQTile;
+    float* out = dq_part + ((size_t)(b * gridDim.x + blockIdx.x) * n + r0) * D;
+    const int valid = min(kBwdQTile, n - r0) * D;
+    for (int e = threadIdx.x; e < valid; e += kBwdThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) sum += red[w * kBwdQTile * D + e];
+      out[e] = sum;
+    }
+  }
+
+  // dK and dV of the warp's keys: rows g, g + 8 of each key tile
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + (warp * KT + kt) * 16 + gq + 8 * r;
+      if (key >= m) continue;
+      uint32_t* dkw = reinterpret_cast<uint32_t*>(dk) + ((size_t)b * m + key) * (D / 2);
+      uint32_t* dvw = reinterpret_cast<uint32_t*>(dv) + ((size_t)b * m + key) * (C / 2);
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        if (8 * j + 2 * t < D)
+          dkw[4 * j + t] = pack_bf16(dka[kt][j][2 * r], dka[kt][j][2 * r + 1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        dvw[4 * j + t] = pack_bf16(dva[kt][j][2 * r], dva[kt][j][2 * r + 1]);
+    }
+  }
+}
+
+// query rows of the (-lse log2e, delta) scratch: n padded to the tile
+int delta_rows(int n) { return (n + kBwdQTile - 1) / kBwdQTile * kBwdQTile; }
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int b, int n, int m, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  constexpr int rows = 16 * kRowTiles * kFwdWarps;
+  constexpr int bytes = FwdSmem<D, C>::kBytes;
+  auto kernel = attention_flash_fwd_mma_kernel<D, C>;
+  static const cudaError_t allowed = allow_smem(kernel, bytes);
+  if (allowed != cudaSuccess) return allowed;
+  kernel<<<dim3((n + rows - 1) / rows, b), kFwdThreads, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, m);
+  return cudaGetLastError();
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *g, *o;
+  const float* lse;
+  void *dk, *dv;
+  float* dq_part;
+  float2* ld;
+  int b, n, m;
+};
+
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  using S = BwdSmem<D, C>;
+  const int npad = delta_rows(a.n);
+  attention_flash_delta_kernel<C>
+      <<<dim3((npad + kDeltaThreads - 1) / kDeltaThreads, a.b),
+         kDeltaThreads, 0, st>>>(static_cast<const bf16*>(a.g),
+                                 static_cast<const bf16*>(a.o), a.lse, a.ld,
+                                 a.n, npad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = attention_flash_dqkv_mma_kernel<D, C>;
+  static const cudaError_t allowed = allow_smem(kernel, S::kBytes);
+  if (allowed != cudaSuccess) return allowed;
+  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), kBwdThreads, S::kBytes,
+           st>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                 static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+                 a.ld, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+                 a.dq_part, a.n, a.m, npad);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Each launches on `stream` and returns cudaGetLastError() (0 on
+// success). Operands are bf16 only (`is_bf16` must be 1); lse is fp32;
+// `c` must be SAGAN_ATTN_C. The caller checks shapes, contiguity and the
+// supported D before calling.
+
+// K3: o [B, N, C] and lse, fp32 [B, N] (the caller's [B, N, 1]).
+extern "C" int sagan_attention_flash_fwd_mma(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int b, int n, int m,
+                                             int d, int c, int is_bf16,
+                                             void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16 || lse == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (d) {
+    case 2: return launch_fwd<2>(q, k, v, o, l, b, n, m, st);
+    case 4: return launch_fwd<4>(q, k, v, o, l, b, n, m, st);
+    case 8: return launch_fwd<8>(q, k, v, o, l, b, n, m, st);
+    case 16: return launch_fwd<16>(q, k, v, o, l, b, n, m, st);
+    case 32: return launch_fwd<32>(q, k, v, o, l, b, n, m, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K6: dk, dv and the dq partials, fp32 [B, NKB, N, D] with NKB =
+// ceil(M / sagan_attention_flash_mma_keys_per_block(d)), every element
+// written; `ld` is fp32 scratch of [B, sagan_attention_flash_mma_delta_rows
+// (N), 2] for the (-lse log2e, delta) pairs.
+extern "C" int sagan_attention_flash_dqkv_mma(
+    const void* q, const void* k, const void* v, const void* g,
+    const void* o, const void* lse, void* dk, void* dv, void* dq_part,
+    void* ld, int b, int n, int m, int d, int c, int is_bf16, void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  const BwdArgs a{q, k, v, g, o, static_cast<const float*>(lse), dk, dv,
+                  static_cast<float*>(dq_part), static_cast<float2*>(ld), b,
+                  n, m};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 2: return launch_bwd<2>(a, st);
+    case 4: return launch_bwd<4>(a, st);
+    case 8: return launch_bwd<8>(a, st);
+    case 16: return launch_bwd<16>(a, st);
+    case 32: return launch_bwd<32>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Keys per block of K6 at head width d (0 for an unsupported d).
+extern "C" int sagan_attention_flash_mma_keys_per_block(int d) {
+  constexpr int C = SAGAN_ATTN_C;
+  switch (d) {
+    case 2: return bwd_keys_per_block<2, C>();
+    case 4: return bwd_keys_per_block<4, C>();
+    case 8: return bwd_keys_per_block<8, C>();
+    case 16: return bwd_keys_per_block<16, C>();
+    case 32: return bwd_keys_per_block<32, C>();
+  }
+  return 0;
+}
+
+// Rows of K6's (-lse log2e, delta) scratch for n query rows.
+extern "C" int sagan_attention_flash_mma_delta_rows(int n) {
+  return delta_rows(n);
+}

@@ -59,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"  // mma_bf16, pack/unpack_bf16, quad_max/sum
+
 namespace {
 
 constexpr int D = 2;  // query/key width of every study shape
@@ -256,39 +258,6 @@ constexpr int kGroups = kMmaTile / 8;     // n8 key groups a tile
 // 32-bit words a row of the staged V^T: keys 2j and 2j+1 of channel c in
 // word j; 4 words of padding put the 8 channels' rows in distinct banks
 constexpr int kVtWords = kMmaTile / 2 + 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-// D += A B for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16 (col),
-// D 16x8 fp32, in the PTX ISA's fragment layouts
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// two floats as bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
-  return __bfloat1622float2(h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
 
 template <int kMath, bool kFmaScores>
 __global__ void __launch_bounds__(32 * kMmaWarps)

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``sagan_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
-compiled, at first use, into ``build/kernels/lib<name>[_<define>]-<hash>.so``
-at the root of the checkout, once for each set of ``-D`` defines asked
-for; the hash covers the source and the flags, so an edit never loads a
-stale library.  Nothing here runs when the module is imported: a machine
+Each ``sagan_tpu_torch/csrc/<name>.cu`` exposes a plain C interface (the
+``.cuh`` headers beside them hold shared device code) and is compiled,
+at first use, into ``build/kernels/lib<name>[_<define>]-<hash>.so`` at
+the root of the checkout, once for each set of ``-D`` defines asked for;
+the hash covers the source, the headers and the flags, so an edit never
+loads a stale library.  Nothing here runs when the module is imported: a machine
 without ``nvcc`` (the CPU tests) imports it freely.
 """
 
@@ -43,8 +44,11 @@ def nvcc() -> str:
 
 def library_path(name: str, defines: tuple = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to with ``defines`` (``-DX=1``
-    flags), named by a hash of its source and all the compiler flags."""
+    flags), named by a hash of its source, the shared headers
+    (``csrc/*.cuh``) and all the compiler flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     tag = "".join(f"_{d.split('=')[-1]}" for d in defines)
     return BUILD_DIR / f"lib{name}{tag}-{digest.hexdigest()[:16]}.so"

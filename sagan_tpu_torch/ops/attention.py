@@ -24,8 +24,8 @@ a library may round apart, and the order of the backward's fp32 dK and
 dV sums.  The flash versions also sum over keys one ``PLAIN_KEY_BLOCK``
 at a time, as the JAX flash kernels do.
 
-:func:`attention` routes per call, as the JAX package's dispatch does
-(:func:`single_pass`, :func:`flash_bwd_fused`): through
+:func:`attention` routes per call (:func:`single_pass`, as the JAX
+package's dispatch; :func:`flash_bwd_fused`, the port's own rule): through
 :class:`sagan_tpu_torch.ops.cuda_attention.FusedAttention` (K1/K2) where
 the single-pass kernels take the shape, else through
 :class:`~sagan_tpu_torch.ops.cuda_attention.FlashAttention` (K3, and K6
@@ -166,28 +166,34 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-# -- routing: the port's own copy of the JAX package's dispatch ------------
+# -- routing -----------------------------------------------------------------
 #
-# The port takes the same algorithm at the same shape as the JAX package
-# (sagan_tpu/ops/pallas_attention.py), so the two stay comparable one to
-# one.  The JAX rules budget a TPU core's VMEM at 128-lane padded widths;
-# they are copied here as shape arithmetic and decide only the route,
-# not the CUDA kernels' tiling.  They describe a TPU, not the CUDA kernels
-# (at B=8 they send the 512 map to K4 + K5, slower than K6 on the card):
-# a rule from the port's own kernel times and buffer sizes is to replace
-# them (ROADMAP, Open questions).
+# single_pass is the port's copy of the JAX package's rule
+# (sagan_tpu/ops/pallas_attention.py), as shape arithmetic: it budgets a
+# TPU core's VMEM at 128-lane padded widths and decides only the route,
+# not the CUDA kernels' tiling, so that the two packages take the same
+# algorithm at the same shape.  The fused backward's rule is the port's
+# own (flash_bwd_fused): the JAX one sized TPU VMEM blocks.
 
 VMEM_BUDGET = 12 * 1024 * 1024              # pallas_attention.py:81
-BWD_FUSED_VMEM_BUDGET = 15 * 1024 * 1024    # :618
-DQ_SLAB_LIMIT = 1024 * 1024 * 1024          # :623
+# bytes of K6's fp32 dq partials a backward may write: a memory cap on
+# the call's scratch, not a speed rule (in bf16 K6 is 7.2x faster than
+# K4 + K5 at church512's map, B = 4, NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md §6).  At 768 MiB the port takes K6 wherever the JAX package takes its
+# fused backward at a model shape with B <= 4 (church512's 512 map at
+# B = 4: 537 MB) and K4 + K5 where it does not (the 512 map without
+# attn_downsample at B = 2: 1.07 GB), and church512 at B = 8 (1.07 GB)
+# takes K4 + K5
+DQ_SLAB_BUDGET = 768 * 1024 * 1024
+# warps a block of the bf16 K6 (csrc/attention_flash_mma.cu kBwdWarps)
+# and threads a block of the fp32 K6 (csrc/attention_flash_bwd.cu
+# kThreads)
+MMA_BWD_WARPS = 8
+FMA_BWD_THREADS = 256
 
 
 def _lanes(dim: int) -> int:
     return -(-dim // 128) * 128
-
-
-def _sublanes(dim: int) -> int:
-    return -(-dim // 8) * 8
 
 
 def single_pass(m: int, d: int, c: int) -> bool:
@@ -202,29 +208,32 @@ def single_pass(m: int, d: int, c: int) -> bool:
             <= VMEM_BUDGET)
 
 
-def _fused_vmem_bytes(bn: int, bm: int, d: int, c: int, itemsize: int):
-    """``_flash_bwd_fused_vmem_bytes`` (:626-643)."""
-    dc = _lanes(d) + _lanes(c)
-    return (bn * _lanes(bm) * (8 + itemsize) + bm * dc * (itemsize + 4)
-            + bn * (_lanes(d) + 2 * _lanes(c)) * itemsize + bn * 128 * 4
-            + _sublanes(d) * _lanes(bn) * 4)
+def fused_keys_per_block(d: int, c: int, itemsize: int) -> int:
+    """Keys a block of K6 owns, for each of which it writes one fp32 dq
+    partial [N, d].  bf16 (``attention_flash_mma.cu``): 8 warps of KT
+    16-key tiles, KT as many (8, 4, 2 or 1) as keep a lane's dK and dV
+    accumulators, 4 floats an n8 tile of d and of c, within 64 registers.
+    fp32 (``attention_flash_bwd.cu``): 256 threads of 4, 2 or 1 keys by
+    d + c."""
+    if itemsize == 2:
+        acc = 4 * (-(-d // 8) + c // 8)
+        tiles = 8 if acc <= 8 else 4 if acc <= 16 else 2 if acc <= 32 else 1
+        return MMA_BWD_WARPS * 16 * tiles
+    return FMA_BWD_THREADS * (4 if d + c <= 10 else 2 if d + c <= 20 else 1)
+
+
+def dq_slab_bytes(b: int, n: int, m: int, d: int, c: int,
+                  itemsize: int) -> int:
+    """Bytes of K6's fp32 dq partials, [B, ceil(M / key block), N, d]."""
+    return b * -(-m // fused_keys_per_block(d, c, itemsize)) * n * d * 4
 
 
 def flash_bwd_fused(b: int, n: int, m: int, d: int, c: int,
                     itemsize: int) -> bool:
-    """True where the JAX flash backward takes the fused one-pass kernel
-    (``_flash_bwd_dispatch``, :741-753): ``_pick_flash_blocks_bwd_fused``
-    (:646-662) finds a (query, key) block pair, and the dq partial slab
-    [B, M / key block, ceil8(d), N] fp32 at its key block stays within
-    ``DQ_SLAB_LIMIT``; else the two-kernel backward (K4 + K5)."""
-    for bm in (2048, 1024):
-        if m % bm or m <= bm:
-            continue
-        for bn in (512, 256, 128):
-            if n % bn == 0 and _fused_vmem_bytes(bn, bm, d, c, itemsize) \
-                    <= BWD_FUSED_VMEM_BUDGET:
-                return b * (m // bm) * _sublanes(d) * n * 4 <= DQ_SLAB_LIMIT
-    return False
+    """True where the flash backward takes the fused one-pass kernel K6:
+    its dq partials stay within ``DQ_SLAB_BUDGET``; else the two-kernel
+    backward K4 + K5, which needs no scratch."""
+    return dq_slab_bytes(b, n, m, d, c, itemsize) <= DQ_SLAB_BUDGET
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,18 +6,29 @@ Functions:
   ``sagan_tpu/ops/pallas_attention.py::_fwd_kernel`` (K1);
 * :func:`attention_bwd_fused`, its backward (``csrc/attention_bwd.cu``),
   the port of ``_bwd_kernel`` (K2);
-* :func:`attention_flash_fwd`, the flash forward with the row log-sum-exp
-  (``csrc/attention_fwd.cu``), the port of ``_flash_fwd_kernel`` (K3);
+* :func:`attention_flash_fwd`, the flash forward with the row log-sum-exp,
+  the port of ``_flash_fwd_kernel`` (K3);
 * :func:`attention_flash_dq`, :func:`attention_flash_dkv` and
   :func:`attention_flash_dqkv`, the flash backward from the stored
   (o, lse) (``csrc/attention_flash_bwd.cu``), the ports of
   ``_flash_dq_kernel`` (K4), ``_flash_dkv_kernel`` (K5) and the fused
   ``_flash_dqkv_kernel`` (K6);
 * :class:`FusedAttention` (K1 forward, K2 backward) and
-  :class:`FlashAttention` (K3 forward; K6, or K4 + K5, backward by the
-  JAX package's rule, :func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`),
-  the ``torch.autograd.Function`` pairs, as the JAX package's
-  ``custom_vjp`` pairs them.
+  :class:`FlashAttention` (K3 forward; K6, or K4 + K5, backward by
+  :func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`), the
+  ``torch.autograd.Function`` pairs, as the JAX package's ``custom_vjp``
+  pairs them.
+
+K3 and K6 have two engines.  ``mma`` (``csrc/attention_flash_mma.cu``)
+runs both contractions of every (query, key) pair on the tensor cores and
+takes bf16 only; ``fma`` (K3 in ``csrc/attention_fwd.cu``, K6 in
+``csrc/attention_flash_bwd.cu``) runs them as fp32 FMAs on the CUDA cores
+and takes bf16 and fp32.  The dtype picks the engine: bf16 tensors take
+``mma``, fp32 tensors ``fma`` (the tensor cores would take fp32 only as
+TF32, which misses the fp32 limit of 1e-4).  That is a dtype rule, not a
+fallback: a failed build or launch raises.  ``engine="fma"`` names the
+CUDA-core kernels for bf16 too, which the studies and ``chip_smoke.py``
+time beside the tensor-core ones; the model's path never passes it.
 
 Each wrapper launches its kernel for tensors on the card and raises on
 anything the kernel does not take; it runs the plain version
@@ -26,15 +37,19 @@ There is no fallback from a failed build or launch.
 
 ``LAUNCHES``, ``BWD_LAUNCHES``, ``FLASH_FWD_LAUNCHES``,
 ``FLASH_DQ_LAUNCHES``, ``FLASH_DKV_LAUNCHES`` and ``FLASH_DQKV_LAUNCHES``
-count the kernels' launches, so a run can show that its attention went
-through them.
+count the kernels' launches (K3 and K6 on the ``fma`` engine), and
+``FLASH_FWD_MMA_LAUNCHES`` and ``FLASH_DQKV_MMA_LAUNCHES`` those of the
+``mma`` K3 and K6, so a run can show that its attention went through
+them.
 
 The wrappers of K1 and K3-K6 take ``tiles``, ``-D`` defines that build
 their library at other tiles (``csrc/attention_fwd.cu``'s
 ``SAGAN_FWD_ROWS``, ``SAGAN_FWD_TILE``; ``csrc/attention_flash_bwd.cu``'s
 ``SAGAN_BWD_ROWS``, ``SAGAN_BWD_KEY_TILE``, ``SAGAN_BWD_THREADS``,
-``SAGAN_BWD_KPT``), for the tile studies; the default ``()`` is the
-shipped library, which the model's path runs.
+``SAGAN_BWD_KPT``; with ``engine="mma"``, ``csrc/attention_flash_mma.cu``'s
+``SAGAN_MMA_*``, each of which flips one of K3's design choices), for the
+studies; the default ``()`` is the shipped library.  Tile defines without
+an engine name the ``fma`` kernels.
 """
 
 from __future__ import annotations
@@ -48,11 +63,13 @@ from torch.autograd.function import once_differentiable
 from . import _build
 from .attention import (attention_bwd_reference, attention_flash_bwd_reference,
                         attention_flash_reference, attention_reference,
-                        flash_bwd_fused, plain_chunk)
+                        flash_bwd_fused, fused_keys_per_block, plain_chunk)
 
 SOURCE = "attention_fwd"
 BWD_SOURCE = "attention_bwd"
 FLASH_BWD_SOURCE = "attention_flash_bwd"
+MMA_SOURCE = "attention_flash_mma"
+ENGINES = ("mma", "fma")
 SUPPORTED_D = (2, 4, 8, 16, 32)
 SUPPORTED_C = (8, 16, 32, 64, 128)
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,6 +83,8 @@ _ENTRIES = {
     "sagan_attention_flash_dq": (FLASH_BWD_SOURCE, 7),    # q k v g o lse dq
     "sagan_attention_flash_dkv": (FLASH_BWD_SOURCE, 8),   # ... lse dk dv
     "sagan_attention_flash_dqkv": (FLASH_BWD_SOURCE, 9),  # ... dk dv part
+    "sagan_attention_flash_fwd_mma": (MMA_SOURCE, 5),     # q k v o lse
+    "sagan_attention_flash_dqkv_mma": (MMA_SOURCE, 10),   # ... part ld
 }
 
 LAUNCHES = 0
@@ -74,10 +93,12 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_DQ_LAUNCHES = 0
 FLASH_DKV_LAUNCHES = 0
 FLASH_DQKV_LAUNCHES = 0
+FLASH_FWD_MMA_LAUNCHES = 0
+FLASH_DQKV_MMA_LAUNCHES = 0
 
 
 def build_specs(widths=SUPPORTED_C,
-                sources=(SOURCE, BWD_SOURCE, FLASH_BWD_SOURCE),
+                sources=(SOURCE, BWD_SOURCE, FLASH_BWD_SOURCE, MMA_SOURCE),
                 tiles: tuple = ()) -> list:
     """``_build.build`` specs of the kernels: one library per source and
     value width (and tile defines ``tiles``)."""
@@ -98,22 +119,65 @@ def _entry(name: str, c: int, tiles: tuple = ()):
     return fn
 
 
-@functools.cache
-def keys_per_block(d: int, c: int, tiles: tuple = ()) -> int:
-    """Keys each block of K5 and K6 (built with ``tiles``) owns at widths
-    (d, c): K6 writes one fp32 dq partial [N, d] per block of them."""
-    lib = _build.load(*build_specs((c,), (FLASH_BWD_SOURCE,), tiles)[0])
-    fn = lib.sagan_attention_flash_keys_per_block
+def _int_fn(source: str, name: str, c: int, tiles: tuple = ()):
+    fn = getattr(_build.load(*build_specs((c,), (source,), tiles)[0]), name)
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn(d)
+    return fn
+
+
+@functools.cache
+def keys_per_block(d: int, c: int, tiles: tuple = (),
+                   engine: str = "mma") -> int:
+    """Keys each block of K6 on ``engine`` (and of K5; the ``fma`` ones
+    built with ``tiles``) owns at widths (d, c), as its shipped library
+    reports it: K6 writes one fp32 dq partial [N, d] per block of them."""
+    if engine == "mma":
+        return _int_fn(MMA_SOURCE, "sagan_attention_flash_mma_keys_per_block",
+                       c)(d)
+    return _int_fn(FLASH_BWD_SOURCE, "sagan_attention_flash_keys_per_block",
+                   c, tiles)(d)
 
 
 def dq_partial_shape(b: int, n: int, m: int, d: int, c: int,
-                     tiles: tuple = ()) -> tuple:
-    """Shape of K6's fp32 dq partials: [B, ceil(M / keys_per_block), N, d]
-    (4 bytes an element)."""
-    return b, -(-m // keys_per_block(d, c, tiles)), n, d
+                     tiles: tuple = (), engine: str = "mma") -> tuple:
+    """Shape of the fp32 dq partials of K6 on ``engine``:
+    [B, ceil(M / key block), N, d] (4 bytes an element).  The key block
+    is :func:`~sagan_tpu_torch.ops.attention.fused_keys_per_block`'s,
+    which the route rule sizes the slab by, except for the ``fma`` K6 at
+    other ``tiles``, whose library reports its own (the ``mma`` defines
+    leave K6 as it is)."""
+    if tiles and engine == "fma":
+        kb = keys_per_block(d, c, tiles, engine)
+    else:
+        kb = fused_keys_per_block(d, c, 2 if engine == "mma" else 4)
+    return b, -(-m // kb), n, d
+
+
+def _engine(q: torch.Tensor, engine: str | None, tiles: tuple) -> str:
+    """The engine of a K3 or K6 call on CUDA tensors: ``engine`` as named,
+    else ``mma`` for bf16 without tile defines and ``fma`` otherwise;
+    raises for ``mma`` on fp32."""
+    if engine is None:
+        engine = "mma" if q.dtype == torch.bfloat16 and not tiles else "fma"
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
+    if engine == "mma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the mma engine runs on the tensor cores in bf16, "
+                        f"got {q.dtype}")
+    return engine
+
+
+def _refuse_engine_off_card(engine: str | None) -> None:
+    if engine is not None:
+        raise ValueError(f"engine={engine!r} names a CUDA kernel; CPU tensors "
+                         f"run the plain version")
+
+
+def _check_mma_alignment(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the mma kernels copy rows in 16-byte chunks: the "
+                         "tensors' storage must be 16-byte aligned")
 
 
 def _launch(name: str, tensors, q: torch.Tensor, c: int,
@@ -222,19 +286,28 @@ def attention_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        tiles: tuple = ()):
+                        tiles: tuple = (), engine: str | None = None):
     """(o, lse): softmax(q kᵀ) v in q.dtype and the row log-sum-exp of the
-    unscaled logits, fp32 [B, N, 1], as the flash backward takes them."""
-    global FLASH_FWD_LAUNCHES
+    unscaled logits, fp32 [B, N, 1], as the flash backward takes them; on
+    ``engine`` (by default ``mma`` for bf16, ``fma`` for fp32)."""
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_MMA_LAUNCHES
     if _on_cpu(q, k, v):
+        _refuse_engine_off_card(engine)
         return attention_flash_reference(q, k, v, _cpu_chunk(q, k))
     _check(q, k, v)
+    engine = _engine(q, engine, tuple(tiles))
     b, n, _ = q.shape
     c = v.shape[2]
     o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, 1), dtype=torch.float32, device=q.device)
-    _launch("sagan_attention_flash_fwd", (q, k, v, o, lse), q, c, tiles)
-    FLASH_FWD_LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v)
+        _launch("sagan_attention_flash_fwd_mma", (q, k, v, o, lse), q, c,
+                tiles)
+        FLASH_FWD_MMA_LAUNCHES += 1
+    else:
+        _launch("sagan_attention_flash_fwd", (q, k, v, o, lse), q, c, tiles)
+        FLASH_FWD_LAUNCHES += 1
     return o, lse
 
 
@@ -269,33 +342,54 @@ def attention_flash_dkv(q, k, v, o, lse, g, tiles: tuple = ()):
     return dk, dv
 
 
-def attention_flash_dqkv(q, k, v, o, lse, g, tiles: tuple = ()):
-    """(dq, dk, dv) from one score recompute (K6): dk and dv as in
-    :func:`attention_flash_dkv`, dq the sum of the kernel's fp32
-    per-key-block partials, cast to q's dtype."""
+def attention_flash_dqkv(q, k, v, o, lse, g, tiles: tuple = (),
+                         engine: str | None = None):
+    """(dq, dk, dv) from one score recompute (K6, on ``engine``, by default
+    ``mma`` for bf16 and ``fma`` for fp32): dk and dv fp32 sums cast to
+    k's and v's dtypes, dq the sum of the kernel's fp32 per-key-block
+    partials in key-block order, cast to q's dtype."""
     if _on_cpu(q, k, v, o, lse, g):
+        _refuse_engine_off_card(engine)
         return attention_flash_bwd_reference(q, k, v, o, lse, g,
                                              _cpu_chunk(q, k))
-    part, dk, dv = attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles)
+    part, dk, dv = attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles,
+                                                 engine)
     # the partials are summed outside the kernel, as the JAX package sums
     # its slab outside its kernel (pallas_attention.py:737)
     return part.sum(dim=1).to(q.dtype), dk, dv
 
 
-def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = ()):
+@functools.cache
+def _delta_rows(n: int, c: int) -> int:
+    return _int_fn(MMA_SOURCE, "sagan_attention_flash_mma_delta_rows", c)(n)
+
+
+def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = (),
+                                  engine: str | None = None):
     """K6's launch alone, on CUDA tensors: (the fp32 dq partials
-    [B, NKB, N, d], dk, dv)."""
-    global FLASH_DQKV_LAUNCHES
+    [B, NKB, N, d], dk, dv).  The ``mma`` K6 first writes, in a kernel of
+    its own, each query row's (-lse log2e, delta) to fp32 scratch; the
+    pair counts as one launch."""
+    global FLASH_DQKV_LAUNCHES, FLASH_DQKV_MMA_LAUNCHES
     _check(q, k, v, g, o, lse)
+    engine = _engine(q, engine, tuple(tiles))
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    part = torch.empty(dq_partial_shape(b, n, m, d, c, tuple(tiles)),
+    part = torch.empty(dq_partial_shape(b, n, m, d, c, tuple(tiles), engine),
                        dtype=torch.float32, device=q.device)
-    _launch("sagan_attention_flash_dqkv", (q, k, v, g, o, lse, dk, dv, part),
-            q, c, tiles)
-    FLASH_DQKV_LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v, g, o)
+        ld = torch.empty((b, _delta_rows(n, c), 2), dtype=torch.float32,
+                         device=q.device)
+        _launch("sagan_attention_flash_dqkv_mma",
+                (q, k, v, g, o, lse, dk, dv, part, ld), q, c)
+        FLASH_DQKV_MMA_LAUNCHES += 1
+    else:
+        _launch("sagan_attention_flash_dqkv",
+                (q, k, v, g, o, lse, dk, dv, part), q, c, tiles)
+        FLASH_DQKV_LAUNCHES += 1
     return part, dk, dv
 
 
@@ -324,9 +418,10 @@ class FlashAttention(torch.autograd.Function):
     """softmax(q kᵀ) v on the flash path: forward
     :func:`attention_flash_fwd`, which keeps (q, k, v, o, lse) only when a
     gradient is needed (``_attention_flash_fwd``); backward
-    :func:`attention_flash_dqkv` where the JAX package takes its fused
-    backward, else :func:`attention_flash_dq` and
-    :func:`attention_flash_dkv` (``_flash_bwd_dispatch``)."""
+    :func:`attention_flash_dqkv` where its dq partials fit
+    (:func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`), else
+    :func:`attention_flash_dq` and :func:`attention_flash_dkv`.  Each on
+    its dtype's engine."""
 
     @staticmethod
     def forward(ctx, q, k, v):

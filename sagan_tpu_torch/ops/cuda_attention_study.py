@@ -50,6 +50,17 @@ FWD_POINTS = ((64, 32), (128, 32), (32, 32), (64, 16), (64, 64))
 # the shipped point
 BWD_POINTS = ((64, 32, 256, 4), (128, 32, 128, 4), (32, 32, 512, 2),
               (64, 64, 256, 1))
+# the tensor-core K3 (csrc/attention_flash_mma.cu) with one design choice
+# flipped a point, each its own library; the first is the shipped kernel
+MMA_DEFINES = {
+    ("shipped",): (),
+    ("ring_staging",): ("-DSAGAN_MMA_STAGES=3",),
+    ("two_row_tiles",): ("-DSAGAN_MMA_ROW_TILES=2",),
+    ("mask_every_tile",): ("-DSAGAN_MMA_MASK_ALL=1",),
+    ("expf",): ("-DSAGAN_MMA_EXPF=1",),
+    ("vote_skip",): ("-DSAGAN_MMA_VOTE=1",),
+}
+MMA_POINTS = tuple(MMA_DEFINES)
 
 
 def fwd_tiles(point) -> tuple:
@@ -74,13 +85,17 @@ def bwd_tiles(point) -> tuple:
 def build_specs() -> list:
     """``_build.build`` specs of every library the studies load: S1 at
     every forward tile point (its fma engine takes K1's tile defines), S2,
-    and K1/K3 and K4-K6 at value width 8 at every tile point."""
+    K1/K3 and K4-K6 at value width 8 at every tile point, and the
+    tensor-core K3/K6 at every ``MMA_POINTS`` point."""
     specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
     specs.append((FOLDED_SOURCE, ()))
     for p in FWD_POINTS:
         specs += attention_specs((C,), ("attention_fwd",), fwd_tiles(p))
     for p in BWD_POINTS:
         specs += attention_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
+    for p in MMA_POINTS:
+        specs += attention_specs((C,), ("attention_flash_mma",),
+                                 MMA_DEFINES[p])
     return specs
 
 

@@ -25,9 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..ops.attention import attention_flash_reference
 from ..ops.attention_study import study_attention_reference
 from ..ops.cuda_attention import attention_flash_fwd
-from ..ops.cuda_attention_study import FWD_POINTS, attention_study, fwd_tiles
+from ..ops.cuda_attention_study import (FWD_POINTS, MMA_DEFINES, MMA_POINTS,
+                                        attention_study, fwd_tiles)
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
 from ..utils.timing import cuda_time_ms
@@ -176,6 +178,10 @@ class Study:
         args = ap.parse_args(argv)
         self.device = resolve_device(args.device)
         self.on_card = self.device.type == "cuda"
+        # the engine argument of K3 and K6: named on the card only (CPU
+        # tensors run the plain versions and refuse an engine)
+        self.fma = "fma" if self.on_card else None
+        self.mma = "mma" if self.on_card else None
         if not self.on_card and not args.tiny:
             raise ValueError(f"{name} runs on the CPU only with --tiny (the "
                              f"wiring test); its shapes need a card")
@@ -284,16 +290,31 @@ def floors(st: Study, q, k, v, best: tuple) -> None:
 
 
 def k3_sweep(st: Study, q, k, v) -> tuple:
-    """The ``k3_tiles`` sweep: K3 at each forward tile point, each held
-    against the plain forward whose arithmetic it has (fp32 P: the study's
-    ``fma``); returns the fastest point."""
+    """The ``k3_tiles`` sweep: K3 on the CUDA cores (its first design,
+    ``engine="fma"``) at each forward tile point, each held against the
+    plain forward whose arithmetic it has (fp32 P: the study's ``fma``);
+    returns the fastest point."""
     def point(p):
         tiles = fwd_tiles(p)
-        o = attention_flash_fwd(q, k, v, tiles)[0]
-        return attention_flash_fwd, (q, k, v, tiles), held_variant(
+        o = attention_flash_fwd(q, k, v, tiles, st.fma)[0]
+        return attention_flash_fwd, (q, k, v, tiles, st.fma), held_variant(
             o, q, k, v, "fma")
 
     return st.sweep("k3_tiles", FWD_POINTS, point)
+
+
+def k3_mma_sweep(st: Study, q, k, v) -> tuple:
+    """The ``k3_mma`` sweep: the shipped tensor-core K3, then K3 with one
+    design choice flipped a point (``MMA_POINTS``), each held against the
+    plain flash forward; returns the fastest point."""
+    def point(p):
+        tiles = MMA_DEFINES[p]
+        o = attention_flash_fwd(q, k, v, tiles, st.mma)[0]
+        return attention_flash_fwd, (q, k, v, tiles, st.mma), held(
+            o, lambda q, k, v: attention_flash_reference(q, k, v)[0], (q,),
+            (k, v))
+
+    return st.sweep("k3_mma", MMA_POINTS, point)
 
 
 def step_segments(study: Study, config: dict, steps: int) -> dict:

@@ -7,14 +7,20 @@ The port of the JAX package's TPU study ``tools/bench_attn_bwd256.py``
 (T4). The TPU's (BN, BM) grid blocks have no meaning on the card: the
 points here are the kernels' own tiles (``BWD_POINTS``: K4's query rows a
 block and keys a tile, K5's and K6's threads a block and keys a thread),
-each built into its own library of ``csrc/attention_flash_bwd.cu``.
-Sections, all on the shipped K3's (o, lse):
+each built into its own library of ``csrc/attention_flash_bwd.cu``, the
+first, CUDA-core design (K6 there through ``engine="fma"``). Sections,
+all on the shipped K3's (o, lse), the tensor-core K3 in bf16:
 
   k4_tiles  K4 (dq) at each point, max|Δ| against K4 at the shipped point
   k5_tiles  K5 (dk, dv) at each point, max|Δ| against K5 shipped
-  k6_tiles  K6 (the fused one-pass backward) at each point, its dq, dk, dv
-            max|Δ| against K4 + K5 at the shipped points, and the size of
-            its fp32 dq partials
+  k6_tiles  the CUDA-core K6 (the fused one-pass backward) at each point,
+            its dq, dk, dv max|Δ| against K4 + K5 at the shipped points,
+            and the size of its fp32 dq partials
+  k6_mma    the shipped K6, on the tensor cores
+            (``csrc/attention_flash_mma.cu``), its max|Δ| against K4 + K5
+            within ``BWD_TOL`` (it rounds dl and p to bf16 before the
+            products, as the TPU kernel and the plain version do; K4 and
+            K5 keep them fp32) and its partials
   anchor    the shipped K4 + K5, and K4's dq held against the plain
             backward on the check rows (``held``)
   library   the backward's library call (autograd through ``sdpa_padded``)
@@ -35,19 +41,30 @@ from ..ops.cuda_attention_study import BWD_POINTS, bwd_tiles
 from ._study import (BF16_TOL, BWD_TOL, SHAPES, Study, held, max_delta,
                      sdpa_padded)
 
-SECTIONS = ("k4_tiles", "k5_tiles", "k6_tiles", "anchor", "library")
-HELD = ("k4_tiles", "k5_tiles", "k6_tiles", "anchor")  # as bench_attn_floor's
+SECTIONS = ("k4_tiles", "k5_tiles", "k6_tiles", "k6_mma", "anchor",
+            "library")
+# as bench_attn_floor's
+HELD = ("k4_tiles", "k5_tiles", "k6_tiles", "k6_mma", "anchor")
 TIMING = (5, 3, 1)
 
 
-def deltas(got, want) -> dict:
+def deltas(got, want, tol: float = BF16_TOL) -> dict:
     """max|Δ| of each output against ``want``, each beside its limit
-    (``BF16_TOL`` × max|want| of that output): both kernels sum in fp32
-    and round the outputs to bf16."""
-    rows = [max_delta(a, b, BF16_TOL) for a, b in zip(got, want)]
+    (``tol`` × max|want| of that output; ``BF16_TOL``: both kernels sum in
+    fp32 and round the outputs to bf16)."""
+    rows = [max_delta(a, b, tol) for a, b in zip(got, want)]
     return {"max_abs_err": [r["max_abs_err"] for r in rows],
             "limit": [r["limit"] for r in rows],
             "ok": all(r["ok"] for r in rows)}
+
+
+def partials(st: Study, tiles: tuple, engine: str) -> dict:
+    """The shape and size of K6's fp32 dq partials on ``engine`` at the
+    study's shape (null on the CPU)."""
+    if not st.on_card:
+        return {"partials": None, "partial_mb": None}
+    part = ca.dq_partial_shape(*st.shape, tiles, engine)
+    return {"partials": part, "partial_mb": 4 * math.prod(part) / 1e6}
 
 
 def main(argv=None) -> dict:
@@ -71,16 +88,18 @@ def main(argv=None) -> dict:
 
     def k6(p):
         tiles = bwd_tiles(p)
-        part = (ca.dq_partial_shape(b, n, m, d, c, tiles) if st.on_card
-                else None)
-        return ca.attention_flash_dqkv, (*args, tiles), {
-            **deltas(ca.attention_flash_dqkv(*args, tiles), (dq, dk, dv)),
-            "partials": part,
-            "partial_mb": None if part is None else 4 * math.prod(part) / 1e6}
+        return ca.attention_flash_dqkv, (*args, tiles, st.fma), {
+            **deltas(ca.attention_flash_dqkv(*args, tiles, st.fma),
+                     (dq, dk, dv)),
+            **partials(st, tiles, "fma")}
 
     st.sweep("k4_tiles", BWD_POINTS, k4)
     st.sweep("k5_tiles", BWD_POINTS, k5)
     st.sweep("k6_tiles", BWD_POINTS, k6)
+    st.record("k6_mma", "shipped", {
+        **st.time(ca.attention_flash_dqkv, *args),
+        **deltas(ca.attention_flash_dqkv(*args), (dq, dk, dv), BWD_TOL),
+        **partials(st, (), "mma")})
     st.record("anchor", "k4_k5", {
         **st.time(lambda: (ca.attention_flash_dq(*args),
                            ca.attention_flash_dkv(*args))),

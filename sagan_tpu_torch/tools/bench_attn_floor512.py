@@ -4,21 +4,30 @@
     python -m sagan_tpu_torch.tools.bench_attn_floor512 [--quick]
 
 The port of the JAX package's TPU study ``tools/bench_attn_floor512.py``
-(T5). Sections:
+(T5). K3 and K6 ship on the tensor cores (``csrc/attention_flash_mma.cu``,
+bf16); their tile sweeps time the first, CUDA-core design
+(``engine="fma"``). Sections:
 
-  k3_tiles    the flash forward K3 at each tile point (``FWD_POINTS``),
-              the shipped one marked, each held against the plain forward
-              on the check rows (``held``)
+  k3_mma      the shipped K3, then K3 with one design choice flipped a
+              point (``MMA_POINTS``: a cp.async ring of 3 stages, two row
+              tiles a warp, a mask on every tile, S1's __expf exponent, a
+              warp vote that skips the rescale), each held against the
+              plain forward on the check rows (``held``)
+  k3_tiles    the CUDA-core K3 at each tile point (``FWD_POINTS``), each
+              held against the plain forward
   floors      the study forward's ``nomax`` and ``noexp`` floors beside
               its default, on both engines, the fma engine at the fastest
               K3 point, each held against its plain version (as
               ``bench_attn_floor256``)
-  k6_tiles    the fused backward K6 at each point (``BWD_POINTS``) with
-              the size of its fp32 dq partials and its max|Δ| against
-              K4 + K5 at the shipped points
-  slab        K6's launch alone against K6 with the sum of its partials
-              (``part.sum(dim=1)``), at the shipped point
-  two_kernel  K4 + K5 against K6 at B = 4, the shipped points
+  k6_mma      the shipped K6 with the size of its fp32 dq partials and
+              its max|Δ| against K4 + K5 (within ``BWD_TOL``, as
+              ``bench_attn_bwd256``)
+  k6_tiles    the CUDA-core K6 at each point (``BWD_POINTS``) with the
+              size of its partials and its max|Δ| against K4 + K5 at the
+              shipped points
+  slab        the shipped K6's launch alone against K6 with the sum of its
+              partials (``part.sum(dim=1)``)
+  two_kernel  K4 + K5 against the shipped K6 at B = 4
   library     ``sdpa_padded`` forward, and its backward through autograd
               (the plain versions at this map: chip_smoke phase 8)
   step        a church512 training step (example_configs/church512_attn.py,
@@ -30,38 +39,38 @@ v5e numbers.
 
 from __future__ import annotations
 
-import math
-
 from ..ops import cuda_attention as ca
 from ..ops.cuda_attention_study import BWD_POINTS, bwd_tiles
-from ._study import (SHAPES, Study, church512_config, floors, k3_sweep,
-                     sdpa_padded, step_segments)
-from .bench_attn_bwd256 import deltas
+from ._study import (BWD_TOL, SHAPES, Study, church512_config, floors,
+                     k3_mma_sweep, k3_sweep, sdpa_padded, step_segments)
+from .bench_attn_bwd256 import deltas, partials
 
-SECTIONS = ("k3_tiles", "floors", "k6_tiles", "slab", "two_kernel", "library",
-            "step")
-HELD = ("k3_tiles", "floors", "k6_tiles")  # as bench_attn_floor's
+SECTIONS = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "slab",
+            "two_kernel", "library", "step")
+# as bench_attn_floor's
+HELD = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles")
 TIMING = (5, 3, 1)
 
 
 def main(argv=None) -> dict:
     st = Study("bench_attn_floor512", SHAPES["512"], argv, TIMING, __doc__)
     q, k, v, g = st.data()
+    k3_mma_sweep(st, q, k, v)
     floors(st, q, k, v, k3_sweep(st, q, k, v))
 
     o, lse = ca.attention_flash_fwd(q, k, v)
     args = (q, k, v, o, lse, g)
     want = (ca.attention_flash_dq(*args), *ca.attention_flash_dkv(*args))
-    b, n, m, d, c = st.shape
+    st.record("k6_mma", "shipped", {
+        **st.time(ca.attention_flash_dqkv, *args),
+        **deltas(ca.attention_flash_dqkv(*args), want, BWD_TOL),
+        **partials(st, (), "mma")})
 
     def k6(p):
         tiles = bwd_tiles(p)
-        part = (ca.dq_partial_shape(b, n, m, d, c, tiles) if st.on_card
-                else None)
-        return ca.attention_flash_dqkv, (*args, tiles), {
-            **deltas(ca.attention_flash_dqkv(*args, tiles), want),
-            "partials": part,
-            "partial_mb": None if part is None else 4 * math.prod(part) / 1e6}
+        return ca.attention_flash_dqkv, (*args, tiles, st.fma), {
+            **deltas(ca.attention_flash_dqkv(*args, tiles, st.fma), want),
+            **partials(st, tiles, "fma")}
 
     st.sweep("k6_tiles", BWD_POINTS, k6)
     del want

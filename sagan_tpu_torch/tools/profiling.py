@@ -1,7 +1,7 @@
 """What the breakdown tools share: the card's name and power limit, and
 the device time and launches of each kernel in a ``torch.profiler``
-trace, with the port's kernels (attention K1-K6, the fused spectral norm
-K7) picked out by name."""
+trace, with the port's kernels (attention K1-K6, K3 and K6 on either
+engine, the fused spectral norm K7) picked out by name."""
 
 from __future__ import annotations
 
@@ -16,9 +16,13 @@ ATTENTION_KERNELS = (
     ("K2 attention_bwd", ("attention_bwd_dq_kernel<",
                           "attention_bwd_dkv_kernel<")),
     ("K3 attention_flash_fwd", ("attention_flash_fwd_kernel<",)),
+    ("K3 attention_flash_fwd_mma", ("attention_flash_fwd_mma_kernel<",)),
     ("K4 attention_flash_dq", ("attention_flash_dq_kernel<",)),
     ("K5 attention_flash_dkv", ("attention_flash_dkv_kernel<",)),
     ("K6 attention_flash_dqkv", ("attention_flash_dqkv_kernel<",)),
+    # its launch writes (-lse log2e, delta) first, in a kernel of its own
+    ("K6 attention_flash_dqkv_mma", ("attention_flash_dqkv_mma_kernel<",
+                                     "attention_flash_delta_kernel<")),
 )
 # K7 runs its finish kernel once a call (at the configs' sn_iters 1)
 SN_KERNELS = (

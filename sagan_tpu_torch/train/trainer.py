@@ -288,6 +288,12 @@ def _check_ported(config) -> None:
         (config.get("device_cache", "auto") is True,
          "device_cache=True (the dataset held on the card); 'auto' and "
          "False take the host feed, ROADMAP.md Queue 1 item 7"),
+        (bool(config.get("profile_dir")),
+         f"profile_dir={config.get('profile_dir')!r} (a profiler trace of "
+         f"steps 10-20), ROADMAP.md Queue 1 item 19"),
+        (bool(config.get("summary_histograms")),
+         "summary_histograms (weight histograms in the summaries), "
+         "ROADMAP.md Queue 1 item 19"),
     ]
     for failed, what in unported:
         if failed:

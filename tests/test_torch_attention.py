@@ -22,7 +22,7 @@ import torch
 
 from sagan_tpu.ops.attention import attention_reference as jax_reference
 from sagan_tpu.ops.pallas_attention import attention_fused as jax_fused
-from sagan_tpu_torch.ops import cuda_attention
+from sagan_tpu_torch.ops import _build, cuda_attention
 from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_reference)
 
@@ -96,11 +96,43 @@ def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
 
 def test_kernel_builds_one_library_per_value_width():
     specs = cuda_attention.build_specs()
-    sources = ("attention_fwd", "attention_bwd", "attention_flash_bwd")
+    sources = ("attention_fwd", "attention_bwd", "attention_flash_bwd",
+               "attention_flash_mma")
     for source in sources:
         assert [defs for name, defs in specs if name == source] == [
             (f"-DSAGAN_ATTN_C={c}",) for c in cuda_attention.SUPPORTED_C]
     assert len(specs) == len(sources) * len(cuda_attention.SUPPORTED_C)
+
+
+def test_entry_points_take_their_pointers_from_their_sources():
+    """Each C entry point's tensor pointers (ctypes passes each as a
+    c_void_p) and its library's source, the tensor-core K3 and K6 in
+    ``attention_flash_mma.cu``; K6's also takes its delta scratch."""
+    entries = cuda_attention._ENTRIES
+    assert entries["sagan_attention_flash_fwd_mma"] == (
+        "attention_flash_mma", 5)
+    assert entries["sagan_attention_flash_dqkv_mma"] == (
+        "attention_flash_mma", 10)
+    assert entries["sagan_attention_flash_fwd"] == ("attention_fwd", 5)
+    assert entries["sagan_attention_flash_dqkv"] == (
+        "attention_flash_bwd", 9)
+    sources = {src for src, _ in entries.values()}
+    assert sources == {"attention_fwd", "attention_bwd",
+                       "attention_flash_bwd", "attention_flash_mma"}
+    for src in sources:
+        assert (_build.CSRC / f"{src}.cu").exists()
+
+
+def test_a_shared_header_is_in_every_library_hash(tmp_path, monkeypatch):
+    """The libraries include ``csrc/mma_bf16.cuh``: an edit of a header
+    must build a new library, as an edit of the source does."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k", ("-DX=1",))
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k", ("-DX=1",)) != before
+    assert (_build.CSRC / "k.cu").exists()
 
 
 def _bwd_inputs(d, c, seed=2):

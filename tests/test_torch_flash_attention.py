@@ -3,8 +3,10 @@ package's flash kernels run in interpret mode, on the same numpy inputs:
 the plain forward against ``_flash_fwd`` (o and lse), the plain backward
 against ``_flash_bwd_fused`` and ``_flash_bwd`` on the same (o, lse),
 ``FlashAttention`` against ``jax.vjp`` of ``_attention_flash``; the
-port's routing against the JAX dispatch at every vanilla model shape; and
-the church512 weights carried across by ``convert``.
+port's routing against the JAX dispatch at every vanilla model shape the
+kernels take at B <= 4, and its fused-backward rule's byte arithmetic; the
+wrappers' plumbing (engines, key blocks, profile names); and the church512
+weights carried across by ``convert``.
 
 Tolerances, each as a share of the largest magnitude of the JAX value
 (of max(1, that) for o and lse):
@@ -42,11 +44,13 @@ from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn.attention import SelfAttention
 from sagan_tpu_torch.ops import attention as attention_ops
 from sagan_tpu_torch.ops import cuda_attention
-from sagan_tpu_torch.ops.attention import (PLAIN_KEY_BLOCK, attention,
+from sagan_tpu_torch.ops.attention import (DQ_SLAB_BUDGET, PLAIN_KEY_BLOCK,
+                                           attention,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
-                                           attention_reference,
-                                           flash_bwd_fused, plain_chunk,
+                                           attention_reference, dq_slab_bytes,
+                                           flash_bwd_fused,
+                                           fused_keys_per_block, plain_chunk,
                                            single_pass)
 from sagan_tpu_torch.tools.profiling import attention_kernels
 from sagan_tpu_torch.utils.config import resolve_config
@@ -213,17 +217,31 @@ def _model_sites():
 
 
 def test_routing_matches_jax_dispatch_at_every_model_shape():
+    """The JAX dispatch's route at every model shape with B <= 4 whose
+    widths the kernels take (the port's fused-backward rule is its own:
+    it means to agree there); past B = 4 the port's rule is the slab
+    budget alone."""
     sites = _model_sites()
     assert (512 * 512, 256 * 256, 2, 8) in sites      # church512's G site
     assert (64 * 64, 32 * 32, 8, 32) in sites         # and its D site
-    routes = set()
+    routes, compared = set(), 0
     for n, m, d, c in sites:
-        for b in (1, 4, 8, 64):
+        taken = (d in cuda_attention.SUPPORTED_D
+                 and c in cuda_attention.SUPPORTED_C)
+        for b in (1, 2, 3, 4, 8, 64):
             for itemsize in (2, 4):
-                want = _jax_route(b, n, m, d, c, itemsize)
-                assert _port_route(b, n, m, d, c, itemsize) == want, (
-                    b, n, m, d, c, itemsize, want)
-                routes.add(want)
+                got = _port_route(b, n, m, d, c, itemsize)
+                routes.add(got)
+                if b <= 4 and taken:
+                    want = _jax_route(b, n, m, d, c, itemsize)
+                    assert got == want, (b, n, m, d, c, itemsize, want)
+                    compared += 1
+                elif got != "single":
+                    fits = dq_slab_bytes(b, n, m, d, c, itemsize) \
+                        <= DQ_SLAB_BUDGET
+                    assert got == ("flash_fused" if fits
+                                   else "flash_two_kernel")
+    assert compared > 100
     assert routes == {"single", "flash_fused", "flash_two_kernel"}
 
 
@@ -232,8 +250,46 @@ def test_church512_takes_k6_at_its_batch_and_k4_k5_past_it():
     assert not single_pass(m, d, c) and single_pass(32 * 32, 8, 32)
     assert flash_bwd_fused(4, n, m, d, c, 2)
     assert flash_bwd_fused(4, n, m, d, c, 4)
-    assert not flash_bwd_fused(5, n, m, d, c, 2)
+    assert flash_bwd_fused(6, n, m, d, c, 2)      # 805 MB: at the budget
+    assert not flash_bwd_fused(7, n, m, d, c, 2)
     assert not flash_bwd_fused(8, n, m, d, c, 2)
+    assert not flash_bwd_fused(8, n, m, d, c, 4)
+
+
+@pytest.mark.parametrize("b,n,m,itemsize,nbytes,fused", [
+    (4, 512 * 512, 256 * 256, 2, 536870912, True),    # church512, B = 4
+    (4, 512 * 512, 256 * 256, 4, 536870912, True),
+    (8, 512 * 512, 256 * 256, 2, 1073741824, False),  # its B = 8 step
+    (16, 256 * 256, 128 * 128, 2, 134217728, True),   # church256, B = 16
+    (2, 512 * 512, 512 * 512, 2, 1073741824, False),  # past the budget
+    (1, 512 * 512, 1000, 2, 2097152, True),           # one ragged block
+], ids=["church512_b4", "church512_b4_fp32", "church512_b8", "church256",
+        "past_budget", "ragged"])
+def test_fused_backward_rule_counts_the_dq_slab(b, n, m, itemsize, nbytes,
+                                                 fused):
+    """[B, ceil(M / key block), N, d] fp32 at d = 2, c = 8, whose key block
+    is 1,024 on both engines; K6 up to DQ_SLAB_BUDGET (768 MiB)."""
+    assert fused_keys_per_block(2, 8, itemsize) == 1024
+    assert dq_slab_bytes(b, n, m, 2, 8, itemsize) == nbytes
+    assert flash_bwd_fused(b, n, m, 2, 8, itemsize) is fused
+    assert DQ_SLAB_BUDGET == 768 * 1024 * 1024
+
+
+@pytest.mark.parametrize("d,c,itemsize,keys", [
+    (2, 8, 2, 1024), (8, 8, 2, 1024), (16, 8, 2, 512), (2, 16, 2, 512),
+    (32, 8, 2, 256), (2, 32, 2, 256), (32, 128, 2, 128), (2, 128, 2, 128),
+    (2, 8, 4, 1024), (4, 16, 4, 512), (32, 8, 4, 256), (8, 128, 4, 256),
+])
+def test_key_blocks_of_both_engines_set_the_partials_shape(d, c, itemsize,
+                                                            keys):
+    """The Python copy of each K6's key block (``attention_flash_mma.cu``
+    bwd_keys_per_block, ``attention_flash_bwd.cu`` kThreads x KPT), which
+    chip_smoke holds against the libraries; ``dq_partial_shape`` at the
+    shipped libraries needs no build."""
+    assert fused_keys_per_block(d, c, itemsize) == keys
+    engine = "mma" if itemsize == 2 else "fma"
+    assert cuda_attention.dq_partial_shape(3, 100, 3 * keys + 1, d, c,
+                                           engine=engine) == (3, 4, 100, d)
 
 
 def test_attention_sends_large_key_sets_through_flash_attention_on_cpu():
@@ -330,16 +386,21 @@ def test_profile_names_tell_the_attention_kernels_apart():
             ("attention_flash_fwd_kernel", 40.0, 4),
             ("attention_flash_dq_kernel", 50.0, 2),
             ("attention_flash_dkv_kernel", 60.0, 2),
-            ("attention_flash_dqkv_kernel", 70.0, 2))}
+            ("attention_flash_dqkv_kernel", 70.0, 2),
+            ("attention_flash_fwd_mma_kernel", 16.0, 4),
+            ("attention_flash_dqkv_mma_kernel", 18.0, 2),
+            ("attention_flash_delta_kernel", 2.0, 2))}
     kernels["void at::native::elementwise_kernel<128, 2>"] = (9.0, 100)
     rows = attention_kernels(kernels, per=2)
     assert rows == {
         "K1 attention_fwd": {"ms": 0.5, "launches": 4},
         "K2 attention_bwd": {"ms": 2.5, "launches": 3},
         "K3 attention_flash_fwd": {"ms": 20.0, "launches": 2},
+        "K3 attention_flash_fwd_mma": {"ms": 8.0, "launches": 2},
         "K4 attention_flash_dq": {"ms": 25.0, "launches": 1},
         "K5 attention_flash_dkv": {"ms": 30.0, "launches": 1},
-        "K6 attention_flash_dqkv": {"ms": 35.0, "launches": 1}}
+        "K6 attention_flash_dqkv": {"ms": 35.0, "launches": 1},
+        "K6 attention_flash_dqkv_mma": {"ms": 10.0, "launches": 1}}
 
 
 def test_cpu_flash_wrappers_run_the_plain_versions_in_chunks(monkeypatch):
@@ -376,3 +437,37 @@ def test_plain_flash_dq_is_near_float64_past_one_key_block():
     delta = (gd * o.double()).sum(-1, keepdim=True)
     want = (p * (gd @ vd.transpose(1, 2) - delta)) @ kd
     assert _share(_flat(dq), want.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("wrapper", ["attention_flash_fwd",
+                                     "attention_flash_dqkv"])
+@pytest.mark.parametrize("engine", ["mma", "fma"])
+def test_flash_wrappers_refuse_an_engine_on_cpu_tensors(wrapper, engine):
+    """An engine names a CUDA kernel; CPU tensors run the plain version,
+    so naming one there raises, and nothing is counted."""
+    q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), "bfloat16")
+    o, lse = attention_flash_reference(q, k, v)
+    args = (q, k, v) if wrapper == "attention_flash_fwd" else \
+        (q, k, v, o, lse, g)
+    before = (cuda_attention.FLASH_FWD_MMA_LAUNCHES,
+              cuda_attention.FLASH_DQKV_MMA_LAUNCHES)
+    getattr(cuda_attention, wrapper)(*args)          # the plain version
+    with pytest.raises(ValueError, match="CPU tensors"):
+        getattr(cuda_attention, wrapper)(*args, engine=engine)
+    assert before == (cuda_attention.FLASH_FWD_MMA_LAUNCHES,
+                      cuda_attention.FLASH_DQKV_MMA_LAUNCHES)
+
+
+def test_the_dtype_picks_the_engine_and_mma_refuses_fp32():
+    bf16 = torch.empty(1, 4, 2, dtype=torch.bfloat16)
+    fp32 = torch.empty(1, 4, 2)
+    pick = cuda_attention._engine
+    assert pick(bf16, None, ()) == "mma"
+    assert pick(fp32, None, ()) == "fma"
+    assert pick(bf16, "fma", ()) == "fma"
+    assert pick(bf16, None, ("-DSAGAN_FWD_ROWS=128",)) == "fma"
+    assert pick(bf16, "mma", ("-DSAGAN_MMA_STAGES=1",)) == "mma"
+    with pytest.raises(TypeError, match="bf16"):
+        pick(fp32, "mma", ())
+    with pytest.raises(ValueError, match="unknown engine"):
+        pick(bf16, "wgmma", ())

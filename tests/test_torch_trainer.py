@@ -154,6 +154,8 @@ def test_checkpoints_keep_the_newest_and_skip_unreadable(tmp_path):
     ({"remat": True}, "remat"),
     ({"grad_accum_steps": 2}, "grad_accum_steps"),
     ({"device_cache": True}, "device_cache"),
+    ({"profile_dir": "traces"}, "profile_dir.*item 19"),
+    ({"summary_histograms": True}, "summary_histograms.*item 19"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
                                                         update, match):
