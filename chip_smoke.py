@@ -10,25 +10,31 @@ the build, and prints neither the kernels line nor the result line):
      sources in this checkout (``nvcc``, into ``build/kernels/``);
   2. the attention forward (K1) against its plain PyTorch version on the
      card, at G's sites at the serving batches and D's at the training
-     batches (church64's and church512's D sites), in bf16 and fp32, with times of the kernel, the plain version
-     and one PyTorch library call (at G's 64 map, B=64, bf16 also SDPA on
-     q and k zero-padded to 8, which takes a backend that does not
-     materialise the logits: K1's library column), and every (dtype, d,
-     c) instance at a ragged shape;
+     batches (church64's, church512's D site, imagenet128_cond's four),
+     bf16 on both engines (the tensor cores, ``mma``, bf16's engine, and
+     the CUDA cores, ``fma``) and fp32 on the CUDA cores, with times of
+     each kernel, the plain version and the library calls (SDPA as given
+     and, in bf16, SDPA on q and k zero-padded to 8, which takes a
+     backend that does not materialise the logits: K1's library column),
+     in bf16 also each engine's kernels alone from a profiler trace (the
+     events read the host's enqueue at the small sites), and every
+     (dtype, engine, d, c) instance at phase 9's ragged shapes;
   3. the full-width church64 generator from a seeded init (every attention
      ``sigma`` nonzero): fp32 on the card through the kernel against fp32
      on the CPU through the plain version, and bf16 on the card finite;
   4. serving: weights written by the port's npz writer, loaded by
      ``generate.load_generator_npz``, served over HTTP by ``serve``'s
      ``GeneratorService`` at batch 64 with ladder (1, 8); the kernel
-     launch counts are zeroed just before and read just after;
-  5. the attention backward (K2) against its plain version at every
-     attention site of a church64 training step and at church512's D
-     site, bf16 and fp32, with
-     times (the library call is autograd through
-     ``scaled_dot_product_attention``; at G's 64 map, B=64, bf16 also
-     through it on q and k zero-padded to 8: K2's library column), and
-     every (dtype, d, c) instance at a ragged shape;
+     launch counts are zeroed just before and read just after (the
+     tensor-core K1 twice a forward, no other kernel);
+  5. the attention backward (K2) against its plain version at phase 2's
+     training sites, bf16 on both engines and fp32 on the CUDA cores,
+     with times (the library call is autograd through
+     ``scaled_dot_product_attention``, and in bf16 through it on q and k
+     zero-padded to 8: K2's library column); in bf16 each engine's
+     kernels alone from a profiler trace, the tensor-core K2's key blocks
+     against the port's copy of their rule and two calls bit for bit; and
+     every (dtype, engine, d, c) instance at phase 9's ragged shapes;
   6. one fp32 training step of the full-width church64 G and D (every
      attention ``sigma`` nonzero) on the card against the same step on the
      CPU, twice: with D's learning rate 0, losses and all per-variable
@@ -36,13 +42,14 @@ the build, and prints neither the kernels line nor the result line):
      nonzero gradient; with the config's learning rates, D's loss and
      gradient norms (taken before D's update) agree, and so do G's and D's
      parameters, buffers and the EMA after the step.  Each step launches
-     K1 8 times and K2 6 times;
+     the CUDA-core K1 8 times and K2 6 times, fp32's engine;
   7. training through the entry point (``python -m sagan_tpu_torch.main``
      in-process): the church64 config in bf16 at batch 64 with
      ``steps_per_call`` 8 on 64 px synthetic TFRecords written by the
      port's own writer under ``build/smoke/``, 2 epochs, with per-epoch
-     imgs/s and ms/step and launch counts (8 K1 and 6 K2 per step, 2 K1
-     per sample-grid forward; zeroed just before, read just after); a
+     imgs/s and ms/step and launch counts (the tensor-core K1 8 and K2 6
+     per step, K1 2 per sample-grid forward, none on the CUDA cores;
+     zeroed just before, read just after); a
      restart that restores the checkpoint and trains a third epoch; and
      ``generate`` sampling the checkpoint's EMA generator;
   8. the flash kernels at the church512 512-map site (N=262144, M=65536,
@@ -74,7 +81,8 @@ the build, and prints neither the kernels line nor the result line):
  12. training church512 through the entry point on 64 synthetic 512 px
      records for one epoch at the config's B=4, ``steps_per_call`` 4, with
      exact launch counts (the tensor-core K3 2 a step and 1 a grid, the
-     tensor-core K6 1 a step, K1 and K2 2 a step, no CUDA-core K3 or K6)
+     tensor-core K6 1 a step, the tensor-core K1 and K2 2 a step, no
+     CUDA-core kernel)
      and nonzero gradients of the 512 site's theta/phi/g;
  13. one church512 training step at B=8, a shape past the route's slab
      budget, whose G backward takes K4 + K5 (K6's fp32 dq partials would
@@ -90,7 +98,8 @@ the build, and prints neither the kernels line nor the result line):
  16. training imagenet128_cond (ResNet G and D, 1000 classes, update
      ratio 2) with ``use_pallas_sn`` through the entry point on 512
      synthetic labelled 128 px records for 2 epochs, and a restart for a
-     3rd, with exact K7 (159 a step), K1 and K2 launch counts;
+     3rd, with exact K7 (159 a step), K1 and K2 (tensor cores) launch
+     counts;
  17. serving that checkpoint over HTTP per ``class_id`` at n = 1 and 8;
  18. one bf16 imagenet128_paper_gf64 training step at B=64 with
      ``use_pallas_sn``;
@@ -100,10 +109,13 @@ the build, and prints neither the kernels line nor the result line):
      each, all together); every variant of the study forward (S1) against
      its plain version at church64's 64 map, a 4,096-row chunk of the 256
      and 512 maps and a ragged shape, bf16 and (fma engine) fp32, its fma
-     default against K1 bit for bit; both forms of the folded forward (S2)
-     against theirs; K1 and K3 at every forward tile point against the
-     plain forward, K4-K6 at every backward tile point against K4 + K5 at
-     the shipped tiles (B=2 at the 256 map); S1 and S2 timed at the 64 map;
+     default against the CUDA-core K1 bit for bit; both forms of the
+     folded forward (S2) against theirs; the CUDA-core K1 and K3 at every
+     forward tile point against the plain forward, K4-K6 at every
+     backward tile point against K4 + K5 at the shipped tiles (B=2 at the
+     256 map); the tensor-core K1 and K2 at every design flip of the
+     64-map study against the plain versions; S1 and S2 timed at the 64
+     map;
  21. the four attention studies (``sagan_tpu_torch.tools.bench_attn_*``)
      with ``--quick`` in process: every section present, every time > 0,
      every max|Δ| within its limit (each kernel a study times, at the full
@@ -156,7 +168,8 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference,
                                            flash_bwd_fused,
-                                           fused_keys_per_block, plain_chunk)
+                                           fused_keys_per_block, k2_key_blocks,
+                                           plain_chunk)
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.ops.spectral import spectral_normalize
@@ -167,6 +180,7 @@ from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
                                            build_train_step)
 from sagan_tpu_torch.tools._study import held, max_delta, sdpa_padded
+from sagan_tpu_torch.tools.profiling import kernel_ms_per_call
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
 from sagan_tpu_torch.utils.timing import cuda_time_ms
 
@@ -183,7 +197,17 @@ TRAIN_SITES = (("G 64map", 4096, 1024, 2, 8, (64,)),
                ("G 32map", 1024, 256, 4, 16, (64,)),
                ("D 8map", 64, 16, 8, 32, (128, 64)),
                ("D 4map", 16, 4, 16, 64, (128, 64)),
-               ("church512 D 64map", 4096, 1024, 8, 32, (16, 8, 4)))
+               ("church512 D 64map", 4096, 1024, 8, 32, (16, 8, 4)),
+               # imagenet128_cond's (qk = ch/8, v = ch/2 at gf = df = 16)
+               # at its B=64: G's sites, D's at B=128 (the fused D update)
+               # and B=64 (G's update)
+               ("imagenet128 G 64map", 4096, 1024, 4, 16, (64,)),
+               ("imagenet128 G 32map", 1024, 256, 8, 32, (64,)),
+               ("imagenet128 D 64map", 4096, 1024, 2, 8, (128, 64)),
+               ("imagenet128 D 32map", 1024, 256, 4, 16, (128, 64)))
+# the engines each dtype's K1 and K2 are held on: bf16 runs the tensor
+# cores on the model's path, and the CUDA-core kernels beside them
+ENGINES = {torch.bfloat16: ("mma", "fma"), torch.float32: ("fma",)}
 # the forward's calls held against its plain version: G's sites at the
 # serving batches 64 and 1, D's at the training batches
 FWD_CALLS = tuple((site, n, m, d, c, b)
@@ -260,82 +284,112 @@ def attention_bound_ms(b, n, m, d, c, dtype) -> tuple[float, str]:
 
 
 def phase_kernels(card: str) -> dict:
-    """Kernel vs plain at every site (``FWD_CALLS``), bf16 and fp32.
-    Returns the row of the heaviest main-path call (64 map, B=64, bf16)."""
+    """K1 on each engine of the dtype (``ENGINES``) against the plain
+    version at every site (``FWD_CALLS``), bf16 and fp32, with times of
+    each kernel, the plain version and the library calls (SDPA as given,
+    and in bf16 ``sdpa_padded``, K1's library column).  Returns the rows
+    of the heaviest main-path call (G's 64 map, B=64, bf16) by engine."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    head = None
+    heads = {}
     for site, n, m, d, c, b in FWD_CALLS:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(b, n, d, device="cuda", generator=gen)
             k = torch.randn(b, m, d, device="cuda", generator=gen)
             v = torch.randn(b, m, c, device="cuda", generator=gen)
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            out = cuda_attention.attention_fused(q, k, v)
             ref = attention_reference(q, k, v)
             lib = F.scaled_dot_product_attention(q, k, v, scale=1.0)
             torch.cuda.synchronize()
             scale = ref.float().abs().max().item()
-            err = (out.float() - ref.float()).abs().max().item()
             lib_err = (lib.float() - ref.float()).abs().max().item()
-            ok = err <= TOL[dtype] * max(1.0, scale)
-            ms = cuda_time_ms(cuda_attention.attention_fused, q, k, v)[0]
             plain_ms = cuda_time_ms(lambda: attention_reference(q, k, v))[0]
             lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=1.0))[0]
             bound_ms, bound_by = attention_bound_ms(b, n, m, d, c, dtype)
             name = str(dtype).removeprefix("torch.")
-            print(f"phase 2 kernel attention_fwd {site} B={b} N={n} "
-                  f"M={m} d={d} c={c} {name}: max_abs_err {err:.3g} "
-                  f"max_rel_err {err / scale:.3g} (tol {TOL[dtype]:g} x "
-                  f"max(1, max|plain|={scale:.3g})) "
-                  f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms "
-                  f"{plain_ms:.4f} library_ms {lib_ms:.4f} (sdpa err "
-                  f"{lib_err:.3g}) bound_ms {bound_ms:.3g} ({bound_by}) "
-                  f"on {card}", flush=True)
-            require(ok, f"attention_fwd disagrees with the plain "
-                        f"version at {site} B={b} {name}")
-            if head is None:
-                # the library column: SDPA on d = 2 as given runs the
-                # math backend; with q, k zero-padded to 8 it takes a
-                # backend that does not materialise the logits
+            pad_ms, pad_note = None, ""
+            if dtype == torch.bfloat16:
+                # SDPA on d = 2 as given runs the math backend; with q, k
+                # zero-padded to 8 it takes a backend that does not
+                # materialise the logits
                 padded = sdpa_padded(q, k, v)
                 pad_err = (padded.float() - ref.float()).abs().max().item()
                 pad_ms = cuda_time_ms(sdpa_padded, q, k, v)[0]
-                print(f"phase 2 K1's library call at {site} B={b} {name}: "
-                      f"sdpa_padded (q, k zero-padded to 8) ms {pad_ms:.4f} "
-                      f"(err {pad_err:.3g}) against K1's {ms:.4f}: "
-                      f"{ms / pad_ms:.2f}x on {card}", flush=True)
-                head = {"max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": pad_ms,
-                        "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
-                              f"{name}"}
-    return head
+                pad_note = f"; sdpa_padded ms {pad_ms:.4f} (err {pad_err:.3g})"
+            times, device = {}, {}
+            for engine in ENGINES[dtype]:
+                out = cuda_attention.attention_fused(q, k, v, engine=engine)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ok = err <= TOL[dtype] * max(1.0, scale)
+                ms = cuda_time_ms(cuda_attention.attention_fused, q, k, v,
+                                  (), engine)[0]
+                times[engine] = ms
+                device[engine] = kernel_ms_per_call(
+                    cuda_attention.attention_fused, q, k, v, (), engine)
+                print(f"phase 2 kernel attention_fwd ({engine}) {site} B={b} "
+                      f"N={n} M={m} d={d} c={c} {name}: max_abs_err "
+                      f"{err:.3g} max_rel_err {err / scale:.3g} (tol "
+                      f"{TOL[dtype]:g} x max(1, max|plain|={scale:.3g})) "
+                      f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms "
+                      f"{plain_ms:.4f} library_ms {lib_ms:.4f} (sdpa err "
+                      f"{lib_err:.3g}){pad_note} bound_ms "
+                      f"{bound_ms:.3g} ({bound_by}) on {card}", flush=True)
+                require(ok, f"attention_fwd ({engine}) disagrees with the "
+                            f"plain version at {site} B={b} {name}")
+                if engine not in heads:
+                    heads[engine] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": pad_ms,
+                        "at": f"{site} B={b} N={n} M={m} d={d} c={c} {name}"}
+            if len(times) == 2:
+                mma, fma = times["mma"], times["fma"]
+                print(f"phase 2 K1 at {site} B={b} {name}: mma {mma:.4f} "
+                      f"ms, fma {fma:.4f} ms, sdpa_padded {pad_ms:.4f} ms: "
+                      f"mma/fma {mma / fma:.2f}x, mma/sdpa_padded "
+                      f"{mma / pad_ms:.2f}x; kernels alone (profiler) mma "
+                      f"{device['mma']:.4f} ms, fma {device['fma']:.4f} ms: "
+                      f"{device['mma'] / device['fma']:.2f}x on {card}",
+                      flush=True)
+    return heads
+
+
+def _worst(worst: dict) -> str:
+    return ", ".join(f"{key} {x:.3f}" for key, x in worst.items())
 
 
 def phase_all_widths() -> None:
-    """Every (dtype, d, c) instance the libraries hold, against the plain
-    version at a small ragged shape (N, M not multiples of the tiles)."""
+    """Every (dtype, engine, d, c) instance the libraries hold, against
+    the plain version at phase 9's ragged shapes (N, M not multiples of
+    the tiles; N under one row tile; a key set past the mma K1's
+    whole-staging budget)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    worst, count = 0.0, 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for d in cuda_attention.SUPPORTED_D:
-            for c in cuda_attention.SUPPORTED_C:
-                q = torch.randn(3, 100, d, device="cuda", generator=gen)
-                k = torch.randn(3, 37, d, device="cuda", generator=gen)
-                v = torch.randn(3, 37, c, device="cuda", generator=gen)
-                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-                ref = attention_reference(q, k, v).float()
-                out = cuda_attention.attention_fused(q, k, v).float()
-                scale = max(1.0, ref.abs().max().item())
-                err = (out - ref).abs().max().item() / scale
-                worst = max(worst, err / TOL[dtype])
-                count += 1
-                require(err <= TOL[dtype], f"attention_fwd d={d} c={c} "
-                        f"{dtype}: {err} > {TOL[dtype]}")
-    print(f"phase 2 kernel attention_fwd, all {count} (dtype, d, c) "
-          f"instances at B=3 N=100 M=37: worst error {worst:.3f} of its "
-          f"tolerance", flush=True)
+    worst, count = {}, 0
+    for b, n, m in FLASH_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in cuda_attention.SUPPORTED_D:
+                for c in cuda_attention.SUPPORTED_C:
+                    q = torch.randn(b, n, d, device="cuda", generator=gen)
+                    k = torch.randn(b, m, d, device="cuda", generator=gen)
+                    v = torch.randn(b, m, c, device="cuda", generator=gen)
+                    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+                    ref = attention_reference(q, k, v).float()
+                    scale = max(1.0, ref.abs().max().item())
+                    for engine in ENGINES[dtype]:
+                        out = cuda_attention.attention_fused(
+                            q, k, v, engine=engine).float()
+                        err = (out - ref).abs().max().item() / scale
+                        key = f"{str(dtype).removeprefix('torch.')} {engine}"
+                        worst[key] = max(worst.get(key, 0.0),
+                                         err / TOL[dtype])
+                        count += 1
+                        require(err <= TOL[dtype], f"attention_fwd "
+                                f"({engine}) d={d} c={c} {dtype} at B={b} "
+                                f"N={n} M={m}: {err} > {TOL[dtype]}")
+    print(f"phase 2 kernel attention_fwd, all {count} (dtype, engine, d, c, "
+          f"shape) instances at (B, N, M) in {FLASH_RAGGED}: worst error by "
+          f"dtype and engine {_worst(worst)} of the tolerance", flush=True)
 
 
 # K2 vs its plain backward, per output: max|kernel - plain| <= BWD_TOL x
@@ -381,78 +435,126 @@ def _grad_errors(got, want, tol: float) -> tuple[float, float]:
     return share, worst
 
 
-def _bwd_errors(q, k, v, g, dtype) -> tuple[float, float]:
+def _bwd_errors(q, k, v, g, dtype, engine=None) -> tuple[float, float]:
     """(worst error over dq, dk, dv as a share of its tolerance, worst
-    absolute error) of K2 against the plain backward."""
-    return _grad_errors(cuda_attention.attention_bwd_fused(q, k, v, g),
-                        attention_bwd_reference(q, k, v, g), BWD_TOL[dtype])
+    absolute error) of K2 on ``engine`` against the plain backward."""
+    return _grad_errors(
+        cuda_attention.attention_bwd_fused(q, k, v, g, engine=engine),
+        attention_bwd_reference(q, k, v, g), BWD_TOL[dtype])
 
 
 def phase_bwd_kernels(card: str) -> dict:
-    """K2 vs its plain backward at every site of a training step, bf16
-    and fp32, with times.  Returns the row of the heaviest main-path call
-    (G 64 map, B=64, bf16)."""
+    """K2 on each engine of the dtype (``ENGINES``) against its plain
+    backward at every site of a training step, bf16 and fp32, with times
+    beside the plain version's and autograd through SDPA (as given, and
+    in bf16 through ``sdpa_padded``, K2's library column).  In bf16 also:
+    the mma K2's key blocks against the port's copy of their rule, and two
+    calls give the same bits.  Returns the rows of the heaviest main-path
+    call (G 64 map, B=64, bf16) by engine."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    head = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    heads = {}
     for site, n, m, d, c, batches in TRAIN_SITES:
         for b in batches:
             for dtype in (torch.bfloat16, torch.float32):
                 q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
-                share, err = _bwd_errors(q, k, v, g, dtype)
-                ms = cuda_time_ms(lambda: cuda_attention.attention_bwd_fused(
-                    q, k, v, g))[0]
+                want = attention_bwd_reference(q, k, v, g)
                 plain_ms = cuda_time_ms(lambda: attention_bwd_reference(
                     q, k, v, g))[0]
                 qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
                 out = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
                 lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
                     out, (qs, ks, vs), g, retain_graph=True))[0]
+                del out
                 bound_ms, bound_by = attention_bwd_bound_ms(b, n, m, d, c,
                                                             dtype)
                 name = str(dtype).removeprefix("torch.")
-                print(f"phase 5 kernel attention_bwd {site} B={b} N={n} "
-                      f"M={m} d={d} c={c} {name}: max_abs_err {err:.3g}, "
-                      f"worst {share:.3f} of tol {BWD_TOL[dtype]:g} x "
-                      f"max|plain| {'ok' if share <= 1 else 'FAIL'}; ms "
-                      f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                      f"{lib_ms:.4f} (autograd through sdpa) bound_ms "
-                      f"{bound_ms:.3g} ({bound_by}) on {card}", flush=True)
-                require(share <= 1, f"attention_bwd disagrees with the "
-                                    f"plain backward at {site} B={b} {name}")
-                if head is None:
-                    # the library column: autograd through sdpa_padded, as
-                    # K1's (the call above took the math backend)
+                pad_ms, pad_note = None, ""
+                if dtype == torch.bfloat16:
                     pad_ms = cuda_time_ms(sdpa_padded(q, k, v, g))[0]
-                    print(f"phase 5 K2's library call at {site} B={b} "
-                          f"{name}: autograd through sdpa_padded (q, k "
-                          f"zero-padded to 8) ms {pad_ms:.4f} against K2's "
-                          f"{ms:.4f}: {ms / pad_ms:.2f}x on {card}",
+                    pad_note = (f"; autograd through sdpa_padded ms "
+                                f"{pad_ms:.4f}")
+                    blocks = cuda_attention.bwd_mma_key_blocks(b, m, d, c)
+                    rule = k2_key_blocks(b, m, d, c, sms)
+                    first = cuda_attention.attention_bwd_fused(
+                        q, k, v, g, engine="mma")
+                    second = cuda_attention.attention_bwd_fused(
+                        q, k, v, g, engine="mma")
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(first, second))
+                    print(f"phase 5 attention_bwd (mma) {site} B={b}: "
+                          f"{blocks} key blocks (rule {rule}), dq partials "
+                          f"{4 * b * blocks * n * d / 1e6:.2f} MB; two "
+                          f"calls bit-identical {same}", flush=True)
+                    require(blocks == rule, f"K2 key blocks {blocks}, rule "
+                                            f"{rule} at {site} B={b}")
+                    require(same, f"two mma K2 calls differ at {site} B={b}")
+                    del first, second
+                times, device = {}, {}
+                for engine in ENGINES[dtype]:
+                    share, err = _grad_errors(
+                        cuda_attention.attention_bwd_fused(
+                            q, k, v, g, engine=engine), want, BWD_TOL[dtype])
+                    ms = cuda_time_ms(cuda_attention.attention_bwd_fused,
+                                      q, k, v, g, (), engine)[0]
+                    times[engine] = ms
+                    device[engine] = kernel_ms_per_call(
+                        cuda_attention.attention_bwd_fused, q, k, v, g, (),
+                        engine)
+                    print(f"phase 5 kernel attention_bwd ({engine}) {site} "
+                          f"B={b} N={n} M={m} d={d} c={c} {name}: "
+                          f"max_abs_err {err:.3g}, worst {share:.3f} of tol "
+                          f"{BWD_TOL[dtype]:g} x max|plain| "
+                          f"{'ok' if share <= 1 else 'FAIL'}; ms {ms:.4f} "
+                          f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                          f"(autograd through sdpa){pad_note} bound_ms "
+                          f"{bound_ms:.3g} ({bound_by}) on {card}",
                           flush=True)
-                    head = {"max_abs_err": err, "ms": ms,
+                    require(share <= 1, f"attention_bwd ({engine}) disagrees "
+                                        f"with the plain backward at {site} "
+                                        f"B={b} {name}")
+                    if engine not in heads:
+                        heads[engine] = {
+                            "max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": pad_ms,
                             "at": f"{site} B={b} N={n} M={m} d={d} c={c} "
                                   f"{name}"}
-    return head
+                if len(times) == 2:
+                    mma, fma = times["mma"], times["fma"]
+                    print(f"phase 5 K2 at {site} B={b} {name}: mma {mma:.4f} "
+                          f"ms, fma {fma:.4f} ms, autograd through "
+                          f"sdpa_padded {pad_ms:.4f} ms: mma/fma "
+                          f"{mma / fma:.2f}x, mma/sdpa_padded "
+                          f"{mma / pad_ms:.2f}x; kernels alone (profiler) "
+                          f"mma {device['mma']:.4f} ms, fma "
+                          f"{device['fma']:.4f} ms: "
+                          f"{device['mma'] / device['fma']:.2f}x on {card}",
+                          flush=True)
+    return heads
 
 
 def phase_bwd_all_widths() -> None:
-    """Every (dtype, d, c) instance of K2 against the plain backward at a
-    small ragged shape (N, M not multiples of any tile)."""
+    """Every (dtype, engine, d, c) instance of K2 against the plain
+    backward at phase 9's ragged shapes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    worst, count = 0.0, 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for d in cuda_attention.SUPPORTED_D:
-            for c in cuda_attention.SUPPORTED_C:
-                q, k, v, g = _bwd_inputs(gen, 3, 100, 37, d, c, dtype)
-                share, _ = _bwd_errors(q, k, v, g, dtype)
-                worst = max(worst, share)
-                count += 1
-                require(share <= 1, f"attention_bwd d={d} c={c} {dtype}: "
-                                    f"{share:.3f} of its tolerance")
-    print(f"phase 5 kernel attention_bwd, all {count} (dtype, d, c) "
-          f"instances at B=3 N=100 M=37: worst error {worst:.3f} of its "
-          f"tolerance", flush=True)
+    worst, count = {}, 0
+    for b, n, m in FLASH_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in cuda_attention.SUPPORTED_D:
+                for c in cuda_attention.SUPPORTED_C:
+                    q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
+                    for engine in ENGINES[dtype]:
+                        share, _ = _bwd_errors(q, k, v, g, dtype, engine)
+                        key = f"{str(dtype).removeprefix('torch.')} {engine}"
+                        worst[key] = max(worst.get(key, 0.0), share)
+                        count += 1
+                        require(share <= 1, f"attention_bwd ({engine}) d={d} "
+                                f"c={c} {dtype} at B={b} N={n} M={m}: "
+                                f"{share:.3f} of its tolerance")
+    print(f"phase 5 kernel attention_bwd, all {count} (dtype, engine, d, c, "
+          f"shape) instances at (B, N, M) in {FLASH_RAGGED}: worst error by "
+          f"dtype and engine {_worst(worst)} of the tolerance", flush=True)
 
 
 def church64_config(dtype: str) -> dict:
@@ -518,7 +620,7 @@ def phase_serve(gen32, card: str) -> int:
     weights = export_generator_npz(gen32, str(smoke_dir / "church64_g.npz"),
                                    config)
 
-    cuda_attention.LAUNCHES = 0      # the main path starts here
+    _zero_counts()                   # the main path starts here
     t0 = time.perf_counter()
     gen = load_generator_npz(config, weights, "cuda")
     svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
@@ -580,12 +682,13 @@ def phase_serve(gen32, card: str) -> int:
         srv.server_close()
         svc.close()
         thread.join(timeout=30)
-    launches = cuda_attention.LAUNCHES   # the main path ends here
-    print(f"phase 4 serve: attention_fwd launches {launches} for {forwards} "
-          f"generator forwards (2 attention sites each)", flush=True)
-    require(launches == 2 * forwards,
-            f"expected {2 * forwards} kernel launches, counted {launches}")
-    return launches
+    counts = _counts()               # the main path ends here
+    want = _launches(K1mma=2 * forwards)
+    print(f"phase 4 serve: launches {counts} for {forwards} bf16 generator "
+          f"forwards (2 attention sites each, the tensor-core K1; expected "
+          f"{want})", flush=True)
+    require(counts == want, f"serving launches {counts}, expected {want}")
+    return counts["K1mma"]
 
 
 # one fp32 step of the full-width church64 G and D, card vs CPU: every
@@ -637,9 +740,9 @@ def _one_step(config, gen, disc, device, images, labels, latents):
     moved = [{"flip": None, "g": tuple(t.to(device) for t in lat["g"]),
               "d": [tuple(t.to(device) for t in zl) for zl in lat["d"]]}
              for lat in latents]
-    cuda_attention.LAUNCHES = cuda_attention.BWD_LAUNCHES = 0
+    _zero_counts()
     metrics = step(state, images.to(device), labels.to(device), moved)
-    launches = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+    launches = _counts()
     after = {f"G/{k}": v for k, v in gen.state_dict().items()}
     after.update({f"D/{k}": v for k, v in disc.state_dict().items()})
     after.update({f"EMA/{k}": v for k, v in state.ema.items()})
@@ -662,10 +765,11 @@ def _state_errors(got: dict, want: dict, atol: float) -> tuple:
     return worst, off, total, bad
 
 
-def phase_train_step(card: str) -> None:
+def phase_train_step(card: str) -> dict:
     """One fp32 training step on the card against the CPU, from the same
     seeded nets, images and latents: with D frozen, then at the config's
-    learning rates."""
+    learning rates.  Returns the second step's launches by kernel (the
+    CUDA-core K1 and K2: fp32's engine)."""
     full = church64_config("float32")
     config = dict(full, lr_d=0.0)
     gen, disc = _church64_nets(config, SEED + 10)
@@ -713,14 +817,15 @@ def phase_train_step(card: str) -> None:
           f"norms within rtol {STEP_RTOL:g} (+{STEP_ATOL:g}): "
           f"{'all' if not bad else 'NOT ' + str(bad[:4])}; attention "
           f"theta/phi/g gradient norms min {min(attn.values()):.3g} over "
-          f"{len(attn)} weights; launches K1 {launches[0]} K2 {launches[1]} "
+          f"{len(attn)} weights; launches K1 {launches['K1']} K2 "
+          f"{launches['K2']} "
           f"on {card}", flush=True)
     require(not bad, f"training step on the card disagrees with the CPU: "
                      f"{bad[:8]}")
     require(len(attn) == 12 and min(attn.values()) > 1e-6,
             f"attention weights without a gradient: {attn}")
-    require(launches == (8, 6), f"one training step launched K1/K2 "
-                                f"{launches}, expected (8, 6)")
+    require(launches == _launches(K1=8, K2=6), f"one fp32 training step "
+            f"launched {launches}, expected K1 8, K2 6 (the CUDA cores)")
 
     # the config's learning rates: what comes before D's update is held
     # as above, the state after the step within 3 lr_d
@@ -747,15 +852,16 @@ def phase_train_step(card: str) -> None:
           f"{'all' if not bad else 'NOT ' + str(bad[:4])}; G, D and EMA "
           f"state after the step ({len(got_state)} tensors, {total} "
           f"elements): max abs err {worst:.3g} (tol {atol:g}), {off} "
-          f"elements beyond 1e-5 (tol 1 %); launches K1 {launches[0]} K2 "
-          f"{launches[1]} on {card}", flush=True)
+          f"elements beyond 1e-5 (tol 1 %); launches K1 {launches['K1']} K2 "
+          f"{launches['K2']} on {card}", flush=True)
     require(not bad, f"D's step on the card disagrees with the CPU: "
                      f"{bad[:8]}")
     require(not far and off <= 0.01 * total,
             f"the state after a step on the card disagrees with the CPU: "
             f"{far[:8]}, {off} of {total} elements beyond 1e-5")
-    require(launches == (8, 6), f"one training step launched K1/K2 "
-                                f"{launches}, expected (8, 6)")
+    require(launches == _launches(K1=8, K2=6), f"one fp32 training step "
+            f"launched {launches}, expected K1 8, K2 6 (the CUDA cores)")
+    return launches
 
 
 def _run_cli(config_file: Path, card: str, label: str) -> tuple:
@@ -828,17 +934,17 @@ def phase_train_cli(card: str) -> tuple[int, int]:
     for label, epochs in (("run", 2), ("restart", 3)):
         trainer, text, counts, grids, n_epochs = _run_cli(
             files[epochs], card, f"7 {label}")
-        k1, k2 = counts["K1"], counts["K2"]
+        k1, k2 = counts["K1mma"], counts["K2mma"]
         steps = trainer.global_step() - first_step
+        want = _launches(K1mma=8 * steps + 2 * grids, K2mma=6 * steps)
         print(f"phase 7 {label}: {steps} steps, {grids} sample-grid "
-              f"forwards; launches K1 {k1} (expected {8 * steps + 2 * grids})"
-              f" K2 {k2} (expected {6 * steps})", flush=True)
+              f"forwards; launches {counts} (expected {want}: the "
+              f"tensor-core K1 and K2, none on the CUDA cores)", flush=True)
         require(n_epochs == epochs - first_step // trainer.steps_per_epoch
                 and trainer.global_step() == epochs * trainer.steps_per_epoch,
                 f"{label}: {n_epochs} epochs, step {trainer.global_step()}")
-        require((k1, k2) == (8 * steps + 2 * grids, 6 * steps),
-                f"{label}: launches K1 {k1} K2 {k2} for {steps} steps and "
-                f"{grids} grids")
+        require(counts == want, f"{label}: launches {counts} for {steps} "
+                                f"steps and {grids} grids, expected {want}")
         results[label] = (k1, k2)
         if first_step:
             require(f"Restored from checkpoint at step {first_step}" in text,
@@ -1253,6 +1359,7 @@ def phase_flash_all_widths() -> None:
 # the launch counters by kernel: K3 and K6 on the CUDA cores ("K3", "K6")
 # and on the tensor cores ("K3mma", "K6mma")
 COUNTERS = {"K1": "LAUNCHES", "K2": "BWD_LAUNCHES",
+            "K1mma": "FWD_MMA_LAUNCHES", "K2mma": "BWD_MMA_LAUNCHES",
             "K3": "FLASH_FWD_LAUNCHES", "K3mma": "FLASH_FWD_MMA_LAUNCHES",
             "K4": "FLASH_DQ_LAUNCHES", "K5": "FLASH_DKV_LAUNCHES",
             "K6": "FLASH_DQKV_LAUNCHES", "K6mma": "FLASH_DQKV_MMA_LAUNCHES"}
@@ -1504,7 +1611,7 @@ def phase_train512(card: str) -> dict:
                 f"church512 losses are not finite: {g_loss} {d_loss}")
     norms = _site_norms(trainer.train_step.g_names,
                         fetched[-1]["G_grad_norms"], 512)
-    want = _launches(K1=2 * steps, K2=2 * steps,
+    want = _launches(K1mma=2 * steps, K2mma=2 * steps,
                      K3mma=2 * steps + len(grids), K6mma=steps)
     print(f"phase 12 train church512: {steps} steps at B=4, {len(grids)} "
           f"sample-grid forwards; launches {counts} (expected {want}); "
@@ -1542,7 +1649,7 @@ def phase_step512_b8(card: str) -> dict:
     counts = _counts()               # and ends here
     norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
     losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
-    want = _launches(K1=2, K2=2, K3mma=2, K4=1, K5=1)
+    want = _launches(K1mma=2, K2mma=2, K3mma=2, K4=1, K5=1)
     print(f"phase 13 church512 train step B=8 bf16: losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); launches {counts} "
           f"(expected {want}); 512-site gradient norms {norms} on {card}",
@@ -1771,7 +1878,7 @@ def phase_train128(card: str) -> dict:
         trainer, text, counts, grids, n_epochs = _run_cli(
             files[epochs], card, f"16 imagenet128 {label}")
         steps = trainer.global_step() - first_step
-        want = _launches(K1=12 * steps + 2 * grids, K2=8 * steps,
+        want = _launches(K1mma=12 * steps + 2 * grids, K2mma=8 * steps,
                          K7=SN_PER_STEP * steps + SN_PER_G * grids)
         print(f"phase 16 imagenet128 {label}: {steps} steps at B="
               f"{trainer.config['global_batch_size']}, "
@@ -1848,7 +1955,7 @@ def phase_serve128(card: str) -> None:
         svc.close()
         thread.join(timeout=30)
     counts = _counts()               # the serving path ends here
-    want = _launches(K1=2 * forwards, K7=SN_PER_G * forwards)
+    want = _launches(K1mma=2 * forwards, K7=SN_PER_G * forwards)
     print(f"phase 17 serve imagenet128_cond: launches {counts} for {forwards}"
           f" generator forwards (expected {want})", flush=True)
     require(counts == want, f"serving launches {counts}, expected {want}")
@@ -1886,7 +1993,7 @@ def phase_step_gf64(card: str) -> None:
     # once for D's update and once for G's
     sn = sum(isinstance(m, layers._SNLayer) and m.sn
              for net in (gen, disc) for m in net.modules())
-    want = _launches(K1=4, K2=3, K7=2 * sn)
+    want = _launches(K1mma=4, K2mma=3, K7=2 * sn)
     print(f"phase 18 imagenet128_paper_gf64 train step B={PAPER_BATCH} bf16 "
           f"({params} parameters in G and D): losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); peak memory "
@@ -1997,7 +2104,8 @@ def phase_study_kernels(card: str) -> dict:
                         f"{dtype}: {share:.3f} of its tolerance")
             if site == "64 map":
                 same = torch.equal(cas.attention_study(q, k, v, "fma"),
-                                   cuda_attention.attention_fused(q, k, v))
+                                   cuda_attention.attention_fused(
+                                       q, k, v, engine="fma"))
                 print(f"phase 20 attention_study fma vs K1 at church64's 64 "
                       f"map B={b} {dtype}: bit-identical {same}", flush=True)
                 require(same, f"attention_study fma is not K1's bits {dtype}")
@@ -2079,7 +2187,7 @@ def phase_study_kernels(card: str) -> dict:
                 tiles = cas.fwd_tiles(point)
                 o, lse = cuda_attention.attention_flash_fwd(q, k, v, tiles,
                                                             "fma")
-                fused = cuda_attention.attention_fused(q, k, v, tiles)
+                fused = cuda_attention.attention_fused(q, k, v, tiles, "fma")
                 share = max(
                     _grad_errors((fused, o), (want, want), tol)[0],
                     (lse - want_lse).abs().max().item()
@@ -2089,6 +2197,36 @@ def phase_study_kernels(card: str) -> dict:
                         f"{dtype}: {share:.3f} of its tolerance")
     print(f"phase 20 K1 and K3 at the forward tile points "
           f"{cas.FWD_POINTS}: worst {share_t:.3f} of its tolerance",
+          flush=True)
+
+    # the tensor-core K1 and K2 with each design choice flipped (the
+    # 64-map study's k1_mma and k2_mma points) at church64's 64 map, bf16,
+    # against the plain versions
+    _, b, n, m = STUDY_SITES[0]
+    q, k, v, g = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
+    want_o = attention_reference(q, k, v)
+    want_g = attention_bwd_reference(q, k, v, g)
+    flips = {}
+    for kind, points, defines in (
+            ("K1", cas.K1_MMA_POINTS, cas.K1_MMA_DEFINES),
+            ("K2", cas.K2_MMA_POINTS, cas.K2_MMA_DEFINES)):
+        for point in points:
+            if kind == "K1":
+                share = _grad_errors(
+                    (cuda_attention.attention_fused(q, k, v, defines[point],
+                                                    "mma"),),
+                    (want_o,), TOL[torch.bfloat16])[0]
+            else:
+                share = _grad_errors(cuda_attention.attention_bwd_fused(
+                    q, k, v, g, defines[point], "mma"), want_g,
+                    BWD_TOL[torch.bfloat16])[0]
+            flips[f"{kind} {point[0]}"] = share
+            require(share <= 1, f"{kind} (mma) {point[0]} at the 64 map: "
+                                f"{share:.3f} of its tolerance")
+    del q, k, v, g, want_o, want_g
+    print(f"phase 20 the tensor-core K1 and K2 at each design flip, 64 map "
+          f"B={b} bf16, share of the tolerance: "
+          f"{', '.join(f'{key} {x:.3f}' for key, x in flips.items())}",
           flush=True)
 
     # K4, K5 and K6 at every backward tile point vs K4 + K5 at the shipped
@@ -2211,7 +2349,7 @@ def main(argv=None) -> int:
         r["bwd_head"] = phase_bwd_kernels(card)
         phase_bwd_all_widths()
     if 6 in on:
-        phase_train_step(card)
+        r["fp32_step"] = phase_train_step(card)
     if 7 in on:
         r["fwd_launches"], r["bwd_launches"] = phase_train_cli(card)
     if 8 in on:
@@ -2247,9 +2385,10 @@ def main(argv=None) -> int:
     if args.only is not None:
         return 0
     # launches: each kernel's count on the path that runs it, zeroed just
-    # before and read just after: K1 and K2 on the church64 training
-    # entry point's run (phase 7; phase 4 checks the serving path's own
-    # count), the tensor-core K3 and K6 on the church512 one (phase 12;
+    # before and read just after: the tensor-core K1 and K2 on the church64
+    # training entry point's run (phase 7; phase 4 checks the serving
+    # path's own count), the CUDA-core K1 and K2 on the fp32 church64 step
+    # (phase 6), the tensor-core K3 and K6 on the church512 one (phase 12;
     # phase 11 checks church512 serving's), the CUDA-core K3 on the fp32
     # church512 G forward (phase 11) and the CUDA-core K6 on the fp32
     # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 step
@@ -2259,12 +2398,20 @@ def main(argv=None) -> int:
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
     flash, train512 = r["flash"], r["train512"]
-    kernels = [{"name": "attention_fwd", "route": "cuda",
+    kernels = [{"name": "attention_fwd_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "157", "launches": r["fwd_launches"],
+                **r["head"]["mma"]},
+               {"name": "attention_fwd", "route": "cuda",
                 "source": src + "attention_fwd.cu", "replaces": ref + "157",
-                "launches": r["fwd_launches"], **r["head"]},
+                "launches": r["fp32_step"]["K1"], **r["head"]["fma"]},
+               {"name": "attention_bwd_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "207", "launches": r["bwd_launches"],
+                **r["bwd_head"]["mma"]},
                {"name": "attention_bwd", "route": "cuda",
                 "source": src + "attention_bwd.cu", "replaces": ref + "207",
-                "launches": r["bwd_launches"], **r["bwd_head"]},
+                "launches": r["fp32_step"]["K2"], **r["bwd_head"]["fma"]},
                {"name": "attention_flash_fwd_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "368", "launches": train512["K3mma"],

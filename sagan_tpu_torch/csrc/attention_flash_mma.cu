@@ -1,9 +1,20 @@
-// SAGAN attention flash forward and fused flash backward in bf16 on
-// Hopper's tensor cores (sm_90a, mma.sync bf16 -> fp32).
+// SAGAN attention in bf16 on Hopper's tensor cores (sm_90a, mma.sync bf16
+// -> fp32): the single-pass forward and backward, and the flash forward
+// and fused flash backward.
 //
-// Replaces two TPU kernels of sagan_tpu/ops/pallas_attention.py on bf16
-// operands (fp32 operands keep the CUDA-core kernels of attention_fwd.cu
-// and attention_flash_bwd.cu: the tensor cores take fp32 only as TF32):
+// Replaces four TPU kernels of sagan_tpu/ops/pallas_attention.py on bf16
+// operands (fp32 operands keep the CUDA-core kernels of attention_fwd.cu,
+// attention_bwd.cu and attention_flash_bwd.cu: the tensor cores take fp32
+// only as TF32):
+//  * _fwd_kernel (K1, launched by _fwd): attention_fwd_mma_kernel here.
+//    K3's loop without the lse store: the two compute the same o.
+//  * _bwd_kernel (K2, launched by _bwd_call): attention_bwd_stats_mma_
+//    kernel, attention_bwd_grads_mma_kernel and attention_bwd_dq_sum_
+//    kernel here, from (q, k, v, g) alone, as the TPU kernel: the softmax
+//    is recomputed, and delta = sum_j p_ij dp_ij comes from dP = G V^T
+//    (K2 has no o). dl = p (dp - delta) rounded to bf16 (k's type) before
+//    the dQ and dK products, dV from p rounded to bf16 (v's type); dq in
+//    q's type, dk and dv fp32 sums written once in k's and v's types.
 //  * _flash_fwd_kernel (K3, launched by _flash_fwd):
 //    attention_flash_fwd_mma_kernel here. fp32 scores, online max and sum,
 //    E rounded to bf16 for the E.V product (the mma's operand type, as
@@ -18,18 +29,22 @@
 //    kernel's by construction.
 //
 //   q [B, N, D]  k [B, M, D]  v [B, M, C]  g, o [B, N, C]  lse [B, N] fp32
-//   -> o [B, N, C], lse (K3)
-//   -> dk [B, M, D], dv [B, M, C] and dq partials fp32 [B, NKB, N, D] (K6,
-//      NKB key blocks, summed by the caller in key-block order)
+//   -> o [B, N, C] (K1), and lse (K3)
+//   -> dq [B, N, D], dk [B, M, D], dv [B, M, C] (K2)
+//   -> dk, dv and dq partials fp32 [B, NKB, N, D] (K6, NKB key blocks,
+//      summed by the caller in key-block order)
 //
 // What bounds them on the H100: per (query, key) pair one exponential on
 // the SFUs (16 a clock an SM: 16.4 ms for the 6.9e10 pairs of church512's
-// 512 map at B = 4), a few fp32 instructions (the exponent's FFMA, the
-// row max and sum in K3; dl's FSUB and FMUL in K6; bf16 packing) and, on
-// the tensor cores, the thin contractions padded to the mma's shapes:
-// d = 2 padded to k = 8 (m16n8k8) for the scores, c = 8 exactly n8 or
-// k8. The bytes are a few tens of MB (~20 us), so the SFU and the rate
-// at which those instructions are issued bind, not memory.
+// 512 map at B = 4, 0.064 ms for the 2.7e8 of church64 G's 64 map at
+// B = 64), a few fp32 instructions (the exponent's FFMA, the row max and
+// sum in K1 and K3; dl's FSUB and FMUL in K6; bf16 packing) and, on the
+// tensor cores, the thin contractions padded to the mma's shapes: d = 2
+// padded to k = 8 (m16n8k8) for the scores, c = 8 exactly n8 or k8. The
+// bytes are a few tens of MB (~20 us at the 512 map, ~3 us at the 64
+// map), so the SFU and the rate at which those instructions are issued
+// bind, not memory. K2 takes two exponentials a pair (its scores are
+// recomputed twice): a floor of 0.128 ms at the 64 map.
 //
 // K3's design (FlashAttention-2's forward on mma.sync), each choice the
 // fastest of the alternatives the study times (the switches below;
@@ -47,6 +62,39 @@
 //  * the scores' C fragments are, packed to bf16, the A fragments of P.V
 //    (two n8 score tiles are one k16 tile of P), and V's B fragments come
 //    from ldmatrix.trans of the row-major staged V.
+//
+// K1's design: K3's loop (one body, fwd_mma_body), with the tiles chosen
+// for the single-pass shapes (M <= 5,857 keys, at most 1,024 on the model
+// paths), each choice timed against its alternative by the 64-map study
+// (sagan_tpu_torch/tools/bench_attn_floor.py, k1_mma; PERF.md §6):
+//  * the whole key set is staged once, by cp.async in one group, where it
+//    fits kK1WholeBytes of shared memory (church64 G's 64 map: 1,024 keys
+//    of 32 bytes, 32 KB), so the key loop runs without a barrier; a key
+//    set past it is walked in 64-key tiles as K3 walks them. A K3 shape
+//    never fits; a single-pass one mostly does;
+//  * a block of 8 warps, a warp one m16 row tile: 128 query rows a block,
+//    2,048 blocks at church64 G's 64 map at B = 64. Each choice alone
+//    reads slower than the two together (K3's tile walk with 8 warps
+//    slowest); two row tiles a warp read slower too.
+//
+// K2's design: two passes over the pairs and a sum, 3 launches, no
+// atomics (the same bits every run):
+//  * (a) attention_bwd_stats_mma_kernel, K1's loop (fwd_mma_body again, the
+//    key set staged as K1 stages it, 4 warps a block)
+//    with dP = G V^T on the mma beside S = Q K^T (m16n8k8 where c = 8): the
+//    online max, l = sum e and A = sum e dp in fp32 from the C fragments,
+//    and each row's (-lse log2e, delta = A / l) written as the float2 that
+//    K6 reads, padded rows (-inf, 0). delta is not taken from g . o: K2
+//    keeps no o;
+//  * (b) attention_bwd_grads_mma_kernel, K6's key-major body on those
+//    pairs, with the key block sized to fill the card: K6's 8 x KT m16 key
+//    tiles, KT halved (down to 1) while the grid holds fewer than kK2Fill
+//    blocks an SM (church64 G's 64 map at B = 64: KT 2, 256 keys, 256
+//    blocks, where K6's 1,024 keys would make 64 blocks for 132 SMs; both
+//    K6's key block and a fill of 2 blocks an SM read slower there);
+//  * (c) attention_bwd_dq_sum_kernel sums the fp32 dq partials of (b),
+//    [B, NKB, N, D], in key-block order and writes dq in bf16 (16.8 MB of
+//    partials at the 64 map).
 //
 // K6's design (FlashAttention-2's backward, key-major as the CUDA-core
 // K6):
@@ -72,7 +120,7 @@
 //    fp32 dq partial rows once: no atomics, the same bits every run.
 //
 // The value width C is fixed per build (-DSAGAN_ATTN_C=8, 16, ...), one
-// small library per width holding all three kernels; D in {2, 4, 8, 16,
+// small library per width holding all the kernels; D in {2, 4, 8, 16,
 // 32} is a template argument.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +176,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
                               bytes);
 }
 
-// ---- K3: the forward ------------------------------------------------------
+// ---- K3 and K1: the forward; K2's stats pass ------------------------------
 
 // Each of K3's design choices can be flipped at build time, for the study
 // of what each is worth (sagan_tpu_torch/tools/bench_attn_floor512.py):
@@ -138,7 +186,8 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 // -DSAGAN_MMA_MASK_ALL=1 masks every tile, -DSAGAN_MMA_EXPF=1 takes S1's
 // exponent (__expf(s - m), a rescale __expf(m_old - m_new)) and
 // -DSAGAN_MMA_VOTE=1 skips the rescale in a tile where no row's max moved
-// (a warp vote). The defaults are the shipped kernel.
+// (a warp vote). The defaults are the shipped kernel. They leave K1 and
+// K2 as they are.
 #ifdef SAGAN_MMA_STAGES
 constexpr int kFwdStages = SAGAN_MMA_STAGES;
 #else
@@ -161,10 +210,43 @@ constexpr bool kVote = false;
 #endif
 static_assert(kFwdStages >= 1, "SAGAN_MMA_STAGES: at least one stage");
 
+// K1's and K2's choices, flipped at build time for the 64-map study
+// (sagan_tpu_torch/tools/bench_attn_floor.py, k1_mma and k2_mma):
+// -DSAGAN_K1_WHOLE_BYTES=0 walks every key set in 64-key tiles as K3 does
+// (else the whole key set is staged once where it fits that many bytes;
+// K2's stats pass follows the same rule), -DSAGAN_K1_ROW_TILES=2 gives a
+// warp two m16 row tiles, -DSAGAN_K1_WARPS=4 makes a block 4 warps, and
+// -DSAGAN_K2_FILL=0 gives K2's gradient pass K6's key block (else KT is
+// halved while the grid holds fewer than that many blocks an SM). The
+// defaults are the shipped kernels.
+#ifdef SAGAN_K1_WHOLE_BYTES
+constexpr int kK1WholeBytes = SAGAN_K1_WHOLE_BYTES;
+#else
+constexpr int kK1WholeBytes = 48 * 1024;
+#endif
+#ifdef SAGAN_K1_ROW_TILES
+constexpr int kK1RowTiles = SAGAN_K1_ROW_TILES;
+#else
+constexpr int kK1RowTiles = 1;
+#endif
+#ifdef SAGAN_K1_WARPS
+constexpr int kK1Warps = SAGAN_K1_WARPS;
+#else
+constexpr int kK1Warps = 8;
+#endif
+#ifdef SAGAN_K2_FILL
+constexpr int kK2Fill = SAGAN_K2_FILL;
+#else
+constexpr int kK2Fill = 1;
+#endif
+static_assert(kK1WholeBytes <= 227 * 1024, "SAGAN_K1_WHOLE_BYTES: at most "
+              "the 227 KB of shared memory a block can have");
+
 constexpr int kFwdWarps = 4;
-constexpr int kFwdThreads = 32 * kFwdWarps;
 constexpr int kFwdTile = 64;  // keys a stage
 constexpr int kFwdGroups = kFwdTile / 8;  // n8 key groups a tile
+constexpr int kStatsWarps = 4;  // K2's stats pass: 64 query rows a block
+constexpr int kStatsRows = 16 * kStatsWarps;
 
 // m16 row tiles a warp
 #ifdef SAGAN_MMA_ROW_TILES
@@ -173,26 +255,56 @@ constexpr int kRowTiles = SAGAN_MMA_ROW_TILES;
 constexpr int kRowTiles = 1;
 #endif
 
+// what a pass of fwd_mma_body writes
+enum FwdOut { kOutFlash, kOutFwd, kOutStats };
+
 template <int D, int C>
 struct FwdSmem {
   static constexpr int kKRow = row_units(D) * 16;
   static constexpr int kVRow = row_units(C) * 16;
   static constexpr int kK = kFwdTile * kKRow;
   static constexpr int kStage = kK + kFwdTile * kVRow;
-  static constexpr int kBytes = kFwdStages * kStage;
 };
 
+// shared memory of a forward-shaped pass: a stage for every tile of the
+// key set where it is staged whole, else a ring of `stages`
 template <int D, int C>
-__global__ void __launch_bounds__(kFwdThreads)
-    attention_flash_fwd_mma_kernel(const bf16* __restrict__ q,
-                                   const bf16* __restrict__ k,
-                                   const bf16* __restrict__ v,
-                                   bf16* __restrict__ o,
-                                   float* __restrict__ lse, int n, int m) {
-  constexpr int RT = kRowTiles;
+__host__ __device__ inline int fwd_smem_bytes(int m, bool whole, int stages) {
+  const int tiles = (m + kFwdTile - 1) / kFwdTile;
+  return (whole ? tiles : stages) * FwdSmem<D, C>::kStage;
+}
+
+// the key set of a K1 or K2 stats pass is staged whole where it fits
+template <int D, int C>
+__host__ inline bool stage_whole(int m) {
+  return fwd_smem_bytes<D, C>(m, true, 1) <= kK1WholeBytes;
+}
+
+// K1, K3 and K2's stats pass: a block of kWarps warps, RT m16 row tiles a
+// warp, walks the key set in 64-key tiles (staged whole where kWhole, else
+// through a cp.async ring of kStages) with an online softmax of the mma
+// scores. kOutFlash and kOutFwd accumulate P V and write o (and, for
+// kOutFlash, lse); kOutStats computes dP = G V^T beside the scores,
+// accumulates A = sum e dp, and writes each row's (-lse log2e, A / l),
+// rows n..npad-1 (-inf, 0).
+template <int D, int C, int kOut, int kWarps, int RT, int kStages,
+          bool kWhole>
+__device__ __forceinline__ void fwd_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ gin,
+    bf16* __restrict__ o, float* __restrict__ lse, float2* __restrict__ ld,
+    int n, int m, int npad) {
+  constexpr int kThreads = 32 * kWarps;
+  constexpr bool kStats = kOut == kOutStats;
+  constexpr bool kFlash = kOut == kOutFlash;
   constexpr bool kK8 = D <= 8;       // scores on m16n8k8
   constexpr int KS = kK8 ? 1 : D / 16;  // k16 steps of the scores
+  constexpr bool kCK8 = C == 8;      // dP on m16n8k8
+  constexpr int CS = kCK8 ? 1 : C / 16;  // k16 steps of dP
   constexpr int NT = C / 8;          // n8 channel tiles
+  constexpr bool kMask = kFlash && kMaskAll;
+  constexpr bool kEx = kFlash && kExpf;
+  constexpr bool kVt = kFlash && kVote;
   using S = FwdSmem<D, C>;
   extern __shared__ __align__(16) char smem[];
 
@@ -201,72 +313,95 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // rows g and g + 8 of each row tile
   const int t = lane & 3;   // keys (channels) 2t and 2t + 1 of each n8
-  const int row0 = (blockIdx.x * kFwdWarps + warp) * 16 * RT;
+  const int row0 = (blockIdx.x * kWarps + warp) * 16 * RT;
   const bf16* kb = k + (size_t)b * m * D;
   const bf16* vb = v + (size_t)b * m * C;
   const int tiles = (m + kFwdTile - 1) / kFwdTile;
 
   // the padding of staged rows is never written by cp.async: zero it
-  zero_smem(smem, S::kBytes, kFwdThreads);
+  zero_smem(smem, (kWhole ? tiles : kStages) * S::kStage, kThreads);
   __syncthreads();
   auto load = [&](int tile) {
     if (tile < tiles) {
-      char* st = smem + (tile % kFwdStages) * S::kStage;
-      stage_rows<D, kFwdThreads>(st, kb, tile * kFwdTile, kFwdTile, m);
-      stage_rows<C, kFwdThreads>(st + S::kK, vb, tile * kFwdTile, kFwdTile,
-                                 m);
+      char* st = smem + (kWhole ? tile : tile % kStages) * S::kStage;
+      stage_rows<D, kThreads>(st, kb, tile * kFwdTile, kFwdTile, m);
+      stage_rows<C, kThreads>(st + S::kK, vb, tile * kFwdTile, kFwdTile, m);
     }
     cp_async_commit();  // an empty group past the last tile keeps the count
   };
+  if constexpr (kWhole) {
+    for (int s = 0; s < tiles; ++s) load(s);
+  } else {
 #pragma unroll
-  for (int s = 0; s < kFwdStages - 1; ++s) load(s);
+    for (int s = 0; s < kStages - 1; ++s) load(s);
+  }
 
-  // Q's A fragments: a row's d values are d/2 words; zero past d and N
-  const uint32_t* qw =
-      reinterpret_cast<const uint32_t*>(q) + (size_t)b * n * (D / 2);
-  auto qword = [&](int row, int word) -> uint32_t {
-    return row < n && 2 * word < D ? qw[(size_t)row * (D / 2) + word] : 0u;
+  // Q's (and, for the stats, G's) A fragments: a row's w values are w/2
+  // words; zero past w and N
+  auto aword = [&](const bf16* base, int w, int row, int word) -> uint32_t {
+    return row < n && 2 * word < w
+               ? reinterpret_cast<const uint32_t*>(base)[
+                     ((size_t)b * n + row) * (w / 2) + word]
+               : 0u;
   };
   uint32_t qa[RT][KS][4];
+  uint32_t ga[RT][kStats ? CS : 1][4];
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
     const int lo = row0 + 16 * rt + g;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      qa[rt][ks][0] = qword(lo, 8 * ks + t);
-      qa[rt][ks][1] = qword(lo + 8, 8 * ks + t);
-      qa[rt][ks][2] = qword(lo, 8 * ks + 4 + t);
-      qa[rt][ks][3] = qword(lo + 8, 8 * ks + 4 + t);
+      qa[rt][ks][0] = aword(q, D, lo, 8 * ks + t);
+      qa[rt][ks][1] = aword(q, D, lo + 8, 8 * ks + t);
+      qa[rt][ks][2] = aword(q, D, lo, 8 * ks + 4 + t);
+      qa[rt][ks][3] = aword(q, D, lo + 8, 8 * ks + 4 + t);
+    }
+    if constexpr (kStats) {
+#pragma unroll
+      for (int cs = 0; cs < CS; ++cs) {
+        ga[rt][cs][0] = aword(gin, C, lo, 8 * cs + t);
+        ga[rt][cs][1] = aword(gin, C, lo + 8, 8 * cs + t);
+        ga[rt][cs][2] = aword(gin, C, lo, 8 * cs + 4 + t);
+        ga[rt][cs][3] = aword(gin, C, lo + 8, 8 * cs + 4 + t);
+      }
     }
   }
 
-  float acc[RT][NT][4];
+  float acc[RT][kStats ? 1 : NT][4];
   float mx[RT][2], nm[RT][2], l[RT][2];  // running max, -max log2e, sum
+  float asum[RT][2];                     // the stats' sum of e dp
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < (kStats ? 1 : NT); ++j)
       acc[rt][j][0] = acc[rt][j][1] = acc[rt][j][2] = acc[rt][j][3] = 0.f;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[rt][r] = -INFINITY;
       nm[rt][r] = INFINITY;
       l[rt][r] = 0.f;
+      asum[rt][r] = 0.f;
     }
   }
 
+  if constexpr (kWhole) {
+    cp_async_wait<0>();  // the whole key set has landed
+    __syncthreads();
+  }
   for (int it = 0; it < tiles; ++it) {
-    if constexpr (kFwdStages == 1) {
+    if constexpr (kWhole) {
+      // staged once: no barrier in the loop
+    } else if constexpr (kStages == 1) {
       __syncthreads();  // every thread is done with tile it - 1
       load(it);
       cp_async_wait<0>();
       __syncthreads();
     } else {
-      cp_async_wait<kFwdStages - 2>();  // tile `it` has landed
+      cp_async_wait<kStages - 2>();  // tile `it` has landed
       __syncthreads();  // ... for every thread, all done with it - 1
-      load(it + kFwdStages - 1);
+      load(it + kStages - 1);
     }
-    const char* ks_ = smem + (it % kFwdStages) * S::kStage;
+    const char* ks_ = smem + (kWhole ? it : it % kStages) * S::kStage;
     const char* vs = ks_ + S::kK;
 
     // B fragments of K^T: key group h's rows, d values as the mma's k
@@ -306,9 +441,50 @@ __global__ void __launch_bounds__(kFwdThreads)
         }
       }
     }
+    // the stats' dP = G V^T in the scores' layout; V's B fragments loaded
+    // a few key groups at a time (a wide C would hold 16 words a group).
+    // Keys past M are staged as zeros: their dp is 0
+    float dp[RT][kStats ? kFwdGroups : 1][4];
+    if constexpr (kStats) {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < kFwdGroups; ++h)
+          dp[rt][h][0] = dp[rt][h][1] = dp[rt][h][2] = dp[rt][h][3] = 0.f;
+      if constexpr (kCK8) {
+#pragma unroll
+        for (int h0 = 0; h0 < kFwdGroups; h0 += 4) {
+          uint32_t vf[4];
+          ldsm_x4(vf[0], vf[1], vf[2], vf[3], vs + (8 * h0 + lane) * S::kVRow);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int rt = 0; rt < RT; ++rt)
+              mma_bf16_k8(dp[rt][h0 + i], ga[rt][0][0], ga[rt][0][1], vf[i]);
+        }
+      } else {
+#pragma unroll
+        for (int cs = 0; cs < CS; ++cs) {
+#pragma unroll
+          for (int h0 = 0; h0 < kFwdGroups; h0 += 2) {
+            uint32_t vf[4];
+            ldsm_x4(vf[0], vf[1], vf[2], vf[3],
+                    vs + (8 * (h0 + (lane >> 4)) + (lane & 7)) * S::kVRow +
+                        (2 * cs + ((lane >> 3) & 1)) * 16);
+#pragma unroll
+            for (int rt = 0; rt < RT; ++rt) {
+              mma_bf16(dp[rt][h0], ga[rt][cs][0], ga[rt][cs][1], ga[rt][cs][2],
+                       ga[rt][cs][3], vf[0], vf[1]);
+              mma_bf16(dp[rt][h0 + 1], ga[rt][cs][0], ga[rt][cs][1],
+                       ga[rt][cs][2], ga[rt][cs][3], vf[2], vf[3]);
+            }
+          }
+        }
+      }
+    }
     const int tm = m - it * kFwdTile;
     // keys past M weigh 0: only the ragged last tile has them
-    if (kMaskAll || tm < kFwdTile) {
+    if (kMask || tm < kFwdTile) {
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -319,7 +495,7 @@ __global__ void __launch_bounds__(kFwdThreads)
     }
 
     // the online softmax: e = 2^(s log2e - m log2e) in place of s
-    float scale[RT][2], tl[RT][2];
+    float scale[RT][2], tl[RT][2], ta[RT][2];
     bool moved = false;
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt) {
@@ -334,26 +510,38 @@ __global__ void __launch_bounds__(kFwdThreads)
         // exactly 1 while the max holds; 0 on the first tile
         const bool up = nm_new != nm[rt][r];
         moved |= up;
-        if constexpr (kExpf)
+        if constexpr (kEx)
           scale[rt][r] = __expf(mx[rt][r] - m_new);
         else
           scale[rt][r] = up ? ex2(nm_new - nm[rt][r]) : 1.f;
         mx[rt][r] = m_new;
         nm[rt][r] = nm_new;
-        float sum = 0.f;
+        float sum = 0.f, asm_ = 0.f;
 #pragma unroll
         for (int h = 0; h < kFwdGroups; ++h) {
 #pragma unroll
           for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[rt][h][e] = kExpf ? __expf(s[rt][h][e] - m_new)
-                                : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
+            s[rt][h][e] = kEx ? __expf(s[rt][h][e] - m_new)
+                              : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
             sum += s[rt][h][e];
+            if constexpr (kStats) asm_ = fmaf(s[rt][h][e], dp[rt][h][e], asm_);
           }
         }
         tl[rt][r] = sum;  // the tile's terms, added to l once
+        ta[rt][r] = asm_;
       }
     }
-    if (!kVote || kExpf || __any_sync(kFull, moved)) {
+    if constexpr (kStats) {
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[rt][r] = fmaf(l[rt][r], scale[rt][r], tl[rt][r]);
+          asum[rt][r] = fmaf(asum[rt][r], scale[rt][r], ta[rt][r]);
+        }
+      continue;
+    }
+    if (!kVt || __any_sync(kFull, moved)) {
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
@@ -393,7 +581,7 @@ __global__ void __launch_bounds__(kFwdThreads)
         }
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < (kStats ? 1 : NT); ++j) {
         uint32_t vf[4];
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
@@ -411,24 +599,74 @@ __global__ void __launch_bounds__(kFwdThreads)
     }
   }
 
-  uint32_t* ow = reinterpret_cast<uint32_t*>(o) + (size_t)b * n * (C / 2);
+  if constexpr (kStats) {
 #pragma unroll
-  for (int rt = 0; rt < RT; ++rt) {
+    for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float lsum = quad_sum(l[rt][r]);
-      const int row = row0 + 16 * rt + g + 8 * r;
-      if (row >= n) continue;
+      for (int r = 0; r < 2; ++r) {
+        const float lsum = quad_sum(l[rt][r]);
+        const float a = quad_sum(asum[rt][r]);
+        const int row = row0 + 16 * rt + g + 8 * r;
+        if (t == 0 && row < npad)
+          ld[(size_t)b * npad + row] =
+              row < n ? make_float2(nm[rt][r] - log2f(lsum), a / lsum)
+                      : make_float2(-INFINITY, 0.f);
+      }
+    }
+  } else {
+    uint32_t* ow = reinterpret_cast<uint32_t*>(o) + (size_t)b * n * (C / 2);
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        ow[(size_t)row * (C / 2) + 4 * j + t] =
-            pack_bf16(acc[rt][j][2 * r] / lsum, acc[rt][j][2 * r + 1] / lsum);
-      if (t == 0) lse[(size_t)b * n + row] = mx[rt][r] + logf(lsum);
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lsum = quad_sum(l[rt][r]);
+        const int row = row0 + 16 * rt + g + 8 * r;
+        if (row >= n) continue;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          ow[(size_t)row * (C / 2) + 4 * j + t] = pack_bf16(
+              acc[rt][j][2 * r] / lsum, acc[rt][j][2 * r + 1] / lsum);
+        if constexpr (kFlash)
+          if (t == 0) lse[(size_t)b * n + row] = mx[rt][r] + logf(lsum);
+      }
     }
   }
 }
 
-// ---- K6: the fused backward -----------------------------------------------
+template <int D, int C>
+__global__ void __launch_bounds__(32 * kFwdWarps)
+    attention_flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                                   const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   bf16* __restrict__ o,
+                                   float* __restrict__ lse, int n, int m) {
+  fwd_mma_body<D, C, kOutFlash, kFwdWarps, kRowTiles, kFwdStages, false>(
+      q, k, v, nullptr, o, lse, nullptr, n, m, 0);
+}
+
+template <int D, int C, bool kWhole>
+__global__ void __launch_bounds__(32 * kK1Warps)
+    attention_fwd_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             bf16* __restrict__ o, int n, int m) {
+  fwd_mma_body<D, C, kOutFwd, kK1Warps, kK1RowTiles, 1, kWhole>(
+      q, k, v, nullptr, o, nullptr, nullptr, n, m, 0);
+}
+
+template <int D, int C, bool kWhole>
+__global__ void __launch_bounds__(32 * kStatsWarps)
+    attention_bwd_stats_mma_kernel(const bf16* __restrict__ q,
+                                   const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   const bf16* __restrict__ g,
+                                   float2* __restrict__ ld, int n, int m,
+                                   int npad) {
+  fwd_mma_body<D, C, kOutStats, kStatsWarps, 1, 1, kWhole>(
+      q, k, v, g, nullptr, nullptr, ld, n, m, npad);
+}
+
+// ---- K6 and K2's gradient pass: the key-major backward ----------------------
 
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
@@ -450,9 +688,9 @@ __host__ __device__ constexpr int bwd_keys_per_block() {
   return kBwdWarps * 16 * bwd_key_tiles<D, C>();
 }
 
-template <int D, int C>
+template <int D, int C, int KT>
 struct BwdSmem {
-  static constexpr int KB = bwd_keys_per_block<D, C>();
+  static constexpr int KB = kBwdWarps * 16 * KT;
   static constexpr int kDRow = row_units(D) * 16;
   static constexpr int kCRow = row_units(C) * 16;
   static constexpr int kV = KB * kDRow;              // offset of V's rows
@@ -498,25 +736,26 @@ __global__ void __launch_bounds__(kDeltaThreads)
   ld[(size_t)b * npad + row] = out;
 }
 
-template <int D, int C>
-__global__ void __launch_bounds__(kBwdThreads)
-    attention_flash_dqkv_mma_kernel(const bf16* __restrict__ q,
-                                    const bf16* __restrict__ k,
-                                    const bf16* __restrict__ v,
-                                    const bf16* __restrict__ g,
-                                    const float2* __restrict__ ld,
-                                    bf16* __restrict__ dk,
-                                    bf16* __restrict__ dv,
-                                    float* __restrict__ dq_part, int n,
-                                    int m, int npad) {
-  constexpr int KT = bwd_key_tiles<D, C>();
+// K6's and K2's key-major pass: a block owns 8 x KT m16 key tiles and
+// writes their dk, dv and its fp32 dq partial rows, from the (-lse log2e,
+// delta) pairs in `ld`
+template <int D, int C, int KT>
+__device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
+                                              const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v,
+                                              const bf16* __restrict__ g,
+                                              const float2* __restrict__ ld,
+                                              bf16* __restrict__ dk,
+                                              bf16* __restrict__ dv,
+                                              float* __restrict__ dq_part,
+                                              int n, int m, int npad) {
   constexpr bool kDK8 = D <= 8;       // S^T on m16n8k8
   constexpr int DS = kDK8 ? 1 : D / 16;  // its k16 steps
   constexpr bool kCK8 = C == 8;       // dP^T on m16n8k8
   constexpr int CS = kCK8 ? 1 : C / 16;
   constexpr int DT = (D + 7) / 8;     // n8 tiles of dK and dQ
   constexpr int NT = C / 8;           // n8 tiles of dV
-  using S = BwdSmem<D, C>;
+  using S = BwdSmem<D, C, KT>;
   extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.y;
@@ -749,21 +988,183 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+template <int D, int C>
+__global__ void __launch_bounds__(kBwdThreads)
+    attention_flash_dqkv_mma_kernel(const bf16* __restrict__ q,
+                                    const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v,
+                                    const bf16* __restrict__ g,
+                                    const float2* __restrict__ ld,
+                                    bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv,
+                                    float* __restrict__ dq_part, int n,
+                                    int m, int npad) {
+  dqkv_mma_body<D, C, bwd_key_tiles<D, C>()>(q, k, v, g, ld, dk, dv, dq_part,
+                                              n, m, npad);
+}
+
+template <int D, int C, int KT>
+__global__ void __launch_bounds__(kBwdThreads)
+    attention_bwd_grads_mma_kernel(const bf16* __restrict__ q,
+                                   const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   const bf16* __restrict__ g,
+                                   const float2* __restrict__ ld,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv,
+                                   float* __restrict__ dq_part, int n, int m,
+                                   int npad) {
+  dqkv_mma_body<D, C, KT>(q, k, v, g, ld, dk, dv, dq_part, n, m, npad);
+}
+
+// K2's dq: the sum of the gradient pass's fp32 partials [B, NKB, N * D]
+// in key-block order, in bf16 (q's type)
+constexpr int kSumThreads = 256;
+__global__ void __launch_bounds__(kSumThreads)
+    attention_bwd_dq_sum_kernel(const float* __restrict__ part,
+                                bf16* __restrict__ dq, int per, int nkb) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * kSumThreads + threadIdx.x;
+  if (i >= per) return;
+  const float* p = part + (size_t)b * nkb * per + i;
+  float sum = 0.f;
+  for (int kb = 0; kb < nkb; ++kb) sum += p[(size_t)kb * per];
+  dq[(size_t)b * per + i] = __float2bfloat16(sum);
+}
+
 // query rows of the (-lse log2e, delta) scratch: n padded to the tile
 int delta_rows(int n) { return (n + kBwdQTile - 1) / kBwdQTile * kBwdQTile; }
+// K2's stats pass writes every row of that scratch, one block a tile
+static_assert(kStatsRows == kBwdQTile, "stats rows a block: K6's query tile");
 
 template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int b, int n, int m, cudaStream_t st) {
   constexpr int C = SAGAN_ATTN_C;
   constexpr int rows = 16 * kRowTiles * kFwdWarps;
-  constexpr int bytes = FwdSmem<D, C>::kBytes;
+  constexpr int bytes = kFwdStages * FwdSmem<D, C>::kStage;
   auto kernel = attention_flash_fwd_mma_kernel<D, C>;
   static const cudaError_t allowed = allow_smem(kernel, bytes);
   if (allowed != cudaSuccess) return allowed;
-  kernel<<<dim3((n + rows - 1) / rows, b), kFwdThreads, bytes, st>>>(
+  kernel<<<dim3((n + rows - 1) / rows, b), 32 * kFwdWarps, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, n, m);
+  return cudaGetLastError();
+}
+
+// K1: the whole key set staged once where it fits, else 64-key tiles
+template <int D>
+cudaError_t launch_fwd1(const void* q, const void* k, const void* v, void* o,
+                        int b, int n, int m, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  constexpr int rows = 16 * kK1RowTiles * kK1Warps;
+  const dim3 grid((n + rows - 1) / rows, b);
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  auto* op = static_cast<bf16*>(o);
+  if (stage_whole<D, C>(m)) {
+    auto kernel = attention_fwd_mma_kernel<D, C, true>;
+    static const cudaError_t allowed = allow_smem(kernel, kK1WholeBytes);
+    if (allowed != cudaSuccess) return allowed;
+    kernel<<<grid, 32 * kK1Warps, fwd_smem_bytes<D, C>(m, true, 1), st>>>(
+        qp, kp, vp, op, n, m);
+  } else {
+    attention_fwd_mma_kernel<D, C, false>
+        <<<grid, 32 * kK1Warps, FwdSmem<D, C>::kStage, st>>>(qp, kp, vp, op,
+                                                             n, m);
+  }
+  return cudaGetLastError();
+}
+
+// the card's SMs (the current device's; asked once)
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
+}
+
+// m16 key tiles a warp of K2's gradient pass owns: K6's KT, halved while
+// the grid holds fewer than kK2Fill blocks an SM (kK2Fill 0: K6's KT)
+template <int D, int C>
+int k2_key_tiles(int b, int m, int sms) {
+  int kt = bwd_key_tiles<D, C>();
+  while (kK2Fill > 0 && kt > 1 &&
+         (long long)b * ((m + kBwdWarps * 16 * kt - 1) /
+                         (kBwdWarps * 16 * kt)) <
+             (long long)kK2Fill * sms)
+    kt /= 2;
+  return kt;
+}
+
+struct K2Args {
+  const void *q, *k, *v, *g;
+  void *dq, *dk, *dv;
+  float2* ld;
+  float* part;
+  int b, n, m;
+};
+
+template <int D, int KT>
+cudaError_t launch_k2_grads(const K2Args& a, int npad, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  using S = BwdSmem<D, C, KT>;
+  auto kernel = attention_bwd_grads_mma_kernel<D, C, KT>;
+  static const cudaError_t allowed = allow_smem(kernel, S::kBytes);
+  if (allowed != cudaSuccess) return allowed;
+  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), kBwdThreads, S::kBytes,
+           st>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                 static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+                 a.ld, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+                 a.part, a.n, a.m, npad);
+  return cudaGetLastError();
+}
+
+// K2: (a) the stats, (b) the gradients with dq partials, (c) their sum
+template <int D>
+cudaError_t launch_k2(const K2Args& a, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  constexpr int kMaxKT = bwd_key_tiles<D, C>();
+  const int npad = delta_rows(a.n);
+  const dim3 sgrid(npad / kStatsRows, a.b);
+  const auto* qp = static_cast<const bf16*>(a.q);
+  const auto* kp = static_cast<const bf16*>(a.k);
+  const auto* vp = static_cast<const bf16*>(a.v);
+  const auto* gp = static_cast<const bf16*>(a.g);
+  if (stage_whole<D, C>(a.m)) {
+    auto kernel = attention_bwd_stats_mma_kernel<D, C, true>;
+    static const cudaError_t allowed = allow_smem(kernel, kK1WholeBytes);
+    if (allowed != cudaSuccess) return allowed;
+    kernel<<<sgrid, 32 * kStatsWarps, fwd_smem_bytes<D, C>(a.m, true, 1),
+             st>>>(qp, kp, vp, gp, a.ld, a.n, a.m, npad);
+  } else {
+    attention_bwd_stats_mma_kernel<D, C, false>
+        <<<sgrid, 32 * kStatsWarps, FwdSmem<D, C>::kStage, st>>>(
+            qp, kp, vp, gp, a.ld, a.n, a.m, npad);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int kt = k2_key_tiles<D, C>(a.b, a.m, sm_count());
+  if (kt == 1) err = launch_k2_grads<D, 1>(a, npad, st);
+  if constexpr (kMaxKT >= 2)
+    if (kt == 2) err = launch_k2_grads<D, 2>(a, npad, st);
+  if constexpr (kMaxKT >= 4)
+    if (kt == 4) err = launch_k2_grads<D, 4>(a, npad, st);
+  if constexpr (kMaxKT >= 8)
+    if (kt == 8) err = launch_k2_grads<D, 8>(a, npad, st);
+  if (err != cudaSuccess) return err;
+
+  const int per = a.n * D;
+  const int nkb = (a.m + kBwdWarps * 16 * kt - 1) / (kBwdWarps * 16 * kt);
+  attention_bwd_dq_sum_kernel<<<dim3((per + kSumThreads - 1) / kSumThreads,
+                                     a.b),
+                                kSumThreads, 0, st>>>(
+      a.part, static_cast<bf16*>(a.dq), per, nkb);
   return cudaGetLastError();
 }
 
@@ -779,7 +1180,7 @@ struct BwdArgs {
 template <int D>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   constexpr int C = SAGAN_ATTN_C;
-  using S = BwdSmem<D, C>;
+  using S = BwdSmem<D, C, bwd_key_tiles<D, C>()>;
   const int npad = delta_rows(a.n);
   attention_flash_delta_kernel<C>
       <<<dim3((npad + kDeltaThreads - 1) / kDeltaThreads, a.b),
@@ -805,6 +1206,63 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
 // success). Operands are bf16 only (`is_bf16` must be 1); lse is fp32;
 // `c` must be SAGAN_ATTN_C. The caller checks shapes, contiguity and the
 // supported D before calling.
+
+// K1: o [B, N, C].
+extern "C" int sagan_attention_fwd_mma(const void* q, const void* k,
+                                       const void* v, void* o, int b, int n,
+                                       int m, int d, int c, int is_bf16,
+                                       void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 2: return launch_fwd1<2>(q, k, v, o, b, n, m, st);
+    case 4: return launch_fwd1<4>(q, k, v, o, b, n, m, st);
+    case 8: return launch_fwd1<8>(q, k, v, o, b, n, m, st);
+    case 16: return launch_fwd1<16>(q, k, v, o, b, n, m, st);
+    case 32: return launch_fwd1<32>(q, k, v, o, b, n, m, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K2: dq [B, N, D], dk, dv, from (q, k, v, g); three launches. `ld` is
+// fp32 scratch of [B, sagan_attention_flash_mma_delta_rows(N), 2] and
+// `part` of [B, sagan_attention_bwd_mma_key_blocks(B, M, d), N, D].
+extern "C" int sagan_attention_bwd_mma(const void* q, const void* k,
+                                       const void* v, const void* g,
+                                       void* dq, void* dk, void* dv,
+                                       void* ld, void* part, int b, int n,
+                                       int m, int d, int c, int is_bf16,
+                                       void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  const K2Args a{q, k, v, g, dq, dk, dv, static_cast<float2*>(ld),
+                 static_cast<float*>(part), b, n, m};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 2: return launch_k2<2>(a, st);
+    case 4: return launch_k2<4>(a, st);
+    case 8: return launch_k2<8>(a, st);
+    case 16: return launch_k2<16>(a, st);
+    case 32: return launch_k2<32>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Key blocks of K2's gradient pass, each one fp32 dq partial [N, D], at
+// batch b, m keys and head width d on the current device (0 for an
+// unsupported d).
+extern "C" int sagan_attention_bwd_mma_key_blocks(int b, int m, int d) {
+  constexpr int C = SAGAN_ATTN_C;
+  int kt = 0;
+  switch (d) {
+    case 2: kt = k2_key_tiles<2, C>(b, m, sm_count()); break;
+    case 4: kt = k2_key_tiles<4, C>(b, m, sm_count()); break;
+    case 8: kt = k2_key_tiles<8, C>(b, m, sm_count()); break;
+    case 16: kt = k2_key_tiles<16, C>(b, m, sm_count()); break;
+    case 32: kt = k2_key_tiles<32, C>(b, m, sm_count()); break;
+    default: return 0;
+  }
+  return (m + kBwdWarps * 16 * kt - 1) / (kBwdWarps * 16 * kt);
+}
 
 // K3: o [B, N, C] and lse, fp32 [B, N] (the caller's [B, N, 1]).
 extern "C" int sagan_attention_flash_fwd_mma(const void* q, const void* k,

@@ -222,6 +222,28 @@ def fused_keys_per_block(d: int, c: int, itemsize: int) -> int:
     return FMA_BWD_THREADS * (4 if d + c <= 10 else 2 if d + c <= 20 else 1)
 
 
+# blocks an SM the bf16 K2's gradient pass aims for
+# (attention_flash_mma.cu kK2Fill): its key block is K6's, halved while the
+# grid holds fewer (church64 G's 64 map at B = 64: 256 keys, 256 blocks,
+# where K6's 1,024 would make 64 blocks for the H100's 132 SMs)
+K2_FILL = 1
+
+
+def k2_key_blocks(b: int, m: int, d: int, c: int, sms: int,
+                  fill: int = K2_FILL) -> int:
+    """Key blocks of the bf16 K2's gradient pass on a card of ``sms`` SMs,
+    each of which writes one fp32 dq partial [N, d]: K6's 8 warps of KT
+    16-key tiles, KT halved (down to 1) while B x blocks < ``fill`` x
+    ``sms`` (``fill`` 0: K6's key block).  The Python copy of the
+    library's rule (``k2_key_tiles``), which chip_smoke holds against
+    it."""
+    tiles = fused_keys_per_block(d, c, 2) // (MMA_BWD_WARPS * 16)
+    while fill > 0 and tiles > 1 and \
+            b * -(-m // (MMA_BWD_WARPS * 16 * tiles)) < fill * sms:
+        tiles //= 2
+    return -(-m // (MMA_BWD_WARPS * 16 * tiles))
+
+
 def dq_slab_bytes(b: int, n: int, m: int, d: int, c: int,
                   itemsize: int) -> int:
     """Bytes of K6's fp32 dq partials, [B, ceil(M / key block), N, d]."""

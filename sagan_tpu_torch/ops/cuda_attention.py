@@ -19,9 +19,10 @@ Functions:
   ``torch.autograd.Function`` pairs, as the JAX package's ``custom_vjp``
   pairs them.
 
-K3 and K6 have two engines.  ``mma`` (``csrc/attention_flash_mma.cu``)
-runs both contractions of every (query, key) pair on the tensor cores and
-takes bf16 only; ``fma`` (K3 in ``csrc/attention_fwd.cu``, K6 in
+K1, K2, K3 and K6 have two engines.  ``mma``
+(``csrc/attention_flash_mma.cu``) runs the contractions of every (query,
+key) pair on the tensor cores and takes bf16 only; ``fma`` (K1 and K3 in
+``csrc/attention_fwd.cu``, K2 in ``csrc/attention_bwd.cu``, K6 in
 ``csrc/attention_flash_bwd.cu``) runs them as fp32 FMAs on the CUDA cores
 and takes bf16 and fp32.  The dtype picks the engine: bf16 tensors take
 ``mma``, fp32 tensors ``fma`` (the tensor cores would take fp32 only as
@@ -29,6 +30,11 @@ TF32, which misses the fp32 limit of 1e-4).  That is a dtype rule, not a
 fallback: a failed build or launch raises.  ``engine="fma"`` names the
 CUDA-core kernels for bf16 too, which the studies and ``chip_smoke.py``
 time beside the tensor-core ones; the model's path never passes it.
+The ``mma`` K2 is three launches of one call: a query-major stats pass
+(each row's -lse log2e and delta), a key-major gradient pass after K6's
+with fp32 dq partials over key blocks sized to fill the card
+(:func:`~sagan_tpu_torch.ops.attention.k2_key_blocks`), and their
+sum in key-block order.
 
 Each wrapper launches its kernel for tensors on the card and raises on
 anything the kernel does not take; it runs the plain version
@@ -37,19 +43,20 @@ There is no fallback from a failed build or launch.
 
 ``LAUNCHES``, ``BWD_LAUNCHES``, ``FLASH_FWD_LAUNCHES``,
 ``FLASH_DQ_LAUNCHES``, ``FLASH_DKV_LAUNCHES`` and ``FLASH_DQKV_LAUNCHES``
-count the kernels' launches (K3 and K6 on the ``fma`` engine), and
-``FLASH_FWD_MMA_LAUNCHES`` and ``FLASH_DQKV_MMA_LAUNCHES`` those of the
-``mma`` K3 and K6, so a run can show that its attention went through
-them.
+count the kernels' launches (K1, K2, K3 and K6 on the ``fma`` engine), and
+``FWD_MMA_LAUNCHES``, ``BWD_MMA_LAUNCHES``, ``FLASH_FWD_MMA_LAUNCHES`` and
+``FLASH_DQKV_MMA_LAUNCHES`` those of the ``mma`` K1, K2, K3 and K6, so a
+run can show that its attention went through them.
 
 The wrappers of K1 and K3-K6 take ``tiles``, ``-D`` defines that build
 their library at other tiles (``csrc/attention_fwd.cu``'s
 ``SAGAN_FWD_ROWS``, ``SAGAN_FWD_TILE``; ``csrc/attention_flash_bwd.cu``'s
 ``SAGAN_BWD_ROWS``, ``SAGAN_BWD_KEY_TILE``, ``SAGAN_BWD_THREADS``,
 ``SAGAN_BWD_KPT``; with ``engine="mma"``, ``csrc/attention_flash_mma.cu``'s
-``SAGAN_MMA_*``, each of which flips one of K3's design choices), for the
-studies; the default ``()`` is the shipped library.  Tile defines without
-an engine name the ``fma`` kernels.
+``SAGAN_MMA_*``, each of which flips one of K3's design choices, and
+``SAGAN_K1_*`` and ``SAGAN_K2_*``, K1's and K2's), for the studies; the
+default ``()`` is the shipped library.  Tile defines without an engine
+name the ``fma`` kernels.
 """
 
 from __future__ import annotations
@@ -85,6 +92,8 @@ _ENTRIES = {
     "sagan_attention_flash_dqkv": (FLASH_BWD_SOURCE, 9),  # ... dk dv part
     "sagan_attention_flash_fwd_mma": (MMA_SOURCE, 5),     # q k v o lse
     "sagan_attention_flash_dqkv_mma": (MMA_SOURCE, 10),   # ... part ld
+    "sagan_attention_fwd_mma": (MMA_SOURCE, 4),           # q k v o
+    "sagan_attention_bwd_mma": (MMA_SOURCE, 9),   # q k v g dq dk dv ld part
 }
 
 LAUNCHES = 0
@@ -95,6 +104,8 @@ FLASH_DKV_LAUNCHES = 0
 FLASH_DQKV_LAUNCHES = 0
 FLASH_FWD_MMA_LAUNCHES = 0
 FLASH_DQKV_MMA_LAUNCHES = 0
+FWD_MMA_LAUNCHES = 0
+BWD_MMA_LAUNCHES = 0
 
 
 def build_specs(widths=SUPPORTED_C,
@@ -119,9 +130,10 @@ def _entry(name: str, c: int, tiles: tuple = ()):
     return fn
 
 
-def _int_fn(source: str, name: str, c: int, tiles: tuple = ()):
+def _int_fn(source: str, name: str, c: int, tiles: tuple = (),
+            ints: int = 1):
     fn = getattr(_build.load(*build_specs((c,), (source,), tiles)[0]), name)
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * ints
     fn.restype = ctypes.c_int
     return fn
 
@@ -155,9 +167,9 @@ def dq_partial_shape(b: int, n: int, m: int, d: int, c: int,
 
 
 def _engine(q: torch.Tensor, engine: str | None, tiles: tuple) -> str:
-    """The engine of a K3 or K6 call on CUDA tensors: ``engine`` as named,
-    else ``mma`` for bf16 without tile defines and ``fma`` otherwise;
-    raises for ``mma`` on fp32."""
+    """The engine of a K1, K2, K3 or K6 call on CUDA tensors: ``engine``
+    as named, else ``mma`` for bf16 without tile defines and ``fma``
+    otherwise; raises for ``mma`` on fp32."""
     if engine is None:
         engine = "mma" if q.dtype == torch.bfloat16 and not tiles else "fma"
     if engine not in ENGINES:
@@ -250,38 +262,79 @@ def _cpu_chunk(q: torch.Tensor, k: torch.Tensor) -> int | None:
 
 
 def attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    tiles: tuple = ()) -> torch.Tensor:
+                    tiles: tuple = (), engine: str | None = None
+                    ) -> torch.Tensor:
     """softmax(q kᵀ) v with unscaled logits.  q [B,N,D], k [B,M,D],
-    v [B,M,C] -> [B,N,C] in q.dtype.  Not differentiable itself: the
-    model calls it through :class:`FusedAttention`."""
-    global LAUNCHES
+    v [B,M,C] -> [B,N,C] in q.dtype, on ``engine`` (by default ``mma``
+    for bf16, ``fma`` for fp32).  Not differentiable itself: the model
+    calls it through :class:`FusedAttention`."""
+    global LAUNCHES, FWD_MMA_LAUNCHES
     if _on_cpu(q, k, v):
+        _refuse_engine_off_card(engine)
         return attention_reference(q, k, v)
     _check(q, k, v)
+    engine = _engine(q, engine, tuple(tiles))
     b, n, _ = q.shape
     c = v.shape[2]
     out = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
-    _launch("sagan_attention_fwd", (q, k, v, out), q, c, tiles)
-    LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v)
+        _launch("sagan_attention_fwd_mma", (q, k, v, out), q, c, tiles)
+        FWD_MMA_LAUNCHES += 1
+    else:
+        _launch("sagan_attention_fwd", (q, k, v, out), q, c, tiles)
+        LAUNCHES += 1
     return out
 
 
+@functools.cache
+def bwd_mma_key_blocks(b: int, m: int, d: int, c: int,
+                       tiles: tuple = ()) -> int:
+    """Key blocks of the ``mma`` K2's gradient pass at (B, M, d, c) on the
+    card (the library reads the SM count of the device current at its
+    first call), as its library (built with ``tiles``) reports them: K2
+    writes one fp32 dq partial [N, d] per block, [B, blocks, N, d] in all
+    (:func:`~sagan_tpu_torch.ops.attention.k2_key_blocks` is the
+    rule)."""
+    return _int_fn(MMA_SOURCE, "sagan_attention_bwd_mma_key_blocks", c,
+                   tiles, ints=3)(b, m, d)
+
+
 def attention_bwd_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        g: torch.Tensor):
+                        g: torch.Tensor, tiles: tuple = (),
+                        engine: str | None = None):
     """(dq, dk, dv) of softmax(q kᵀ) v at output cotangent g [B,N,C]:
-    dq in q's dtype, dk and dv summed in fp32 and cast to k's and v's."""
-    global BWD_LAUNCHES
+    dq in q's dtype, dk and dv summed in fp32 and cast to k's and v's; on
+    ``engine`` (by default ``mma`` for bf16, ``fma`` for fp32).  The
+    ``mma`` K2's scratch comes from ``torch.empty`` here: each query row's
+    (-lse log2e, delta), fp32 [B, rows padded to 64, 2], and the dq
+    partials, fp32 [B, key blocks, N, d]."""
+    global BWD_LAUNCHES, BWD_MMA_LAUNCHES
     if _on_cpu(q, k, v, g):
+        _refuse_engine_off_card(engine)
         return attention_bwd_reference(q, k, v, g)
     _check(q, k, v, g)
-    b, n, _ = q.shape
+    engine = _engine(q, engine, tuple(tiles))
+    b, n, d = q.shape
+    m, c = v.shape[1], v.shape[2]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    stats = torch.empty((3, b, n), dtype=torch.float32, device=q.device)
-    _launch("sagan_attention_bwd", (q, k, v, g, dq, dk, dv, stats), q,
-            v.shape[2])
-    BWD_LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v, g)
+        blocks = bwd_mma_key_blocks(b, m, d, c, tuple(tiles))
+        ld = torch.empty((b, _delta_rows(n, c), 2), dtype=torch.float32,
+                         device=q.device)
+        part = torch.empty((b, blocks, n, d), dtype=torch.float32,
+                           device=q.device)
+        _launch("sagan_attention_bwd_mma", (q, k, v, g, dq, dk, dv, ld, part),
+                q, c, tiles)
+        BWD_MMA_LAUNCHES += 1
+    else:
+        stats = torch.empty((3, b, n), dtype=torch.float32, device=q.device)
+        _launch("sagan_attention_bwd", (q, k, v, g, dq, dk, dv, stats), q, c,
+                tiles)
+        BWD_LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -395,9 +448,9 @@ def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = (),
 
 class FusedAttention(torch.autograd.Function):
     """softmax(q kᵀ) v whose forward is :func:`attention_fused` and whose
-    backward is :func:`attention_bwd_fused`; like the JAX custom VJP it
-    keeps (q, k, v), not the softmax, and only when a gradient is
-    needed."""
+    backward is :func:`attention_bwd_fused`, each on its dtype's engine;
+    like the JAX custom VJP it keeps (q, k, v), not the softmax, and only
+    when a gradient is needed."""
 
     @staticmethod
     def forward(ctx, q, k, v):

@@ -17,8 +17,10 @@ the kernel does not take; it runs the plain version
 ``STUDY_LAUNCHES`` and ``FOLDED_LAUNCHES`` count the launches.
 
 The tile points of the studies' sweeps of the shipped kernels are here
-too (``FWD_POINTS``, ``BWD_POINTS``), with :func:`build_specs`, every
-library the studies load, for one parallel build.
+too (``FWD_POINTS``, ``BWD_POINTS``, and the design flips of the
+tensor-core kernels, ``MMA_POINTS``, ``K1_MMA_POINTS``,
+``K2_MMA_POINTS``), with :func:`build_specs`, every library the studies
+load, for one parallel build.
 """
 
 from __future__ import annotations
@@ -61,6 +63,26 @@ MMA_DEFINES = {
     ("vote_skip",): ("-DSAGAN_MMA_VOTE=1",),
 }
 MMA_POINTS = tuple(MMA_DEFINES)
+# the tensor-core K1 and K2 (csrc/attention_flash_mma.cu) with one of their
+# design choices flipped a point, each its own library; the first is the
+# shipped kernel.  K1: K3's 64-key tile walk in place of the whole key set
+# staged once, 4 warps a block in place of 8, two m16 row tiles a warp.
+# K2: K6's key block (no halving to fill the card), a fill of 2 blocks an
+# SM in place of 1, the stats pass on K3's tile walk.
+K1_MMA_DEFINES = {
+    ("shipped",): (),
+    ("tile_walk",): ("-DSAGAN_K1_WHOLE_BYTES=0",),
+    ("four_warps",): ("-DSAGAN_K1_WARPS=4",),
+    ("two_row_tiles",): ("-DSAGAN_K1_ROW_TILES=2",),
+}
+K2_MMA_DEFINES = {
+    ("shipped",): (),
+    ("k6_key_block",): ("-DSAGAN_K2_FILL=0",),
+    ("fill_2",): ("-DSAGAN_K2_FILL=2",),
+    ("stats_tile_walk",): ("-DSAGAN_K1_WHOLE_BYTES=0",),
+}
+K1_MMA_POINTS = tuple(K1_MMA_DEFINES)
+K2_MMA_POINTS = tuple(K2_MMA_DEFINES)
 
 
 def fwd_tiles(point) -> tuple:
@@ -86,16 +108,17 @@ def build_specs() -> list:
     """``_build.build`` specs of every library the studies load: S1 at
     every forward tile point (its fma engine takes K1's tile defines), S2,
     K1/K3 and K4-K6 at value width 8 at every tile point, and the
-    tensor-core K3/K6 at every ``MMA_POINTS`` point."""
+    tensor-core K1/K2/K3/K6 at every ``MMA_POINTS``, ``K1_MMA_POINTS`` and
+    ``K2_MMA_POINTS`` point (one library a set of defines)."""
     specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
     specs.append((FOLDED_SOURCE, ()))
     for p in FWD_POINTS:
         specs += attention_specs((C,), ("attention_fwd",), fwd_tiles(p))
     for p in BWD_POINTS:
         specs += attention_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
-    for p in MMA_POINTS:
-        specs += attention_specs((C,), ("attention_flash_mma",),
-                                 MMA_DEFINES[p])
+    mma = {**MMA_DEFINES, **K1_MMA_DEFINES, **K2_MMA_DEFINES}
+    for defines in dict.fromkeys(mma.values()):
+        specs += attention_specs((C,), ("attention_flash_mma",), defines)
     return specs
 
 

@@ -1,7 +1,7 @@
 """What the breakdown tools share: the card's name and power limit, and
 the device time and launches of each kernel in a ``torch.profiler``
-trace, with the port's kernels (attention K1-K6, K3 and K6 on either
-engine, the fused spectral norm K7) picked out by name."""
+trace, with the port's kernels (attention K1-K6, K1, K2, K3 and K6 on
+either engine, the fused spectral norm K7) picked out by name."""
 
 from __future__ import annotations
 
@@ -10,11 +10,16 @@ import subprocess
 import torch
 
 # (label, the CUDA kernels' names as a profile shows them); a launch of
-# a wrapper is one launch of its first kernel (K2 runs two)
+# a wrapper is one launch of its first kernel (K2 runs two, or three)
 ATTENTION_KERNELS = (
     ("K1 attention_fwd", ("attention_fwd_kernel<",)),
+    ("K1 attention_fwd_mma", ("attention_fwd_mma_kernel<",)),
     ("K2 attention_bwd", ("attention_bwd_dq_kernel<",
                           "attention_bwd_dkv_kernel<")),
+    # three kernels a launch: the stats, the gradients, the dq sum
+    ("K2 attention_bwd_mma", ("attention_bwd_stats_mma_kernel<",
+                              "attention_bwd_grads_mma_kernel<",
+                              "attention_bwd_dq_sum_kernel(")),
     ("K3 attention_flash_fwd", ("attention_flash_fwd_kernel<",)),
     ("K3 attention_flash_fwd_mma", ("attention_flash_fwd_mma_kernel<",)),
     ("K4 attention_flash_dq", ("attention_flash_dq_kernel<",)),
@@ -52,6 +57,25 @@ def device_kernels(prof) -> dict:
                 and not evt.key.startswith("Optimizer.")):
             out[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
     return out
+
+
+def kernel_ms_per_call(fn, *args, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of the kernels ``fn(*args)`` launches, per call: their
+    summed time in a ``torch.profiler`` trace of ``calls`` calls, after
+    ``warmup``.  Unlike CUDA events around back-to-back calls, it leaves
+    out the gaps in which the card waits for the host, which set the
+    events' reading of a call whose kernels take less time than its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(ms for ms, _ in device_kernels(prof).values()) / calls
 
 
 def attention_kernels(kernels: dict, per: int = 1,

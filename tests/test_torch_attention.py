@@ -71,15 +71,30 @@ def test_plain_matches_pallas_kernel_interpreted(d, c, dtype):
                                atol=TOL[dtype])
 
 
-def test_cpu_tensors_take_the_plain_version_without_a_launch():
-    q, k, v = _port(_inputs(2, 8), "float32")
-    before = cuda_attention.LAUNCHES
+COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FWD_MMA_LAUNCHES",
+            "BWD_MMA_LAUNCHES")
+
+
+def _counts():
+    return [getattr(cuda_attention, name) for name in COUNTERS]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_tensors_take_the_plain_version_without_a_launch(dtype):
+    """Neither engine's counter moves on the CPU: bf16 would take the
+    tensor-core K1 and K2 on the card, fp32 the CUDA-core ones."""
+    q, k, v = _port(_inputs(2, 8), dtype)
+    before = _counts()
     want = attention_reference(q, k, v)
     for out in (attention(q, k, v), attention(q, k, v, use_pallas=True),
                 attention(q, k, v, use_pallas=False),
                 cuda_attention.attention_fused(q, k, v)):
         torch.testing.assert_close(out, want, rtol=0, atol=0)
-    assert cuda_attention.LAUNCHES == before
+    g = torch.ones_like(want)
+    for got, ref in zip(cuda_attention.attention_bwd_fused(q, k, v, g),
+                        attention_bwd_reference(q, k, v, g)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert _counts() == before
 
 
 def test_kernel_wrapper_refuses_tensors_off_cpu_and_cuda():
@@ -106,9 +121,15 @@ def test_kernel_builds_one_library_per_value_width():
 
 def test_entry_points_take_their_pointers_from_their_sources():
     """Each C entry point's tensor pointers (ctypes passes each as a
-    c_void_p) and its library's source, the tensor-core K3 and K6 in
-    ``attention_flash_mma.cu``; K6's also takes its delta scratch."""
+    c_void_p) and its library's source, the tensor-core K1, K2, K3 and K6
+    in ``attention_flash_mma.cu``; K6's also takes its delta scratch, K2's
+    its delta and dq-partial scratch."""
     entries = cuda_attention._ENTRIES
+    assert entries["sagan_attention_fwd_mma"] == ("attention_flash_mma", 4)
+    # q k v g dq dk dv, and its delta and dq-partial scratch
+    assert entries["sagan_attention_bwd_mma"] == ("attention_flash_mma", 9)
+    assert entries["sagan_attention_fwd"] == ("attention_fwd", 4)
+    assert entries["sagan_attention_bwd"] == ("attention_bwd", 8)
     assert entries["sagan_attention_flash_fwd_mma"] == (
         "attention_flash_mma", 5)
     assert entries["sagan_attention_flash_dqkv_mma"] == (
@@ -165,7 +186,7 @@ def test_plain_backward_matches_jax_vjp(d, c, dtype, against):
 def test_attention_on_cpu_goes_through_the_autograd_function():
     q, k, v, g = (t.requires_grad_(i < 3) for i, t in
                   enumerate(_port(_bwd_inputs(4, 16, seed=3), "float32")))
-    before = (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES)
+    before = _counts()
     out = attention(q, k, v)
     assert type(out.grad_fn).__name__ == "FusedAttentionBackward"
     # the model hands the backward a non-contiguous cotangent
@@ -178,7 +199,7 @@ def test_attention_on_cpu_goes_through_the_autograd_function():
     with torch.no_grad():
         assert attention(q, k, v).grad_fn is None
     assert attention(q.detach(), k.detach(), v.detach()).grad_fn is None
-    assert (cuda_attention.LAUNCHES, cuda_attention.BWD_LAUNCHES) == before
+    assert _counts() == before
 
 
 def test_backward_wrapper_refuses_tensors_off_cpu_and_cuda():

@@ -44,13 +44,14 @@ from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn.attention import SelfAttention
 from sagan_tpu_torch.ops import attention as attention_ops
 from sagan_tpu_torch.ops import cuda_attention
-from sagan_tpu_torch.ops.attention import (DQ_SLAB_BUDGET, PLAIN_KEY_BLOCK,
-                                           attention,
+from sagan_tpu_torch.ops.attention import (DQ_SLAB_BUDGET, K2_FILL,
+                                           PLAIN_KEY_BLOCK, attention,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference, dq_slab_bytes,
                                            flash_bwd_fused,
-                                           fused_keys_per_block, plain_chunk,
+                                           fused_keys_per_block,
+                                           k2_key_blocks, plain_chunk,
                                            single_pass)
 from sagan_tpu_torch.tools.profiling import attention_kernels
 from sagan_tpu_torch.utils.config import resolve_config
@@ -292,6 +293,49 @@ def test_key_blocks_of_both_engines_set_the_partials_shape(d, c, itemsize,
                                            engine=engine) == (3, 4, 100, d)
 
 
+@pytest.mark.parametrize("b,m,d,c,blocks", [
+    (64, 1024, 2, 8, 4),     # church64 G's 64 map: 256 keys, 256 blocks
+    (64, 256, 4, 16, 2),     # G's 32 map: 128 keys, the least
+    (128, 16, 8, 32, 1),     # D's 8 map (fused D update)
+    (64, 4, 16, 64, 1),      # D's 4 map
+    (8, 1024, 8, 32, 8),     # church512 D's 64 map at B=8: KT 1 at last
+    (128, 1024, 2, 8, 2),    # imagenet128_cond D's 64 map, fused D update
+    (64, 1024, 4, 16, 4),    # imagenet128_cond G's 64 map
+    (64, 256, 8, 32, 2),     # imagenet128_cond G's 32 map
+    (1024, 1024, 2, 8, 1),   # a grid that fills the card at K6's block
+])
+def test_k2_key_blocks_fill_the_card_and_set_its_scratch(b, m, d, c, blocks,
+                                                         monkeypatch):
+    """The bf16 K2's gradient pass halves K6's key block while the grid
+    holds fewer than ``K2_FILL`` blocks an SM (132 SMs, the H100's); its
+    fp32 dq partials are [B, blocks, N, d] and its (-lse log2e, delta)
+    scratch [B, N padded to 64, 2], both from ``torch.empty`` in the
+    wrapper (the launch stubbed out: CPU tensors stand in for CUDA
+    ones)."""
+    k6 = -(-m // fused_keys_per_block(d, c, 2))
+    assert k2_key_blocks(b, m, d, c, 132) == blocks
+    assert k2_key_blocks(b, m, d, c, 132, fill=0) == k6
+    keys = -(-m // blocks)
+    assert b * blocks >= K2_FILL * 132 or keys <= 128
+    assert keys <= fused_keys_per_block(d, c, 2)
+
+    shapes = []
+    monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_attention, "_launch", lambda name, ts, *a: (
+        shapes.extend(tuple(t.shape) for t in ts[7:])))
+    monkeypatch.setattr(cuda_attention, "_delta_rows",
+                        lambda n, c: -(-n // 64) * 64)
+    monkeypatch.setattr(cuda_attention, "bwd_mma_key_blocks",
+                        lambda b, m, d, c, tiles: k2_key_blocks(b, m, d, c,
+                                                                132))
+    n = 100
+    q, k, v, g = (torch.empty(s, dtype=torch.bfloat16) for s in (
+        (b, n, d), (b, m, d), (b, m, c), (b, n, c)))
+    cuda_attention.attention_bwd_fused(q, k, v, g)
+    assert shapes == [(b, 128, 2), (b, blocks, n, d)]
+
+
 def test_attention_sends_large_key_sets_through_flash_attention_on_cpu():
     counts = ("LAUNCHES", "BWD_LAUNCHES", "FLASH_FWD_LAUNCHES",
               "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
@@ -381,8 +425,11 @@ def test_profile_names_tell_the_attention_kernels_apart():
         f"void (anonymous namespace)::{name}<float, 2, 8>{sig}": (ms, n)
         for name, ms, n in (
             ("attention_fwd_kernel", 1.0, 8),
+            ("attention_fwd_mma_kernel", 0.4, 8),
             ("attention_bwd_dq_kernel", 2.0, 6),
             ("attention_bwd_dkv_kernel", 3.0, 6),
+            ("attention_bwd_stats_mma_kernel", 0.6, 6),
+            ("attention_bwd_grads_mma_kernel", 1.0, 6),
             ("attention_flash_fwd_kernel", 40.0, 4),
             ("attention_flash_dq_kernel", 50.0, 2),
             ("attention_flash_dkv_kernel", 60.0, 2),
@@ -390,11 +437,16 @@ def test_profile_names_tell_the_attention_kernels_apart():
             ("attention_flash_fwd_mma_kernel", 16.0, 4),
             ("attention_flash_dqkv_mma_kernel", 18.0, 2),
             ("attention_flash_delta_kernel", 2.0, 2))}
+    # K2's dq sum takes no template arguments
+    kernels["void (anonymous namespace)::attention_bwd_dq_sum_kernel(float "
+            "const*, __nv_bfloat16*, int, int)"] = (0.2, 6)
     kernels["void at::native::elementwise_kernel<128, 2>"] = (9.0, 100)
     rows = attention_kernels(kernels, per=2)
     assert rows == {
         "K1 attention_fwd": {"ms": 0.5, "launches": 4},
+        "K1 attention_fwd_mma": {"ms": 0.2, "launches": 4},
         "K2 attention_bwd": {"ms": 2.5, "launches": 3},
+        "K2 attention_bwd_mma": {"ms": 0.9, "launches": 3},
         "K3 attention_flash_fwd": {"ms": 20.0, "launches": 2},
         "K3 attention_flash_fwd_mma": {"ms": 8.0, "launches": 2},
         "K4 attention_flash_dq": {"ms": 25.0, "launches": 1},
@@ -439,26 +491,66 @@ def test_plain_flash_dq_is_near_float64_past_one_key_block():
     assert _share(_flat(dq), want.numpy()) <= 1e-5
 
 
-@pytest.mark.parametrize("wrapper", ["attention_flash_fwd",
+ENGINE_COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FWD_MMA_LAUNCHES",
+                   "BWD_MMA_LAUNCHES", "FLASH_FWD_LAUNCHES",
+                   "FLASH_DQKV_LAUNCHES", "FLASH_FWD_MMA_LAUNCHES",
+                   "FLASH_DQKV_MMA_LAUNCHES")
+
+
+def _engine_counts():
+    return [getattr(cuda_attention, name) for name in ENGINE_COUNTERS]
+
+
+def _wrapper_args(wrapper, q, k, v, g):
+    """The arguments of each wrapper that takes an engine."""
+    if wrapper in ("attention_fused", "attention_flash_fwd"):
+        return q, k, v
+    if wrapper == "attention_bwd_fused":
+        return q, k, v, g
+    o, lse = attention_flash_reference(q, k, v)
+    return q, k, v, o, lse, g
+
+
+@pytest.mark.parametrize("wrapper", ["attention_fused", "attention_bwd_fused",
+                                     "attention_flash_fwd",
                                      "attention_flash_dqkv"])
 @pytest.mark.parametrize("engine", ["mma", "fma"])
 def test_flash_wrappers_refuse_an_engine_on_cpu_tensors(wrapper, engine):
     """An engine names a CUDA kernel; CPU tensors run the plain version,
-    so naming one there raises, and nothing is counted."""
+    so naming one there raises, and nothing is counted (K1 and K2, whose
+    wrappers take an engine too, as K3 and K6)."""
     q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), "bfloat16")
-    o, lse = attention_flash_reference(q, k, v)
-    args = (q, k, v) if wrapper == "attention_flash_fwd" else \
-        (q, k, v, o, lse, g)
-    before = (cuda_attention.FLASH_FWD_MMA_LAUNCHES,
-              cuda_attention.FLASH_DQKV_MMA_LAUNCHES)
+    args = _wrapper_args(wrapper, q, k, v, g)
+    before = _engine_counts()
     getattr(cuda_attention, wrapper)(*args)          # the plain version
     with pytest.raises(ValueError, match="CPU tensors"):
         getattr(cuda_attention, wrapper)(*args, engine=engine)
-    assert before == (cuda_attention.FLASH_FWD_MMA_LAUNCHES,
-                      cuda_attention.FLASH_DQKV_MMA_LAUNCHES)
+    assert before == _engine_counts()
 
 
-def test_the_dtype_picks_the_engine_and_mma_refuses_fp32():
+# each wrapper that takes an engine: (C entry of its mma kernel, of its fma
+# kernel, the counters they move)
+ENGINE_ENTRIES = {
+    "attention_fused": ("sagan_attention_fwd_mma", "sagan_attention_fwd",
+                        "FWD_MMA_LAUNCHES", "LAUNCHES"),
+    "attention_bwd_fused": ("sagan_attention_bwd_mma", "sagan_attention_bwd",
+                            "BWD_MMA_LAUNCHES", "BWD_LAUNCHES"),
+    "attention_flash_fwd": ("sagan_attention_flash_fwd_mma",
+                            "sagan_attention_flash_fwd",
+                            "FLASH_FWD_MMA_LAUNCHES", "FLASH_FWD_LAUNCHES"),
+    "attention_flash_dqkv_partials": (
+        "sagan_attention_flash_dqkv_mma", "sagan_attention_flash_dqkv",
+        "FLASH_DQKV_MMA_LAUNCHES", "FLASH_DQKV_LAUNCHES"),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(ENGINE_ENTRIES))
+def test_the_dtype_picks_the_engine_and_mma_refuses_fp32(wrapper,
+                                                         monkeypatch):
+    """The rule itself, then each wrapper through it: with the card's
+    checks and launch stubbed out (CPU tensors stand in for CUDA ones), a
+    bf16 call launches the mma entry, an fp32 or ``engine="fma"`` call
+    the fma one, and ``engine="mma"`` on fp32 raises before any launch."""
     bf16 = torch.empty(1, 4, 2, dtype=torch.bfloat16)
     fp32 = torch.empty(1, 4, 2)
     pick = cuda_attention._engine
@@ -471,3 +563,27 @@ def test_the_dtype_picks_the_engine_and_mma_refuses_fp32():
         pick(fp32, "mma", ())
     with pytest.raises(ValueError, match="unknown engine"):
         pick(bf16, "wgmma", ())
+
+    launched = []
+    monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_attention, "_launch",
+                        lambda name, *a, **kw: launched.append(name))
+    monkeypatch.setattr(cuda_attention, "_delta_rows", lambda n, c: 64)
+    monkeypatch.setattr(cuda_attention, "bwd_mma_key_blocks",
+                        lambda *a: 1)
+    mma, fma, mma_count, fma_count = ENGINE_ENTRIES[wrapper]
+    fn = getattr(cuda_attention, wrapper)
+    for dtype, engine, entry, counter in (
+            ("bfloat16", None, mma, mma_count),
+            ("float32", None, fma, fma_count),
+            ("bfloat16", "fma", fma, fma_count)):
+        q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), dtype)
+        before = getattr(cuda_attention, counter)
+        fn(*_wrapper_args(wrapper, q, k, v, g), engine=engine)
+        assert launched.pop() == entry
+        assert getattr(cuda_attention, counter) == before + 1
+    q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), "float32")
+    with pytest.raises(TypeError, match="bf16"):
+        fn(*_wrapper_args(wrapper, q, k, v, g), engine="mma")
+    assert launched == []
