@@ -87,19 +87,27 @@ the build, and prints neither the kernels line nor the result line):
  13. one church512 training step at B=8, a shape past the route's slab
      budget, whose G backward takes K4 + K5 (K6's fp32 dq partials would
      be 1.07 GB, past ``DQ_SLAB_BUDGET``);
- 14. the fused spectral norm (K7) against its plain version at every
-     distinct SN weight of imagenet128_cond and imagenet128_paper_gf64
-     (46, up to the [1128, 16384] stem), fp32: W_bar, u_new, v and sigma,
-     and the gradient through ``SpectralNormFused`` against autograd
-     through the plain function; times at the stem, a 3x3 256 -> 256 conv
-     and the smallest weight, with the L2 cache flushed;
+ 14. the grouped spectral norm K7 against its plain version on the card,
+     over G's and D's whole tables of SN weights of imagenet128_cond and
+     imagenet128_paper_gf64 (one grouped call a table, up to the [1128,
+     16384] stem), fp32: W_bar, u_new, v and sigma per weight, u stored
+     where asked and only there, the bf16 W_bar the fp32 one rounded,
+     two calls bit for bit; the grouped backward (fp32 and bf16 g, one
+     weight given none) against the closed form per weight; the gradient
+     through ``SpectralNormGroup`` against autograd through the plain
+     function; n_iter 2 and mixed; times of a grouped call over each
+     imagenet128_cond table (bf16 and fp32 W_bar, both launch designs,
+     the backward), L2 flushed and warm, beside their bounds, and of a
+     group of one at the G stem;
  15. the full-width imagenet128_cond generator in fp32 on the card with
-     ``use_pallas_sn`` against the same generator with the plain SN;
+     ``use_pallas_sn`` (one grouped K7 call for its 25 SN weights)
+     against the same generator with the plain SN;
  16. training imagenet128_cond (ResNet G and D, 1000 classes, update
      ratio 2) with ``use_pallas_sn`` through the entry point on 512
      synthetic labelled 128 px records for 2 epochs, and a restart for a
-     3rd, with exact K7 (159 a step), K1 and K2 (tensor cores) launch
-     counts;
+     3rd, with exact K7 (6 grouped calls for 159 weights and 3 grouped
+     backward calls a step, 1 call a sample grid), K1 and K2 (tensor
+     cores) launch counts;
  17. serving that checkpoint over HTTP per ``class_id`` at n = 1 and 8;
  18. one bf16 imagenet128_paper_gf64 training step at B=64 with
      ``use_pallas_sn``;
@@ -180,7 +188,9 @@ from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
                                            build_train_step)
 from sagan_tpu_torch.tools._study import held, max_delta, sdpa_padded
-from sagan_tpu_torch.tools.profiling import kernel_ms_per_call
+from sagan_tpu_torch.tools.profiling import (kernel_ms_per_call,
+                                             ms_or_not_measured,
+                                             ratio_or_not_measured)
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
 from sagan_tpu_torch.utils.timing import cuda_time_ms
 
@@ -345,12 +355,14 @@ def phase_kernels(card: str) -> dict:
                         "at": f"{site} B={b} N={n} M={m} d={d} c={c} {name}"}
             if len(times) == 2:
                 mma, fma = times["mma"], times["fma"]
+                alone = ratio_or_not_measured(device["mma"], device["fma"])
                 print(f"phase 2 K1 at {site} B={b} {name}: mma {mma:.4f} "
                       f"ms, fma {fma:.4f} ms, sdpa_padded {pad_ms:.4f} ms: "
                       f"mma/fma {mma / fma:.2f}x, mma/sdpa_padded "
                       f"{mma / pad_ms:.2f}x; kernels alone (profiler) mma "
-                      f"{device['mma']:.4f} ms, fma {device['fma']:.4f} ms: "
-                      f"{device['mma'] / device['fma']:.2f}x on {card}",
+                      f"{ms_or_not_measured(device['mma'])}, fma "
+                      f"{ms_or_not_measured(device['fma'])}: "
+                      f"{alone} on {card}",
                       flush=True)
     return heads
 
@@ -522,14 +534,16 @@ def phase_bwd_kernels(card: str) -> dict:
                                   f"{name}"}
                 if len(times) == 2:
                     mma, fma = times["mma"], times["fma"]
+                    alone = ratio_or_not_measured(device["mma"],
+                                                  device["fma"])
                     print(f"phase 5 K2 at {site} B={b} {name}: mma {mma:.4f} "
                           f"ms, fma {fma:.4f} ms, autograd through "
                           f"sdpa_padded {pad_ms:.4f} ms: mma/fma "
                           f"{mma / fma:.2f}x, mma/sdpa_padded "
                           f"{mma / pad_ms:.2f}x; kernels alone (profiler) "
-                          f"mma {device['mma']:.4f} ms, fma "
-                          f"{device['fma']:.4f} ms: "
-                          f"{device['mma'] / device['fma']:.2f}x on {card}",
+                          f"mma {ms_or_not_measured(device['mma'])}, fma "
+                          f"{ms_or_not_measured(device['fma'])}: "
+                          f"{alone} on {card}",
                           flush=True)
     return heads
 
@@ -1365,22 +1379,29 @@ COUNTERS = {"K1": "LAUNCHES", "K2": "BWD_LAUNCHES",
             "K6": "FLASH_DQKV_LAUNCHES", "K6mma": "FLASH_DQKV_MMA_LAUNCHES"}
 
 
+# K7's counters: grouped forward calls ("K7"), the weights they
+# normalized ("K7w"), grouped backward calls ("K7bwd")
+SN_COUNTERS = {"K7": "LAUNCHES", "K7w": "WEIGHTS", "K7bwd": "BWD_LAUNCHES"}
+
+
 def _zero_counts() -> None:
     for name in COUNTERS.values():
         setattr(cuda_attention, name, 0)
-    cuda_spectral.LAUNCHES = 0
+    for name in SN_COUNTERS.values():
+        setattr(cuda_spectral, name, 0)
 
 
 def _counts() -> dict:
     """Launches since the last ``_zero_counts``, by kernel."""
     return {key: getattr(cuda_attention, name)
             for key, name in COUNTERS.items()} | {
-        "K7": cuda_spectral.LAUNCHES}
+        key: getattr(cuda_spectral, name)
+        for key, name in SN_COUNTERS.items()}
 
 
 def _launches(**some) -> dict:
     """Every counter's expected launches: ``some``, and 0 for the rest."""
-    return {key: some.get(key, 0) for key in (*COUNTERS, "K7")}
+    return {key: some.get(key, 0) for key in (*COUNTERS, *SN_COUNTERS)}
 
 
 def phase_flash_autograd() -> dict:
@@ -1665,21 +1686,21 @@ def phase_step512_b8(card: str) -> dict:
 IMAGENET128 = ROOT / "example_configs" / "imagenet128_cond.py"
 PAPER_GF64 = ROOT / "example_configs" / "imagenet128_paper_gf64.py"
 SN_EPS = 1e-12
-# K7 against its plain version on the same inputs, fp32: W_bar, u_new and
+# K7 against its plain version on the same inputs, fp32: W_bar, u_new, v and
 # sigma within SN_TOL x max|plain| (the same multiply-and-reduce, summed in
-# another order); the gradient through SpectralNormFused against autograd
-# through the plain "xla" function within SN_GRAD_TOL x max|plain| (the
-# same closed form, from v and u of two iterations in other orders)
+# another order); the gradient within SN_GRAD_TOL x max|plain| (the same
+# closed form, from <g, W> summed in another order; through autograd, the
+# plain "xla" function's v and u of two iterations in other orders)
 SN_TOL = 1e-5
 SN_GRAD_TOL = 1e-4
-# the weights K7 is timed at: the imagenet128_cond G stem (the main
-# path's largest), a 3x3 256 -> 256 conv of its up8 block, the smallest
-SN_TIMED = {("Dense", (1128, 4096), -1): "stem",
-            ("Conv", (256, 256, 3, 3), 0): "3x3 conv 256->256"}
-# K7 launches a training step of imagenet128_cond: each of the 2 D updates
-# runs G for the fakes (25 SN layers) and one fused D forward (28); the G
-# update runs G and D once more
+# grouped K7 calls, and the weights they normalize, a training step of
+# imagenet128_cond: each of the 2 D updates runs G for the fakes (25 SN
+# weights) and one fused D forward (28); the G update runs G and D once
+# more.  Its backward runs once a D update (D's table) and once for the G
+# update (G's: the G step asks for no gradient of D's weights)
+SN_CALLS_PER_STEP = 6
 SN_PER_STEP = 2 * (25 + 28) + 25 + 28
+SN_BWD_PER_STEP = 3
 SN_PER_G = 25
 # synthetic labelled 128 px records of the imagenet128_cond run: 8 steps an
 # epoch at B=64, 2 calls of steps_per_call 4
@@ -1695,44 +1716,69 @@ def imagenet_config(path: Path, dtype: str, **extra) -> dict:
     return config
 
 
-def sn_shapes() -> dict:
-    """{(layer, weight shape, out_dim): [where]} of every spectrally
-    normalized weight of imagenet128_cond and imagenet128_paper_gf64, from
-    their nets built on the meta device."""
-    shapes = {}
+def sn_tables() -> dict:
+    """{(config, net): [(layer, weight shape, out_dim)]} of every spectrally
+    normalized weight of imagenet128_cond's and imagenet128_paper_gf64's G
+    and D, in ``named_modules`` order (a grouped call's table), from their
+    nets built on the meta device."""
+    tables = {}
     for path in (IMAGENET128, PAPER_GF64):
         config = imagenet_config(path, "float32")
         with torch.device("meta"):
             nets = (("G", get_generator(config)),
                     ("D", get_discriminator(config)))
         for tag, net in nets:
-            for name, m in net.named_modules():
-                if isinstance(m, layers._SNLayer) and m.sn:
-                    key = (type(m).__name__, tuple(m.w.shape), m.out_dim)
-                    shapes.setdefault(key, []).append(
-                        f"{path.stem} {tag}.{name}")
-    return shapes
+            tables[path.stem, tag] = [
+                (f"{tag}.{name}", tuple(m.w.shape), m.out_dim)
+                for name, m in net.named_modules()
+                if isinstance(m, layers._SNLayer) and m.sn]
+    return tables
 
 
-def sn_bound_ms(f: int, o: int, n_iter: int = 1) -> tuple[float, str]:
-    """Least time of one K7 call on W [F, O]: W read once, W_bar written
-    once, u read, u_new, v and sigma written (fp32) over the HBM rate, or
-    its (4 n_iter + 1) F O fp32 operations over the fp32 peak."""
-    bytes_ms = 4 * (2 * f * o + 2 * o + f + 1) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (4 * n_iter + 1) * f * o / PEAK_FLOPS[torch.float32] * 1e3
+def sn_bound_ms(views, n_iter: int = 1,
+                wbar_bytes: int = 4) -> tuple[float, str]:
+    """Least time of one grouped K7 call over weights of (A, O, R)
+    ``views``: each W read once, each W_bar written once (``wbar_bytes``
+    an element), u read, u_new, v and sigma written (fp32) over the HBM
+    rate, or the (4 n_iter + 1) F O fp32 operations over the fp32 peak."""
+    nbytes = ops = 0
+    for a, o, r in views:
+        n, f = a * o * r, a * r
+        nbytes += (4 + wbar_bytes) * n + 4 * (2 * o + f + 1)
+        ops += (4 * n_iter + 1) * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FLOPS[torch.float32] * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms \
         else (bytes_ms, "bytes")
 
 
-def cold_ms(fn, iters: int = 10) -> float:
-    """Mean device time of one ``fn`` call with the L2 cache flushed before
-    it (a 256 MB write), between CUDA events around the call alone: a
-    weight is cold when a training step reaches its layer."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+def sn_bwd_bound_ms(views, g_bytes: int) -> tuple[float, str]:
+    """Least time of one grouped K7 backward over weights of ``views``: g
+    and W read, dW written once, u, v and sigma read; or its ~5 operations
+    an element (the dot and dW) over the fp32 peak."""
+    nbytes = sum((g_bytes + 8) * a * o * r + 4 * (o + a * r + 1)
+                 for a, o, r in views)
+    ops = sum(5 * a * o * r for a, o, r in views)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def device_ms(fn, iters: int = 10, flush: bool = True) -> float:
+    """Mean device time of one ``fn`` call between CUDA events around the
+    call alone, with the L2 cache flushed before it (a 256 MB write) when
+    ``flush``: a weight is cold when a training step reaches its layer.
+    The card sleeps ~5 ms before each start event, so the host has
+    enqueued the call's kernels before the events' span begins and the
+    span is the kernels' own."""
+    scrub = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     fn()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        if flush:
+            scrub.zero_()
+        torch.cuda._sleep(10_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1743,84 +1789,223 @@ def cold_ms(fn, iters: int = 10) -> float:
     return total / iters
 
 
-def phase_sn_kernels(card: str) -> dict:
-    """K7 against its plain version at every distinct SN weight of
-    imagenet128_cond and imagenet128_paper_gf64, fp32: W_bar, u_new, v and
-    sigma, and the gradient; times at the stem, a 3x3 conv and the
-    smallest weight.  Returns the stem's row."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
-    shapes = sn_shapes()
-    smallest = min(shapes, key=lambda k: math.prod(k[1]))
-    timed = {**SN_TIMED, smallest: "smallest"}
-    worst = dict.fromkeys(("w_bar", "u_new", "v", "sigma", "grad"), 0.0)
-    head = None
-    for key in sorted(shapes, key=lambda k: math.prod(k[1])):
-        kind, shape, out_dim = key
-        a, o, r = cuda_spectral.sn_view(shape, out_dim)
-        w = 0.05 * torch.randn(shape, device="cuda", generator=gen)
+def _sn_inputs(table, gen):
+    ws, us = [], []
+    for _, shape, out_dim in table:
+        o = shape[out_dim]
+        ws.append(0.05 * torch.randn(shape, device="cuda", generator=gen))
         u = torch.randn(o, device="cuda", generator=gen)
-        u = u / torch.linalg.vector_norm(u)
-        got = cuda_spectral.spectral_norm_fused(w, u, 1, SN_EPS, out_dim)
-        want = cuda_spectral.spectral_norm_reference(w, u, 1, SN_EPS,
-                                                     out_dim)
+        us.append(u / torch.linalg.vector_norm(u))
+    return ws, us
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-30))
+
+
+def phase_sn_kernels(card: str) -> dict:
+    """The grouped K7 against its plain version on the card, over G's and
+    D's whole tables of imagenet128_cond and imagenet128_paper_gf64, fp32:
+    W_bar, u_new, v and sigma per weight; u stored where asked and only
+    there; the bf16 W_bar the fp32 one rounded; the backward (fp32 and
+    bf16 g, one weight given none); the same bits on two calls;
+    n_iter 2 and mixed; the gradient through SpectralNormGroup against
+    autograd through the plain function.  Times of a grouped call over
+    each imagenet128_cond table, both designs, and of a group of one at
+    its G stem.  Returns the kernels line's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    tables = sn_tables()
+    worst = dict.fromkeys(("w_bar", "u_new", "v", "sigma", "grad"), 0.0)
+    abs_err = {"fwd": 0.0, "bwd": 0.0}
+    rows = {}
+    for (config, net), table in tables.items():
+        ws, us = _sn_inputs(table, gen)
+        n = len(table)
+        out_dims = [d for _, _, d in table]
+        views = [cuda_spectral.sn_view(w.shape, d)
+                 for w, d in zip(ws, out_dims)]
+        ones = [1] * n
+        # the kernel, twice (the same bits), with u stored on copies for
+        # every other weight
+        stored = [u.clone() for u in us]
+        store = [i % 2 == 0 for i in range(n)]
+        got, stats = cuda_spectral.sn_group_forward(
+            ws, stored, ones, out_dims, SN_EPS, store=store)
+        again, stats2 = cuda_spectral.sn_group_forward(ws, us, ones,
+                                                       out_dims, SN_EPS)
+        bf16, stats16 = cuda_spectral.sn_group_forward(
+            ws, us, ones, out_dims, SN_EPS, dtype=torch.bfloat16)
+        plan = cuda_spectral.group_plan(ws, ones, out_dims)
+        parts = cuda_spectral.split_stats(stats, plan)
         torch.cuda.synchronize()
-        errs, abs_err = {}, 0.0
-        for name, x, y in zip(("w_bar", "u_new", "v", "sigma"), got, want):
-            require(x.shape == y.shape and x.dtype == y.dtype == torch.float32,
-                    f"K7 {name} {tuple(x.shape)} vs plain {tuple(y.shape)}")
-            err = (x - y).abs().max().item()
-            abs_err = max(abs_err, err)
-            errs[name] = err / max(y.abs().max().item(), 1e-30)
-        t = torch.randn(shape, device="cuda", generator=gen)
-        grads = []
-        for backend in ("pallas", "xla"):
-            wg = w.clone().requires_grad_()
-            w_bar, _ = spectral_normalize(wg, u, 1, out_dim=out_dim,
-                                          backend=backend)
-            grads.append(torch.autograd.grad((w_bar * t).sum(), wg)[0])
-        errs["grad"] = ((grads[0] - grads[1]).abs().max().item()
-                        / grads[1].abs().max().item())
+        require(all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(stats, stats2) and torch.equal(stats,
+                                                               stats16),
+                f"K7 {config} {net}: two calls differ")
+        require(all(torch.equal(b, a.to(torch.bfloat16))
+                    for a, b in zip(got, bf16)),
+                f"K7 {config} {net}: the bf16 W_bar is not the fp32 one "
+                f"rounded")
+        errs = dict.fromkeys(worst, 0.0)
+        for i, (w, u) in enumerate(zip(ws, us)):
+            want = cuda_spectral.spectral_norm_reference(w, u, 1, SN_EPS,
+                                                         out_dims[i])
+            for name, x, y in zip(("w_bar", "u_new", "v", "sigma"),
+                                  (got[i], *parts[i]), want):
+                require(x.shape == y.shape,
+                        f"K7 {name} {tuple(x.shape)} vs {tuple(y.shape)}")
+                errs[name] = max(errs[name], _rel(x, y))
+                abs_err["fwd"] = max(abs_err["fwd"],
+                                     (x - y).abs().max().item())
+            require(torch.equal(stored[i], parts[i][0] if store[i] else u),
+                    f"K7 {config} {table[i][0]}: u stored wrongly "
+                    f"(store {store[i]})")
+        # the backward: fp32 and bf16 g, the first weight given none
+        for g_dtype in (torch.float32, torch.bfloat16):
+            gs = [None] + [torch.randn(w.shape, device="cuda", generator=gen)
+                           .to(g_dtype) for w in ws[1:]]
+            dws = cuda_spectral.sn_group_backward(gs, ws, stats, ones,
+                                                  out_dims, SN_EPS)
+            dws2 = cuda_spectral.sn_group_backward(gs, ws, stats, ones,
+                                                   out_dims, SN_EPS)
+            require(dws[0] is None and all(
+                torch.equal(a, b) for a, b in zip(dws[1:], dws2[1:])),
+                f"K7 backward {config} {net}: a weight without a gradient "
+                f"got one, or two calls differ")
+            for i in range(1, n):
+                want = cuda_spectral.sn_bwd_reference(
+                    gs[i], ws[i], *parts[i], SN_EPS, out_dims[i])
+                errs["grad"] = max(errs["grad"], _rel(dws[i], want))
+                abs_err["bwd"] = max(abs_err["bwd"],
+                                     (dws[i] - want).abs().max().item())
         for name, e in errs.items():
             worst[name] = max(worst[name], e)
-        ok = all(e <= SN_TOL for n, e in errs.items() if n != "grad") \
+        ok = all(e <= SN_TOL for k, e in errs.items() if k != "grad") \
             and errs["grad"] <= SN_GRAD_TOL
-        line = (f"phase 14 kernel spectral_norm {kind} {list(shape)} (A, O, "
-                f"R) = ({a}, {o}, {r}), {len(shapes[key])} layers, e.g. "
-                f"{shapes[key][0]}: errors / max|plain| "
-                + " ".join(f"{n} {e:.2g}" for n, e in errs.items())
-                + f" {'ok' if ok else 'FAIL'}")
-        if key in timed:
-            fused = functools.partial(cuda_spectral.spectral_norm_fused, w,
-                                      u, 1, SN_EPS, out_dim)
-            plain = functools.partial(cuda_spectral.spectral_norm_reference,
-                                      w, u, 1, SN_EPS, out_dim)
-            ms, plain_ms = cold_ms(fused), cold_ms(plain)
-            warm_ms = cuda_time_ms(fused)[0]
-            bound, bound_by = sn_bound_ms(a * r, o)
-            line += (f"; {timed[key]}: ms {ms:.4f} (L2 flushed; "
-                     f"{warm_ms:.4f} back to back) plain_ms {plain_ms:.4f} "
-                     f"bound_ms {bound:.4g} ({bound_by}) library_ms None (no "
-                     f"PyTorch call computes power iteration and scale)")
-            if timed[key] == "stem":
-                # the largest |K7 - plain| over W_bar, u_new, v and sigma
-                head = {"max_abs_err": abs_err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": bound_by, "library_ms": None}
-        print(f"{line} on {card}", flush=True)
-        require(ok, f"K7 disagrees with its plain version at {kind} "
-                    f"{list(shape)}: {errs}")
-    print(f"phase 14 kernel spectral_norm: all {len(shapes)} distinct SN "
-          f"weights of imagenet128_cond and imagenet128_paper_gf64, worst "
-          f"errors / max|plain| "
-          + " ".join(f"{n} {e:.2g}" for n, e in worst.items())
-          + f" (tol {SN_TOL:g}, gradient {SN_GRAD_TOL:g})", flush=True)
-    return head
+        print(f"phase 14 K7 {config} {net}: {n} weights "
+              f"({sum(a * o * r for a, o, r in views)} elements) in one "
+              f"grouped call, plan {plan.rows_items} rows items, "
+              f"{plan.col_blocks} colsum blocks, {plan.chunks} finish "
+              f"items, {plan.smem} B shared; errors / max|plain| "
+              + " ".join(f"{k} {e:.2g}" for k, e in errs.items())
+              + f"; u stored where asked; bf16 W_bar = fp32 rounded; two "
+              f"calls bit for bit {'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"K7 disagrees with its plain version on {config} "
+                    f"{net}: {errs}")
+        if config != IMAGENET128.stem:
+            continue
+        # timed: a grouped call over the table, bf16 W_bar (the main
+        # path's), both designs, and fp32; the backward with bf16 g
+        timed = {}
+        for label, dtype, design in (
+                ("bf16", torch.bfloat16, cuda_spectral.DESIGN),
+                ("bf16 other design", torch.bfloat16,
+                 1 - cuda_spectral.DESIGN),
+                ("fp32", torch.float32, cuda_spectral.DESIGN)):
+            call = functools.partial(
+                cuda_spectral.sn_group_forward, ws, us, ones, out_dims,
+                SN_EPS, dtype=dtype, design=design)
+            if design != cuda_spectral.DESIGN:
+                other = call()[0]
+                require(all(torch.equal(a, b) for a, b in zip(other, bf16)),
+                        f"K7 design {design} differs from design "
+                        f"{cuda_spectral.DESIGN}")
+            timed[label] = (device_ms(call), device_ms(call, flush=False),
+                            sn_bound_ms(views, 1, dtype.itemsize))
+        g16 = [torch.randn(w.shape, device="cuda", generator=gen).to(
+            torch.bfloat16) for w in ws]
+        bwd = functools.partial(cuda_spectral.sn_group_backward, g16, ws,
+                                stats, ones, out_dims, SN_EPS)
+        timed["backward bf16 g"] = (device_ms(bwd),
+                                    device_ms(bwd, flush=False),
+                                    sn_bwd_bound_ms(views, 2))
+
+        def plain():
+            for w, u, d in zip(ws, us, out_dims):
+                cuda_spectral.spectral_norm_reference(w, u, 1, SN_EPS, d)
+
+        def plain_bwd():
+            for i in range(n):
+                cuda_spectral.sn_bwd_reference(g16[i], ws[i], *parts[i],
+                                               SN_EPS, out_dims[i])
+
+        plain_ms, plain_bwd_ms = device_ms(plain), device_ms(plain_bwd)
+        print(f"phase 14 K7 {config} {net} timed (ms a call, L2 flushed / "
+              f"warm, bound): "
+              + "; ".join(f"{k} {c:.4f} / {w_:.4f}, bound {b:.4g} ({by})"
+                          for k, (c, w_, (b, by)) in timed.items())
+              + f"; plain (weight by weight) {plain_ms:.4f}, its backward "
+              f"{plain_bwd_ms:.4f}; shipped design {cuda_spectral.DESIGN} "
+              f"on {card}", flush=True)
+        if net == "G":
+            ms, _, (bound, bound_by) = timed["bf16"]
+            rows["fwd"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": bound_by, "library_ms": None}
+            ms, _, (bound, bound_by) = timed["backward bf16 g"]
+            rows["bwd"] = {"ms": ms, "plain_ms": plain_bwd_ms,
+                           "bound_ms": bound, "bound_by": bound_by,
+                           "library_ms": None}
+            # a group of one at the stem, fp32 (PR 7's per-weight reading)
+            i = next(k for k, (name, _, _) in enumerate(table)
+                     if name == "G.stem")
+            one = functools.partial(cuda_spectral.spectral_norm_fused, ws[i],
+                                    us[i], 1, SN_EPS, out_dims[i])
+            bound, bound_by = sn_bound_ms([views[i]])
+            print(f"phase 14 K7 group of one at {table[i][0]} "
+                  f"{list(table[i][1])} fp32: ms {device_ms(one):.4f} (L2 "
+                  f"flushed; {device_ms(one, flush=False):.4f} warm) bound "
+                  f"{bound:.4g} ({bound_by}) on {card}", flush=True)
+    # the gradient through the autograd Function (one call over G's table
+    # of imagenet128_cond) against autograd through the plain function
+    table = tables[IMAGENET128.stem, "G"]
+    ws, us = _sn_inputs(table, gen)
+    out_dims = [d for _, _, d in table]
+    ts = [torch.randn(w.shape, device="cuda", generator=gen) for w in ws]
+    leaves = [w.clone().requires_grad_() for w in ws]
+    w_bars = cuda_spectral.spectral_norm_group(
+        leaves, us, [1] * len(ws), out_dims, SN_EPS)
+    got = torch.autograd.grad(sum((b * t).sum() for b, t in zip(w_bars, ts)),
+                              leaves)
+    leaves = [w.clone().requires_grad_() for w in ws]
+    want = torch.autograd.grad(sum(
+        (spectral_normalize(w, u, 1, out_dim=d, backend="xla")[0] * t).sum()
+        for w, u, d, t in zip(leaves, us, out_dims, ts)), leaves)
+    err = max(_rel(a, b) for a, b in zip(got, want))
+    # n_iter 2, and 1 and 2 in turn, on D's table of imagenet128_cond
+    table = tables[IMAGENET128.stem, "D"]
+    ws, us = _sn_inputs(table, gen)
+    out_dims = [d for _, _, d in table]
+    iters_err = 0.0
+    for n_iters in ([2] * len(ws), [1 + i % 2 for i in range(len(ws))]):
+        got, stats = cuda_spectral.sn_group_forward(ws, us, n_iters,
+                                                    out_dims, SN_EPS)
+        parts = cuda_spectral.split_stats(
+            stats, cuda_spectral.group_plan(ws, n_iters, out_dims))
+        for i, (w, u) in enumerate(zip(ws, us)):
+            want = cuda_spectral.spectral_norm_reference(
+                w, u, n_iters[i], SN_EPS, out_dims[i])
+            iters_err = max(iters_err, *(_rel(x, y) for x, y in
+                                         zip((got[i], *parts[i]), want)))
+    print(f"phase 14 K7: all {len(tables)} tables "
+          f"({sum(map(len, tables.values()))} weights) of imagenet128_cond "
+          f"and imagenet128_paper_gf64, worst errors / max|plain| "
+          + " ".join(f"{k} {e:.2g}" for k, e in worst.items())
+          + f" (tol {SN_TOL:g}, gradient {SN_GRAD_TOL:g}); the gradient "
+          f"through SpectralNormGroup vs autograd through the plain "
+          f"function over G's table {err:.2g}; n_iter 2 and mixed on D's "
+          f"table {iters_err:.2g}", flush=True)
+    require(err <= SN_GRAD_TOL and iters_err <= SN_TOL,
+            f"K7 autograd {err:.3g}, n_iter {iters_err:.3g}")
+    rows["fwd"]["max_abs_err"] = abs_err["fwd"]
+    rows["bwd"]["max_abs_err"] = abs_err["bwd"]
+    return rows
 
 
 def phase_generator128(card: str) -> None:
     """The full-width imagenet128_cond G in fp32 on the card (BN statistics
     of one batch) with use_pallas_sn against the same G with the plain SN,
-    within G_SN_TOL; one K7 launch per SN layer."""
+    within G_SN_TOL; one grouped K7 call for its 25 SN weights."""
     config = imagenet_config(IMAGENET128, "float32", use_pallas_sn=True)
     gen = get_generator(config, rng=torch.Generator().manual_seed(SEED + 60))
     gen.to("cuda")
@@ -1843,9 +2028,10 @@ def phase_generator128(card: str) -> None:
           f"{err:.3g} (tol {G_SN_TOL:g}), output std {std:.3g}; launches "
           f"{counts} on {card}", flush=True)
     require(err <= G_SN_TOL and got.shape == (8, 3, 128, 128) and std > 1e-2
-            and counts["K7"] == SN_PER_G and counts["K1"] == 2,
+            and (counts["K7"], counts["K7w"], counts["K7bwd"], counts["K1"])
+            == (1, SN_PER_G, 0, 2),
             "the imagenet128 G through K7 disagrees with the plain SN, or "
-            "did not launch K7 once per SN layer")
+            "did not normalize its SN weights in one grouped K7 call")
 
 
 def phase_train128(card: str) -> dict:
@@ -1879,13 +2065,16 @@ def phase_train128(card: str) -> dict:
             files[epochs], card, f"16 imagenet128 {label}")
         steps = trainer.global_step() - first_step
         want = _launches(K1mma=12 * steps + 2 * grids, K2mma=8 * steps,
-                         K7=SN_PER_STEP * steps + SN_PER_G * grids)
+                         K7=SN_CALLS_PER_STEP * steps + grids,
+                         K7w=SN_PER_STEP * steps + SN_PER_G * grids,
+                         K7bwd=SN_BWD_PER_STEP * steps)
         print(f"phase 16 imagenet128 {label}: {steps} steps at B="
               f"{trainer.config['global_batch_size']}, "
               f"update_ratio 2, {grids} sample-grid forwards; launches "
-              f"{counts} (expected {want}): K7 "
-              f"{(counts['K7'] - SN_PER_G * grids) / steps:g} a step",
-              flush=True)
+              f"{counts} (expected {want}): grouped K7 "
+              f"{(counts['K7'] - grids) / steps:g} calls for "
+              f"{(counts['K7w'] - SN_PER_G * grids) / steps:g} weights a "
+              f"step, its backward {counts['K7bwd'] / steps:g}", flush=True)
         require(trainer.config["num_classes"] == 1000
                 and n_epochs == epochs - first_step // trainer.steps_per_epoch
                 and trainer.global_step() == epochs * trainer.steps_per_epoch,
@@ -1955,7 +2144,8 @@ def phase_serve128(card: str) -> None:
         svc.close()
         thread.join(timeout=30)
     counts = _counts()               # the serving path ends here
-    want = _launches(K1mma=2 * forwards, K7=SN_PER_G * forwards)
+    want = _launches(K1mma=2 * forwards, K7=forwards,
+                     K7w=SN_PER_G * forwards)
     print(f"phase 17 serve imagenet128_cond: launches {counts} for {forwards}"
           f" generator forwards (expected {want})", flush=True)
     require(counts == want, f"serving launches {counts}, expected {want}")
@@ -1990,10 +2180,11 @@ def phase_step_gf64(card: str) -> None:
     losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
     params = sum(p.numel() for net in (gen, disc) for p in net.parameters())
     # one attention site a net (the 32 maps); update_ratio 1: G and D run
-    # once for D's update and once for G's
+    # once for D's update and once for G's, a grouped K7 call each, and
+    # K7's backward once for D's update and once for G's
     sn = sum(isinstance(m, layers._SNLayer) and m.sn
              for net in (gen, disc) for m in net.modules())
-    want = _launches(K1mma=4, K2mma=3, K7=2 * sn)
+    want = _launches(K1mma=4, K2mma=3, K7=4, K7w=2 * sn, K7bwd=2)
     print(f"phase 18 imagenet128_paper_gf64 train step B={PAPER_BATCH} bf16 "
           f"({params} parameters in G and D): losses {losses}, "
           f"{seconds:.2f} s (first step, host clock); peak memory "
@@ -2365,7 +2556,7 @@ def main(argv=None) -> int:
     if 13 in on:
         r["step_b8"] = phase_step512_b8(card)
     if 14 in on:
-        r["sn_head"] = phase_sn_kernels(card)
+        r["sn"] = phase_sn_kernels(card)
     if 15 in on:
         phase_generator128(card)
     if 16 in on:
@@ -2392,8 +2583,9 @@ def main(argv=None) -> int:
     # phase 11 checks church512 serving's), the CUDA-core K3 on the fp32
     # church512 G forward (phase 11) and the CUDA-core K6 on the fp32
     # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 step
-    # (phase 13), K7 on the imagenet128_cond training entry point's run
-    # (phase 16; phase 17 checks its serving path's own count), the study
+    # (phase 13), K7 and its backward on the imagenet128_cond training
+    # entry point's run (phase 16; phase 17 checks its serving path's own
+    # count), the study
     # kernels on the four studies' runs (phase 21)
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
@@ -2438,7 +2630,11 @@ def main(argv=None) -> int:
                {"name": "spectral_norm", "route": "cuda",
                 "source": src + "spectral_norm.cu",
                 "replaces": "sagan_tpu/ops/pallas_spectral.py:31",
-                "launches": r["train128"]["K7"], **r["sn_head"]},
+                "launches": r["train128"]["K7"], **r["sn"]["fwd"]},
+               {"name": "spectral_norm_bwd", "route": "cuda",
+                "source": src + "spectral_norm.cu",
+                "replaces": "sagan_tpu/ops/pallas_spectral.py:96",
+                "launches": r["train128"]["K7bwd"], **r["sn"]["bwd"]},
                {"name": "attention_study", "route": "cuda",
                 "source": src + "attention_study.cu",
                 "replaces": "tools/bench_attn_floor.py:82",

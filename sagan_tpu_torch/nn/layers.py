@@ -10,9 +10,12 @@ variable tree, so ``params/<path>/w`` is the state-dict key ``<path>.w``
 and ``aux/<path>/u`` the buffer ``<path>.u`` (``convert.py``).
 
 Spectral normalization runs ``sn_iters`` power iterations from the stored
-``u`` on every forward; only a module in training mode stores the new
-``u`` (``sagan_tpu/nn/layers.py:33-46``).  :func:`set_sn_backend` routes
-every SN layer of a model through the fused kernel K7 (``"pallas"``).
+``u`` on every call of a layer; only a module in training mode stores the
+new ``u`` (``sagan_tpu/nn/layers.py:33-46``).  :func:`set_sn_backend`
+routes every SN layer of a model through K7 (``"pallas"``): one grouped
+call at the start of each forward of the model normalizes all its SN
+weights and hands each layer its W̄, which the layer takes exactly once
+in that forward.
 """
 
 from __future__ import annotations
@@ -21,11 +24,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda_spectral import spectral_norm_group
 from ..ops.spectral import spectral_normalize
 from . import initializers as init
 
 BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
 BN_MOMENTUM = 0.99
+
+
+# what a layer holds in ``_sn_w_bar`` once it has taken its handed W̄
+_TAKEN = object()
 
 
 class _SNLayer(nn.Module):
@@ -34,6 +42,7 @@ class _SNLayer(nn.Module):
 
     out_dim = -1
     sn_backend = "xla"   # or "pallas" (K7), set by set_sn_backend
+    _sn_w_bar = None     # W̄ handed over by its root's grouped K7 call
 
     def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng,
                  w_init=init.glorot_uniform):
@@ -45,9 +54,20 @@ class _SNLayer(nn.Module):
             self.register_buffer("u", init.l2_normal((cout,), rng))
 
     def weight(self) -> torch.Tensor:
-        """The kernel this forward uses, spectrally normalized if asked."""
+        """The kernel this call uses, spectrally normalized if asked: the
+        W̄ its root handed over for this forward, else its own (through
+        ``sn_backend``: K7 as a group of one, or the plain function)."""
         if not self.sn:
             return self.w
+        w_bar = self._sn_w_bar
+        if w_bar is _TAKEN:
+            raise RuntimeError(
+                f"{type(self).__name__} {tuple(self.w.shape)} was called "
+                f"twice in one forward of its SN group: its u would move "
+                f"once where the JAX package moves it twice")
+        if w_bar is not None:
+            self.__dict__["_sn_w_bar"] = _TAKEN
+            return w_bar
         w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
                                           out_dim=self.out_dim,
                                           backend=self.sn_backend)
@@ -64,15 +84,56 @@ class _SNLayer(nn.Module):
         return y.to(self.dtype)
 
 
+def _sn_group_pre_hook(root: nn.Module, args) -> None:
+    """Before each forward of ``root``: K7 over all its SN layers in one
+    grouped call (storing u for the layers in training mode), each
+    layer's W̄ handed over."""
+    group = root._sn_group
+    w_bars = spectral_norm_group(
+        [m.w for m in group], [m.u for m in group],
+        [m.sn_iters for m in group], [m.out_dim for m in group],
+        dtypes=[m.dtype for m in group], store=[m.training for m in group])
+    for m, w_bar in zip(group, w_bars):
+        m.__dict__["_sn_w_bar"] = w_bar
+
+
+def _sn_group_post_hook(root: nn.Module, args, output) -> None:
+    """After each forward of ``root``: every handed W̄ was taken once (a
+    layer called twice raised when it asked again)."""
+    skipped = [m for m in root._sn_group if m._sn_w_bar is not _TAKEN]
+    for m in root._sn_group:
+        m.__dict__["_sn_w_bar"] = None
+    if skipped:
+        raise RuntimeError(
+            f"{len(skipped)} SN layers of {type(root).__name__} took no part "
+            f"in its forward, e.g. {type(skipped[0]).__name__} "
+            f"{tuple(skipped[0].w.shape)}: the grouped K7 call moved a u "
+            f"that the JAX package leaves alone")
+
+
 def set_sn_backend(root: nn.Module, backend: str) -> None:
     """Route every spectrally normalized layer under ``root`` through
-    ``backend``: ``"xla"`` (the plain function) or ``"pallas"`` (the fused
-    kernel K7).  Per model, not a process global, as in the JAX package."""
+    ``backend``: ``"xla"`` (the plain function) or ``"pallas"`` (K7).  Per
+    model, not a process global, as in the JAX package.  ``"pallas"``
+    registers on ``root`` the hooks that run K7 once a forward over all
+    of them (in ``named_modules`` order); either backend first removes
+    such hooks from ``root`` and every module under it (``deepcopy``
+    carries them over)."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown SN backend {backend!r}")
+    group = [m for m in root.modules() if isinstance(m, _SNLayer) and m.sn]
+    for m in group:
+        m.sn_backend = backend
     for m in root.modules():
-        if isinstance(m, _SNLayer) and m.sn:
-            m.sn_backend = backend
+        for hooks, hook in ((m._forward_pre_hooks, _sn_group_pre_hook),
+                            (m._forward_hooks, _sn_group_post_hook)):
+            for key in [k for k, h in hooks.items() if h is hook]:
+                del hooks[key]
+        m.__dict__.pop("_sn_group", None)
+    if backend == "pallas" and group:
+        root.__dict__["_sn_group"] = group
+        root.register_forward_pre_hook(_sn_group_pre_hook)
+        root.register_forward_hook(_sn_group_post_hook)
 
 
 class Dense(_SNLayer):

@@ -16,15 +16,17 @@ own layout and names the output-channel axis (``out_dim``).
 
 ``backend`` picks the implementation, as in the JAX package: ``"xla"``,
 the plain function below (the JAX package computes that path outside any
-Pallas kernel), or ``"pallas"``, the fused kernel K7 through
-:class:`~sagan_tpu_torch.ops.cuda_spectral.SpectralNormFused`.
+Pallas kernel), or ``"pallas"``, the kernel K7 as a group of one through
+:class:`~sagan_tpu_torch.ops.cuda_spectral.SpectralNormGroup` (a model
+routed to K7 normalizes all its SN weights in one grouped call a forward:
+``nn/layers.py`` :func:`set_sn_backend`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_spectral import SpectralNormFused
+from .cuda_spectral import SpectralNormGroup
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -58,10 +60,13 @@ def spectral_normalize(w: torch.Tensor, u: torch.Tensor, n_iter: int = 1,
         # (pallas_spectral.py:28,120-122), a TPU VMEM matter; a plain
         # route for large weights on a CUDA tensor would be a hidden
         # fallback.
-        w_bar, u_new = SpectralNormFused.apply(
-            w.float().contiguous(), u.float().contiguous(), n_iter, eps,
-            out_dim)
-        return w_bar.to(w.dtype), u_new
+        if n_iter < 1:
+            raise ValueError(f"spectral_normalize needs n_iter >= 1, got "
+                             f"{n_iter}")
+        spec = ((u.float().contiguous(),), (n_iter,), (out_dim,), eps,
+                torch.float32, (False,))
+        w_bar, stats = SpectralNormGroup.apply(spec, w.float().contiguous())
+        return w_bar.to(w.dtype), stats[:w.shape[out_dim]]
     if backend != "xla":
         raise ValueError(f"unknown SN backend {backend!r}")
     w32 = w.float()

@@ -1,7 +1,8 @@
 """What the breakdown tools share: the card's name and power limit, and
 the device time and launches of each kernel in a ``torch.profiler``
 trace, with the port's kernels (attention K1-K6, K1, K2, K3 and K6 on
-either engine, the fused spectral norm K7) picked out by name."""
+either engine, the grouped spectral norm K7 and its backward) picked out
+by name."""
 
 from __future__ import annotations
 
@@ -29,10 +30,14 @@ ATTENTION_KERNELS = (
     ("K6 attention_flash_dqkv_mma", ("attention_flash_dqkv_mma_kernel<",
                                      "attention_flash_delta_kernel<")),
 )
-# K7 runs its finish kernel once a call (at the configs' sn_iters 1)
+# K7, grouped: a forward call runs its finish kernel once (at the configs'
+# sn_iters 1) after the rows and colsum kernels, a backward call its grad
+# kernel once after the dot kernel
 SN_KERNELS = (
-    ("K7 spectral_norm", ("sn_finish_kernel<", "sn_rows_kernel<",
-                          "sn_colsum_kernel(")),
+    ("K7 spectral_norm", ("sn_group_finish_kernel(", "sn_group_rows_kernel(",
+                          "sn_group_colsum_kernel(")),
+    ("K7 spectral_norm_bwd", ("sn_group_grad_kernel(",
+                              "sn_group_dot_kernel(")),
 )
 PORT_KERNELS = ATTENTION_KERNELS + SN_KERNELS
 
@@ -59,23 +64,44 @@ def device_kernels(prof) -> dict:
     return out
 
 
-def kernel_ms_per_call(fn, *args, calls: int = 20, warmup: int = 3) -> float:
+def kernel_ms_per_call(fn, *args, calls: int = 20, warmup: int = 3,
+                       tries: int = 3) -> float | None:
     """Device time of the kernels ``fn(*args)`` launches, per call: their
     summed time in a ``torch.profiler`` trace of ``calls`` calls, after
     ``warmup``.  Unlike CUDA events around back-to-back calls, it leaves
     out the gaps in which the card waits for the host, which set the
     events' reading of a call whose kernels take less time than its
-    launch."""
+    launch.
+
+    A trace now and then comes back without some or all of its kernel
+    records; one whose kernel count is not a whole multiple of ``calls``
+    is taken again, up to ``tries`` traces, and None (not measured) is
+    returned when none is whole."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(ms for ms, _ in device_kernels(prof).values()) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof).values()
+        launches = sum(n for _, n in kernels)
+        if launches and launches % calls == 0:
+            return sum(ms for ms, _ in kernels) / calls
+    return None
+
+
+def ms_or_not_measured(ms: float | None) -> str:
+    """``kernel_ms_per_call``'s reading as printed."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def ratio_or_not_measured(a: float | None, b: float | None) -> str:
+    """a/b as printed, where either reading may be missing or zero."""
+    return f"{a / b:.2f}x" if a and b else "not measured"
 
 
 def attention_kernels(kernels: dict, per: int = 1,

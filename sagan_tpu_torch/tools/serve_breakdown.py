@@ -9,7 +9,7 @@ config's compute dtype, seeded random weights with nonzero attention
 ``sigma``; or the resnet family, ``example_configs/imagenet128_cond.py
 --img_size 128 --num_classes 1000``, one class a request) at
 ``--img_size`` and ``--num_classes`` (the config files leave them to the
-dataset), with every spectral norm through the fused kernel K7 when
+dataset), with every spectral norm through the grouped kernel K7 when
 ``--pallas_sn``, from ``GeneratorService(batch, ladder)`` behind
 ``make_server`` and, for each ladder rung n, reports medians over
 ``--reps`` runs of:
@@ -26,8 +26,9 @@ dataset), with every spectral norm through the fused kernel K7 when
 * ``http_ms``: ``GET /sample?n=<n>&format=raw`` on the host clock;
 * from one ``torch.profiler`` trace of a forward: the summed kernel time,
   each of the port's kernels' time and launches (K1, or K3 on the flash
-  path of a large map; K7), and the kernels by time; the device's busy
-  share is the summed kernel time over ``device_ms``.
+  path of a large map; K7, one launch a grouped call), and the kernels
+  by time; the device's busy share is the summed kernel time over
+  ``device_ms``.
 
 ``GET /healthz`` (no model work) gives the HTTP round trip alone.  Prints
 one line per measurement and, last, one JSON object of all of them.

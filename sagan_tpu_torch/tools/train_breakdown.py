@@ -9,7 +9,7 @@ width (church64 by default: bf16, batch 64, update_ratio 1; or the resnet
 family, ``example_configs/imagenet128_cond.py --img_size 128
 --num_classes 1000``) at ``--img_size`` and ``--num_classes`` (the config
 files leave them to the dataset), with every spectral norm through the
-fused kernel K7 when ``--pallas_sn`` (the config's ``use_pallas_sn``),
+grouped kernel K7 when ``--pallas_sn`` (the config's ``use_pallas_sn``),
 from a seeded init on random uint8 images and labels, and reports, after
 5 warm-up steps:
 
@@ -25,8 +25,8 @@ from a seeded init on random uint8 images and labels, and reports, after
   share (summed kernel time per step over ``step_device_ms``; the traced
   wall time is longer, as the profiler slows the host), each of the
   port's kernels' time and launches per step (K1/K2 on the single-pass
-  path, K3 and K6 or K4 + K5 on the flash path of a large map, K7), and
-  the kernels by time.
+  path, K3 and K6 or K4 + K5 on the flash path of a large map, K7 and
+  its backward, one launch a grouped call), and the kernels by time.
 
 Prints one line per measurement and, last, one JSON object of all of
 them.  Needs a CUDA device.

@@ -174,19 +174,24 @@ def test_set_sn_backend_routes_every_sn_layer_and_only_those():
 
 
 def test_profile_names_pick_out_k7():
-    """The breakdown tools sum K7's three kernels under one row and count
-    one launch a call (its finish kernel), as a profile names them."""
+    """The breakdown tools sum the grouped K7's three forward kernels under
+    one row and count one launch a call (its finish kernel), and its two
+    backward kernels under another, as a profile names them."""
     ns = "void (anonymous namespace)::"
+    table = "((anonymous namespace)::Table, int)"
+    bwd = "((anonymous namespace)::BwdTable)"
     kernels = {
-        f"{ns}sn_rows_kernel<true>((anonymous namespace)::Geometry)":
-            (3.0, 4),
-        f"{ns}sn_colsum_kernel(float const*, float*, long long, long long)":
-            (1.0, 4),
-        f"{ns}sn_finish_kernel<true, true>(float const*, float const*)":
-            (2.0, 4),
+        f"{ns}sn_group_rows_kernel{table}": (3.0, 4),
+        f"{ns}sn_group_colsum_kernel{table}": (1.0, 4),
+        f"{ns}sn_group_finish_kernel((anonymous namespace)::Table, int, "
+        f"float)": (2.0, 4),
+        f"{ns}sn_group_dot_kernel{bwd}": (0.5, 2),
+        f"{ns}sn_group_grad_kernel((anonymous namespace)::BwdTable, "
+        f"float)": (1.5, 2),
         f"{ns}attention_fwd_kernel<float, 2, 8>(float const*)": (5.0, 4)}
     assert attention_kernels(kernels, per=2, table=SN_KERNELS) == {
-        "K7 spectral_norm": {"ms": 3.0, "launches": 2}}
+        "K7 spectral_norm": {"ms": 3.0, "launches": 2},
+        "K7 spectral_norm_bwd": {"ms": 1.0, "launches": 1}}
     rows = attention_kernels(kernels, per=2, table=PORT_KERNELS)
     assert rows["K1 attention_fwd"] == {"ms": 2.5, "launches": 2}
     assert rows["K7 spectral_norm"] == {"ms": 3.0, "launches": 2}
