@@ -53,25 +53,30 @@ the build, and prints neither the kernels line nor the result line):
      restart that restores the checkpoint and trains a third epoch; and
      ``generate`` sampling the checkpoint's EMA generator;
   8. the flash kernels at the church512 512-map site (N=262144, M=65536,
-     d=2, c=8) at the config's B=4 and at B=8, bf16 and fp32: the forward
-     K3 (o and lse), the backward kernels K4, K5 and K6 on K3's (o, lse),
-     K3 and K6 on the dtype's engine (bf16: the tensor cores,
-     ``csrc/attention_flash_mma.cu``) and in bf16 also on the CUDA cores
-     (``engine="fma"``), each against its plain version run in query-row
-     chunks, K6 against K4 + K5, and in fp32 each dq against float64 on
-     the rows where they differ most; at B=4 with times of the kernels,
-     the plain versions and ``scaled_dot_product_attention`` on a backend
-     that does not materialise the logits (q and k zero-padded to a width
-     it takes); then both engines of K3 and K6 timed at church256's 256
-     map (B=16), held against the plain versions on the studies' check
-     rows;
+     d=2, c=8) at the config's B=4 and at B=8 (phase 13's, past the slab
+     budget), bf16 and fp32: the forward K3 (o and lse), the backward
+     kernels K4, K5 and K6 on K3's (o, lse), each on the dtype's engine
+     (bf16: the tensor cores, ``csrc/attention_flash_mma.cu``) and in
+     bf16 also on the CUDA cores (``engine="fma"``), each against its
+     plain version run in query-row chunks, K6 against K4 + K5, the
+     tensor-core K5's dk and dv against K6's bit for bit and two
+     tensor-core K4 + K5 pairs bit for bit, and in fp32 each dq against
+     float64 on the rows where they differ most; at both batches with
+     times of the kernels, the K4 + K5 pair, the plain versions and
+     ``scaled_dot_product_attention`` on a backend that does not
+     materialise the logits (q and k zero-padded to a width it takes;
+     its backward through autograd is the pair's yardstick); then both
+     engines of K3 and K6 timed at church256's 256 map (B=16), held
+     against the plain versions on the studies' check rows;
   9. every K6 key block against the one the route rule counts, and K3-K6
-     at every (dtype, engine, d, c) instance at three ragged shapes: N
-     and M off every tile, M under one key tile with N under 16, and M
-     past K6's key block;
+     (K4 + K5 as the two-kernel backward runs them) at every (dtype,
+     engine, d, c) instance at three ragged shapes: N and M off every
+     tile, M under one key tile with N under 16, and M past K6's key
+     block, the tensor-core K5's dk and dv equal to K6's;
  10. ``FlashAttention`` gradients at a small flash-routed shape against
      autograd through the plain forward, on the card: bf16 through the
-     tensor-core K3 and K6, fp32 through the CUDA-core ones;
+     tensor-core K3 and K6, fp32 through the CUDA-core ones, then with
+     the slab budget set to 0, through K4 + K5 of each engine;
  11. serving church512: the fp32 generator at 512 px (BN statistics of
      one batch, as an untrained G's eval output is flat) through the
      CUDA-core K3 against the same weights with ``use_pallas=False`` (the
@@ -86,7 +91,10 @@ the build, and prints neither the kernels line nor the result line):
      and nonzero gradients of the 512 site's theta/phi/g;
  13. one church512 training step at B=8, a shape past the route's slab
      budget, whose G backward takes K4 + K5 (K6's fp32 dq partials would
-     be 1.07 GB, past ``DQ_SLAB_BUDGET``);
+     be 1.07 GB, past ``DQ_SLAB_BUDGET``): in bf16 with exact launch
+     counts (the tensor-core K1, K2 and K3 2 each, K4 and K5 1 each, no
+     CUDA-core kernel), then in fp32 (the CUDA-core K1, K2, K3 2 each, K4
+     and K5 1 each);
  14. the grouped spectral norm K7 against its plain version on the card,
      over G's and D's whole tables of SN weights of imagenet128_cond and
      imagenet128_paper_gf64 (one grouped call a table, up to the [1128,
@@ -122,8 +130,9 @@ the build, and prints neither the kernels line nor the result line):
      forward tile point against the plain forward, K4-K6 at every
      backward tile point against K4 + K5 at the shipped tiles (B=2 at the
      256 map); the tensor-core K1 and K2 at every design flip of the
-     64-map study against the plain versions; S1 and S2 timed at the 64
-     map;
+     64-map study against the plain versions, and K4 + K5 at every flip
+     of the 512-map study against the plain backward (B=2 at the 256 map
+     and a ragged shape); S1 and S2 timed at the 64 map;
  21. the four attention studies (``sagan_tpu_torch.tools.bench_attn_*``)
      with ``--quick`` in process: every section present, every time > 0,
      every max|Δ| within its limit (each kernel a study times, at the full
@@ -169,8 +178,10 @@ from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
 from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn import layers
 from sagan_tpu_torch.nn.attention import SelfAttention
-from sagan_tpu_torch.ops import (_build, cuda_attention,
-                                 cuda_attention_study, cuda_spectral)
+from sagan_tpu_torch.ops import _build
+from sagan_tpu_torch.ops import attention as attention_ops
+from sagan_tpu_torch.ops import (cuda_attention, cuda_attention_study,
+                                 cuda_spectral)
 from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
@@ -1126,19 +1137,20 @@ def _row(err, ms, plain_ms, bound, lib_ms) -> dict:
 
 def phase_flash_kernels(card: str) -> dict:
     """K3-K6 against their plain versions at the church512 512-map site,
-    bf16 and fp32, at B=4 and 8: K3 and K6 on the dtype's engine (the
-    tensor cores in bf16), and in bf16 also on the CUDA cores
-    (``engine="fma"``); K6 against K4 + K5 on the same (o, lse), and in
-    fp32 each dq against float64 on its worst rows; times at B=4, bf16 on
-    both engines, beside padded SDPA and the plain versions.  Then the
-    same engines timed at church256's 256 map (``_flash_256``).  Returns
-    {kernel: its bf16 B=4 row}."""
+    bf16 and fp32, at B=4 and 8, each on the dtype's engine (the tensor
+    cores in bf16) and in bf16 also on the CUDA cores (``engine="fma"``):
+    K6 against K4 + K5 on the same (o, lse), the tensor-core K5's dk and dv
+    against K6's bit for bit, two calls of the tensor-core K4 + K5 bit for
+    bit, and in fp32 each dq against float64 on its worst rows; times at
+    both batches beside padded SDPA, the plain versions and the bounds.
+    Then K3 and K6 timed at church256's 256 map (``_flash_256``).  Returns
+    {B: {kernel: its bf16 row}}."""
     _, n, m, d, c = FLASH_SITE
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     heads = {}
     for b in FLASH_BATCHES:
         chunk = plain_chunk(b, n, m)
-        timed = b == FLASH_SITE[0]
+        heads[b] = {}
         site = f"G 512map B={b} N={n} M={m} d={d} c={c}"
         part = cuda_attention.dq_partial_shape(b, n, m, d, c)
         print(f"phase 8 K6 dq partials at {site}: "
@@ -1153,11 +1165,10 @@ def phase_flash_kernels(card: str) -> dict:
             engines = ("mma", "fma") if bf16 else ("fma",)
             q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
             ref_o, ref_lse = attention_flash_reference(q, k, v, chunk)
-            if timed:
-                plain_ms = cuda_time_ms(lambda: attention_flash_reference(
-                    q, k, v, chunk), iters=1, warmup=0)[0]
-                lib = _sdpa_flash(q, k, v, g, ref_o)
-                bound = _flash_bound_ms("fwd", b, n, m, d, c, dtype)
+            plain_ms = cuda_time_ms(lambda: attention_flash_reference(
+                q, k, v, chunk), iters=1, warmup=0)[0]
+            lib = _sdpa_flash(q, k, v, g, ref_o)
+            bound = _flash_bound_ms("fwd", b, n, m, d, c, dtype)
             for engine in engines:
                 o, lse = cuda_attention.attention_flash_fwd(q, k, v,
                                                             engine=engine)
@@ -1165,24 +1176,21 @@ def phase_flash_kernels(card: str) -> dict:
                 lse_scale = max(1.0, ref_lse.abs().max().item())
                 lse_err = (lse - ref_lse).abs().max().item()
                 ok = share <= 1 and lse_err <= LSE_TOL * lse_scale
-                line = (f"phase 8 kernel attention_flash_fwd (K3, {engine}) "
-                        f"{site} {name}: o max_abs_err {err:.3g} (max|plain| "
-                        f"{o_max:.3g}), worst row {share:.3f} of tol "
-                        f"{TOL[dtype]:g} x max(row max|plain|, "
-                        f"{ROW_FLOOR:g}); lse max_abs_err {lse_err:.3g} (tol "
-                        f"{LSE_TOL:g} x max(1, {lse_scale:.3g})) "
-                        f"{'ok' if ok else 'FAIL'}")
-                if timed:
-                    ms = cuda_time_ms(lambda: cuda_attention.attention_flash_fwd(
-                        q, k, v, engine=engine), iters=5, warmup=1)[0]
-                    line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                             f"library_ms {lib['fwd_ms']} (sdpa "
-                             f"{lib['note']}; err {lib['err']}) bound_ms "
-                             f"{bound[0]:.4g} ({bound[1]})")
-                    if bf16:
-                        heads["fwd" if engine == "mma" else "fwd_fma"] = \
-                            _row(err, ms, plain_ms, bound, lib["fwd_ms"])
-                print(f"{line} on {card}", flush=True)
+                ms = cuda_time_ms(lambda: cuda_attention.attention_flash_fwd(
+                    q, k, v, engine=engine), iters=5, warmup=1)[0]
+                print(f"phase 8 kernel attention_flash_fwd (K3, {engine}) "
+                      f"{site} {name}: o max_abs_err {err:.3g} (max|plain| "
+                      f"{o_max:.3g}), worst row {share:.3f} of tol "
+                      f"{TOL[dtype]:g} x max(row max|plain|, "
+                      f"{ROW_FLOOR:g}); lse max_abs_err {lse_err:.3g} (tol "
+                      f"{LSE_TOL:g} x max(1, {lse_scale:.3g})) "
+                      f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms "
+                      f"{plain_ms:.4f} library_ms {lib['fwd_ms']} (sdpa "
+                      f"{lib['note']}; err {lib['err']}) bound_ms "
+                      f"{bound[0]:.4g} ({bound[1]}) on {card}", flush=True)
+                if bf16:
+                    heads[b]["fwd" if engine == "mma" else "fwd_fma"] = \
+                        _row(err, ms, plain_ms, bound, lib["fwd_ms"])
                 require(ok, f"attention_flash_fwd ({engine}) disagrees with "
                             f"the plain version at {site} {name}")
                 if engine == engines[0]:
@@ -1192,56 +1200,68 @@ def phase_flash_kernels(card: str) -> dict:
 
             want = attention_flash_bwd_reference(q, k, v, o, lse, g, chunk)
             tol = BWD_TOL[dtype]
-            if timed:
-                plain_ms = cuda_time_ms(lambda: attention_flash_bwd_reference(
-                    q, k, v, o, lse, g, chunk), iters=1, warmup=0)[0]
+            plain_ms = cuda_time_ms(lambda: attention_flash_bwd_reference(
+                q, k, v, o, lse, g, chunk), iters=1, warmup=0)[0]
             args = (q, k, v, o, lse, g)
-            calls = {
-                "dq": (lambda: (cuda_attention.attention_flash_dq(*args),),
-                       want[:1]),
-                "dkv": (lambda: cuda_attention.attention_flash_dkv(*args),
-                        want[1:])}
-            for engine in engines:
-                calls["dqkv" if engine == engines[0] else "dqkv_fma"] = (
-                    functools.partial(cuda_attention.attention_flash_dqkv,
-                                      *args, engine=engine), want)
             got = {}
-            for kind, (fn, ref) in calls.items():
-                got[kind] = fn()
-                share, err = _grad_errors(got[kind], ref, tol)
-                label = {"dqkv": f"dqkv ({engines[0]})",
-                         "dqkv_fma": "dqkv (fma)"}.get(kind, kind)
-                line = (f"phase 8 kernel attention_flash_{label} {site} "
-                        f"{name}: max_abs_err {err:.3g}, worst {share:.3f} "
-                        f"of tol {tol:g} x max|plain| "
-                        f"{'ok' if share <= 1 else 'FAIL'}")
-                if timed:
-                    ms = cuda_time_ms(fn, iters=3, warmup=1)[0]
-                    bound = _flash_bound_ms(kind.removesuffix("_fma"), b, n,
-                                            m, d, c, dtype)
-                    lib_ms = lib["bwd_ms"] if kind.startswith("dqkv") \
-                        else None
-                    line += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} (the "
-                             f"plain backward computes all three) "
-                             f"library_ms {lib_ms} ("
-                             + ("autograd through the sdpa call above"
-                                if lib_ms else "no PyTorch call computes "
-                                               "this part alone")
-                             + f") bound_ms {bound[0]:.4g} ({bound[1]})")
+            for engine in engines:
+                # the dtype's engine unmarked, the CUDA-core one beside it
+                tag = "" if engine == engines[0] else "_fma"
+                calls = {
+                    "dq": (lambda e=engine: (cuda_attention.attention_flash_dq(
+                        *args, engine=e),), want[:1]),
+                    "dkv": (lambda e=engine: cuda_attention.attention_flash_dkv(
+                        *args, engine=e), want[1:]),
+                    "dqkv": (lambda e=engine:
+                             cuda_attention.attention_flash_dqkv(
+                                 *args, engine=e), want)}
+                times = {}
+                for kind, (fn, ref) in calls.items():
+                    got[kind + tag] = fn()
+                    share, err = _grad_errors(got[kind + tag], ref, tol)
+                    ms = times[kind] = cuda_time_ms(fn, iters=3, warmup=1)[0]
+                    bound = _flash_bound_ms(kind, b, n, m, d, c, dtype)
+                    lib_ms = lib["bwd_ms"] if kind == "dqkv" else None
+                    print(f"phase 8 kernel attention_flash_{kind} ({engine}) "
+                          f"{site} {name}: max_abs_err {err:.3g}, worst "
+                          f"{share:.3f} of tol {tol:g} x max|plain| "
+                          f"{'ok' if share <= 1 else 'FAIL'}; ms {ms:.4f} "
+                          f"plain_ms {plain_ms:.4f} (the plain backward "
+                          f"computes all three) library_ms {lib_ms} ("
+                          + ("autograd through the sdpa call above"
+                             if lib_ms else "no PyTorch call computes this "
+                                            "part alone")
+                          + f") bound_ms {bound[0]:.4g} ({bound[1]}) on "
+                          f"{card}", flush=True)
                     if bf16:
-                        heads[kind] = _row(err, ms, plain_ms, bound, lib_ms)
-                print(f"{line} on {card}", flush=True)
-                require(share <= 1, f"attention_flash_{label} disagrees "
-                                    f"with the plain backward at {site} "
-                                    f"{name}")
-            share, err = _grad_errors(got["dqkv"], got["dq"] + got["dkv"], tol)
-            same = all(torch.equal(x, y)
-                       for x, y in zip(got["dqkv"][1:], got["dkv"]))
-            print(f"phase 8 K6 ({engines[0]}) vs K4 + K5 on the same (o, lse) "
-                  f"at {site} {name}: max_abs_err {err:.3g}, worst "
-                  f"{share:.3f} of tol {tol:g} x max|K4 + K5|; dk, dv "
-                  f"bitwise equal {same}", flush=True)
-            require(share <= 1, f"K6 disagrees with K4 + K5 at {site} {name}")
+                        heads[b][kind + tag] = _row(err, ms, plain_ms, bound,
+                                                    lib_ms)
+                    require(share <= 1, f"attention_flash_{kind} ({engine}) "
+                                        f"disagrees with the plain backward "
+                                        f"at {site} {name}")
+                pair = functools.partial(cuda_attention.attention_flash_dq_dkv,
+                                         *args, engine=engine)
+                pair_ms = cuda_time_ms(pair, iters=3, warmup=1)[0]
+                split = got["dq" + tag] + got["dkv" + tag]
+                share, err = _grad_errors(got["dqkv" + tag], split, tol)
+                same = all(torch.equal(x, y) for x, y in
+                           zip(got["dqkv" + tag][1:], got["dkv" + tag]))
+                again = all(torch.equal(x, y) for x, y in zip(pair(), split))
+                print(f"phase 8 K4 + K5 ({engine}) at {site} {name}: the pair "
+                      f"(one delta pass on mma) ms {pair_ms:.4f}, K6 "
+                      f"{times['dqkv']:.4f}, autograd through sdpa "
+                      f"{lib['bwd_ms']}; K6 vs K4 + "
+                      f"K5 on the same (o, lse) max_abs_err {err:.3g}, worst "
+                      f"{share:.3f} of tol {tol:g} x max|K4 + K5|; K5's dk, "
+                      f"dv bitwise equal to K6's {same}; a second pair "
+                      f"bitwise equal {again} on {card}", flush=True)
+                if bf16:
+                    heads[b]["pair" + tag] = pair_ms
+                require(share <= 1, f"K6 ({engine}) disagrees with K4 + K5 "
+                                    f"at {site} {name}")
+                require(engine == "fma" or (same and again),
+                        f"tensor-core K4 + K5 at {site}: dk, dv equal to "
+                        f"K6's {same}, two calls equal {again}")
             if dtype == torch.float32:
                 scale = want[0].abs().max().item()
                 errs = _dq_f64(q, k, v, o, lse, g, {
@@ -1308,9 +1328,10 @@ def _flash_256(card: str) -> None:
 
 
 def _flash_errors(q, k, v, g, dtype, engine=None) -> float:
-    """Worst error of K3-K6 (K3 and K6 on ``engine``, by default the
-    dtype's) against the plain versions, and of K6 against K4 + K5, as a
-    share of each tolerance."""
+    """Worst error of K3-K6 (on ``engine``, by default the dtype's; K4 and
+    K5 as the two-kernel backward runs them) against the plain versions,
+    and of K6 against K4 + K5, as a share of each tolerance; on the
+    tensor cores K5's dk and dv must equal K6's bit for bit."""
     o, lse = cuda_attention.attention_flash_fwd(q, k, v, engine=engine)
     ref_o, ref_lse = attention_flash_reference(q, k, v)
     share = max(_o_errors(o, ref_o, dtype)[0],
@@ -1318,10 +1339,14 @@ def _flash_errors(q, k, v, g, dtype, engine=None) -> float:
                 / (LSE_TOL * max(1.0, ref_lse.abs().max().item())))
     tol = BWD_TOL[dtype]
     want = attention_flash_bwd_reference(q, k, v, o, lse, g)
-    dq = cuda_attention.attention_flash_dq(q, k, v, o, lse, g)
-    dk, dv = cuda_attention.attention_flash_dkv(q, k, v, o, lse, g)
+    dq, dk, dv = cuda_attention.attention_flash_dq_dkv(q, k, v, o, lse, g,
+                                                       engine=engine)
     fused = cuda_attention.attention_flash_dqkv(q, k, v, o, lse, g,
                                                 engine=engine)
+    if engine == "mma" or (engine is None and dtype == torch.bfloat16):
+        require(torch.equal(dk, fused[1]) and torch.equal(dv, fused[2]),
+                f"tensor-core K5's dk, dv differ from K6's at {q.shape} "
+                f"{k.shape} {v.shape}")
     for got, ref in (((dq, dk, dv), want), (fused, want),
                      (fused, (dq, dk, dv))):
         share = max(share, _grad_errors(got, ref, tol)[0])
@@ -1367,15 +1392,17 @@ def phase_flash_all_widths() -> None:
           f"(dtype, engine, d, c, shape) instances at (B, N, M) in "
           f"{FLASH_RAGGED}: worst error as a share of its tolerance "
           + ", ".join(f"{key} {x:.3f}" for key, x in worst.items())
-          + "; every K6 key block as the route rule counts it", flush=True)
+          + "; the tensor-core K5's dk, dv equal to K6's bit for bit; every "
+            "K6 key block as the route rule counts it", flush=True)
 
 
-# the launch counters by kernel: K3 and K6 on the CUDA cores ("K3", "K6")
-# and on the tensor cores ("K3mma", "K6mma")
+# the launch counters by kernel: K1-K6 on the CUDA cores ("K1" ... "K6")
+# and on the tensor cores ("K1mma" ... "K6mma")
 COUNTERS = {"K1": "LAUNCHES", "K2": "BWD_LAUNCHES",
             "K1mma": "FWD_MMA_LAUNCHES", "K2mma": "BWD_MMA_LAUNCHES",
             "K3": "FLASH_FWD_LAUNCHES", "K3mma": "FLASH_FWD_MMA_LAUNCHES",
-            "K4": "FLASH_DQ_LAUNCHES", "K5": "FLASH_DKV_LAUNCHES",
+            "K4": "FLASH_DQ_LAUNCHES", "K4mma": "FLASH_DQ_MMA_LAUNCHES",
+            "K5": "FLASH_DKV_LAUNCHES", "K5mma": "FLASH_DKV_MMA_LAUNCHES",
             "K6": "FLASH_DQKV_LAUNCHES", "K6mma": "FLASH_DQKV_MMA_LAUNCHES"}
 
 
@@ -1407,35 +1434,48 @@ def _launches(**some) -> dict:
 def phase_flash_autograd() -> dict:
     """``FlashAttention`` through ``attention()`` at a small flash-routed
     shape, gradients against autograd through the plain forward: bf16
-    through the tensor-core K3 and K6, fp32 through the CUDA-core ones.
-    Returns the fp32 run's launches (the fp32 path of the op)."""
+    through the tensor-core K3 and K6, fp32 through the CUDA-core ones;
+    then again with ``DQ_SLAB_BUDGET`` 0, so that the backward takes K4 +
+    K5 (bf16: the delta pass, the tensor-core K4 and K5).  Returns the
+    fp32 run's launches within the budget (the fp32 path of the op)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     b, n, m, d, c = 2, 1024, 8192, 2, 8
+    budget = attention_ops.DQ_SLAB_BUDGET
+    kept = None
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
-        leaves = [t.requires_grad_() for t in (q, k, v)]
-        _zero_counts()
-        out = attention(*leaves)
-        got = torch.autograd.grad(out, leaves, g)
-        counts = _counts()
-        ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        want = torch.autograd.grad(attention_reference(*ref_leaves),
-                                   ref_leaves, g)
-        share, err = _grad_errors(got, want, BWD_TOL[dtype])
         name = str(dtype).removeprefix("torch.")
-        fused = flash_bwd_fused(b, n, m, d, c, q.element_size())
-        print(f"phase 10 FlashAttention B={b} N={n} M={m} d={d} c={c} "
-              f"{name}: gradients vs autograd through the plain forward "
-              f"max_abs_err {err:.3g}, worst {share:.3f} of tol "
-              f"{BWD_TOL[dtype]:g} x max|plain|; launches {counts}",
-              flush=True)
-        require(share <= 1 and fused, f"FlashAttention gradients {name}: "
-                f"{share:.3f} of tolerance")
-        want = _launches(K3mma=1, K6mma=1) if dtype == torch.bfloat16 \
-            else _launches(K3=1, K6=1)
-        require(counts == want, f"FlashAttention launched {counts}, "
-                f"expected {want}")
-    return counts
+        mark = "mma" if dtype == torch.bfloat16 else ""
+        for past in (False, True):
+            attention_ops.DQ_SLAB_BUDGET = 0 if past else budget
+            try:
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                _zero_counts()
+                out = attention(*leaves)
+                got = torch.autograd.grad(out, leaves, g)
+                counts = _counts()
+                fused = flash_bwd_fused(b, n, m, d, c, q.element_size())
+            finally:
+                attention_ops.DQ_SLAB_BUDGET = budget
+            ref_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(attention_reference(*ref_leaves),
+                                       ref_leaves, g)
+            share, err = _grad_errors(got, want, BWD_TOL[dtype])
+            print(f"phase 10 FlashAttention B={b} N={n} M={m} d={d} c={c} "
+                  f"{name}{', slab budget 0 (K4 + K5)' if past else ''}: "
+                  f"gradients vs autograd through the plain forward "
+                  f"max_abs_err {err:.3g}, worst {share:.3f} of tol "
+                  f"{BWD_TOL[dtype]:g} x max|plain|; launches {counts}",
+                  flush=True)
+            require(share <= 1 and fused != past, f"FlashAttention "
+                    f"gradients {name}: {share:.3f} of tolerance")
+            kinds = ("K3", "K4", "K5") if past else ("K3", "K6")
+            want = _launches(**{kind + mark: 1 for kind in kinds})
+            require(counts == want, f"FlashAttention launched {counts}, "
+                    f"expected {want}")
+            if dtype == torch.float32 and not past:
+                kept = counts
+    return kept
 
 
 def church512_config(dtype: str) -> dict:
@@ -1646,41 +1686,50 @@ def phase_train512(card: str) -> dict:
 
 
 def phase_step512_b8(card: str) -> dict:
-    """One church512 training step at B=8 (bf16, the config's learning
-    rates): K6's dq partials would be 1.07 GB, past ``DQ_SLAB_BUDGET``,
-    so the G backward takes K4 + K5.  Returns the launches by kernel."""
-    config = church512_config("bfloat16")
-    config.update(batch_size=8, global_batch_size=8)
-    gen, disc = _church512_nets(config, SEED + 40)
-    gen.to("cuda").train()
-    disc.to("cuda").train()
-    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
-        config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
-    state = TrainState(gen, disc, opt_g, opt_d, 0, None)
-    step = build_train_step(config, sched_g, sched_d, gen, disc)
-    images = torch.randint(0, 256, (1, 8, 512, 512, 3), dtype=torch.uint8,
-                           device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(SEED))
-    labels = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
-    _zero_counts()                   # the B=8 step starts here
-    t0 = time.perf_counter()
-    metrics = step(state, images, labels)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _counts()               # and ends here
-    norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
-    losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
-    want = _launches(K1mma=2, K2mma=2, K3mma=2, K4=1, K5=1)
-    print(f"phase 13 church512 train step B=8 bf16: losses {losses}, "
-          f"{seconds:.2f} s (first step, host clock); launches {counts} "
-          f"(expected {want}); 512-site gradient norms {norms} on {card}",
-          flush=True)
-    require(all(math.isfinite(x) for x in losses.values()),
-            f"B=8 losses are not finite: {losses}")
-    require(counts == want, f"B=8 step launches {counts}, expected {want}")
-    require(len(norms) == 3 and min(norms.values()) > 0,
-            f"512-site attention weights without a gradient: {norms}")
-    return counts
+    """One church512 training step at B=8 (the config's learning rates):
+    K6's dq partials would be 1.07 GB, past ``DQ_SLAB_BUDGET``, so the G
+    backward takes K4 + K5: in bf16 the tensor-core ones (after one delta
+    pass), then in fp32 the CUDA-core ones.  Returns {dtype: the launches
+    by kernel}."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        config = church512_config(dtype)
+        config.update(batch_size=8, global_batch_size=8)
+        gen, disc = _church512_nets(config, SEED + 40)
+        gen.to("cuda").train()
+        disc.to("cuda").train()
+        (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+            config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+        state = TrainState(gen, disc, opt_g, opt_d, 0, None)
+        step = build_train_step(config, sched_g, sched_d, gen, disc)
+        images = torch.randint(
+            0, 256, (1, 8, 512, 512, 3), dtype=torch.uint8, device="cuda",
+            generator=torch.Generator("cuda").manual_seed(SEED))
+        labels = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
+        _zero_counts()               # the B=8 step starts here
+        t0 = time.perf_counter()
+        metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()           # and ends here
+        norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
+        losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
+        mark = "mma" if dtype == "bfloat16" else ""
+        want = _launches(**{"K1" + mark: 2, "K2" + mark: 2, "K3" + mark: 2,
+                            "K4" + mark: 1, "K5" + mark: 1})
+        print(f"phase 13 church512 train step B=8 {dtype}: losses {losses}, "
+              f"{seconds:.2f} s (first step, host clock); launches {counts} "
+              f"(expected {want}); 512-site gradient norms {norms} on {card}",
+              flush=True)
+        require(all(math.isfinite(x) for x in losses.values()),
+                f"B=8 losses are not finite: {losses}")
+        require(counts == want, f"B=8 step launches {counts}, expected "
+                                f"{want}")
+        require(len(norms) == 3 and min(norms.values()) > 0,
+                f"512-site attention weights without a gradient: {norms}")
+        out[dtype] = counts
+        del gen, disc, state, step, opt_g, opt_d
+    return out
 
 
 IMAGENET128 = ROOT / "example_configs" / "imagenet128_cond.py"
@@ -2263,10 +2312,11 @@ def folded_bound_ms(b, n, m, dtype) -> tuple[float, str]:
 
 def phase_study_kernels(card: str) -> dict:
     """Build every study library (one nvcc each, all together), then hold
-    every S1 variant, both S2 forms and every tile variant of K1 and K3-K6
-    against the plain versions (``STUDY_TOL``), the S1 fma default against
-    K1 bit for bit; time S1 (mma) and S2 at the 64 map.  Returns their rows
-    of the kernels line."""
+    every S1 variant, both S2 forms, every tile variant of K1 and K3-K6 and
+    every design flip of the tensor-core K1, K2, K4 and K5 against the
+    plain versions (``STUDY_TOL``, the flips ``TOL`` and ``BWD_TOL``), the
+    S1 fma default against K1 bit for bit; time S1 (mma) and S2 at the 64
+    map.  Returns their rows of the kernels line."""
     t0 = time.perf_counter()
     paths = _build.build(cuda_attention_study.build_specs())
     print(f"phase 20 build: {len(paths)} study libraries in "
@@ -2420,21 +2470,46 @@ def phase_study_kernels(card: str) -> dict:
           f"{', '.join(f'{key} {x:.3f}' for key, x in flips.items())}",
           flush=True)
 
-    # K4, K5 and K6 at every backward tile point vs K4 + K5 at the shipped
-    # tiles, each output
+    # the tensor-core K4 + K5 with each design choice flipped (the 512-map
+    # study's k45_mma points), bf16, against the plain backward at K4-K6's
+    # tile site and at a ragged shape
+    flips = {}
+    for b, n, m in (STUDY_BWD_SITE[:3], FLASH_RAGGED[2]):
+        q, k, v, g = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
+        o, lse = cuda_attention.attention_flash_fwd(q, k, v)
+        args = (q, k, v, o, lse, g)
+        want = attention_flash_bwd_reference(*args, plain_chunk(b, n, m))
+        shipped = cuda_attention.attention_flash_dq_dkv(*args, engine="mma")
+        for point in cas.K45_MMA_POINTS:
+            got = cuda_attention.attention_flash_dq_dkv(
+                *args, cas.K45_MMA_DEFINES[point], "mma")
+            share = _grad_errors(got, want, BWD_TOL[torch.bfloat16])[0]
+            same = all(torch.equal(x, y) for x, y in zip(got, shipped))
+            flips[f"{point[0]} B={b} N={n} M={m}"] = (share, same)
+            require(share <= 1, f"K4 + K5 (mma) {point[0]} at B={b} N={n} "
+                                f"M={m}: {share:.3f} of its tolerance")
+    del q, k, v, g, o, lse, args, want, shipped, got
+    print(f"phase 20 the tensor-core K4 + K5 at each design flip, bf16, "
+          f"share of the tolerance (bitwise equal to the shipped pair): "
+          + ", ".join(f"{key} {x:.3f} ({same})"
+                      for key, (x, same) in flips.items()), flush=True)
+
+    # the CUDA-core K4, K5 and K6 at every backward tile point vs K4 + K5
+    # at the shipped tiles, each output
     b, n, m, d, c = STUDY_BWD_SITE
     share_b = {}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, g = _bwd_inputs(gen, b, n, m, d, c, dtype)
         o, lse = cuda_attention.attention_flash_fwd(q, k, v)
         args = (q, k, v, o, lse, g)
-        want = (cuda_attention.attention_flash_dq(*args),
-                *cuda_attention.attention_flash_dkv(*args))
+        want = cuda_attention.attention_flash_dq_dkv(*args, (), "fma")
         tol = _study_tol(dtype)
         for point in cas.BWD_POINTS:
             tiles = cas.bwd_tiles(point)
-            got = {"K4": (cuda_attention.attention_flash_dq(*args, tiles),),
-                   "K5": cuda_attention.attention_flash_dkv(*args, tiles),
+            got = {"K4": (cuda_attention.attention_flash_dq(*args, tiles,
+                                                            "fma"),),
+                   "K5": cuda_attention.attention_flash_dkv(*args, tiles,
+                                                            "fma"),
                    "K6": cuda_attention.attention_flash_dqkv(*args, tiles,
                                                              "fma")}
             for kernel, outs in got.items():
@@ -2582,14 +2657,16 @@ def main(argv=None) -> int:
     # (phase 6), the tensor-core K3 and K6 on the church512 one (phase 12;
     # phase 11 checks church512 serving's), the CUDA-core K3 on the fp32
     # church512 G forward (phase 11) and the CUDA-core K6 on the fp32
-    # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 step
-    # (phase 13), K7 and its backward on the imagenet128_cond training
+    # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 steps
+    # (phase 13: the tensor-core ones in bf16, the CUDA-core ones in fp32;
+    # their times at B=8, the main path's batch), K7 and its backward on the imagenet128_cond training
     # entry point's run (phase 16; phase 17 checks its serving path's own
     # count), the study
     # kernels on the four studies' runs (phase 21)
     src = "sagan_tpu_torch/csrc/"
     ref = "sagan_tpu/ops/pallas_attention.py:"
-    flash, train512 = r["flash"], r["train512"]
+    flash, train512 = r["flash"][4], r["train512"]
+    b8, step_b8 = r["flash"][8], r["step_b8"]
     kernels = [{"name": "attention_fwd_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "157", "launches": r["fwd_launches"],
@@ -2611,14 +2688,22 @@ def main(argv=None) -> int:
                {"name": "attention_flash_fwd", "route": "cuda",
                 "source": src + "attention_fwd.cu", "replaces": ref + "368",
                 "launches": r["serve512"]["fp32"], **flash["fwd_fma"]},
+               {"name": "attention_flash_dq_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "444",
+                "launches": step_b8["bfloat16"]["K4mma"], **b8["dq"]},
                {"name": "attention_flash_dq", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
-                "replaces": ref + "444", "launches": r["step_b8"]["K4"],
-                **flash["dq"]},
+                "replaces": ref + "444",
+                "launches": step_b8["float32"]["K4"], **b8["dq_fma"]},
+               {"name": "attention_flash_dkv_mma", "route": "cuda",
+                "source": src + "attention_flash_mma.cu",
+                "replaces": ref + "515",
+                "launches": step_b8["bfloat16"]["K5mma"], **b8["dkv"]},
                {"name": "attention_flash_dkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
-                "replaces": ref + "515", "launches": r["step_b8"]["K5"],
-                **flash["dkv"]},
+                "replaces": ref + "515",
+                "launches": step_b8["float32"]["K5"], **b8["dkv_fma"]},
                {"name": "attention_flash_dqkv_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "665", "launches": train512["K6mma"],

@@ -2,7 +2,10 @@
 // forward's stored (O, lse), for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of sagan_tpu/ops/pallas_attention.py, the
-// backward of the flash path (key sets too large for VMEM):
+// backward of the flash path (key sets too large for VMEM), on fp32
+// operands, and on bf16 where a caller names engine="fma" (the tile
+// studies' -D builds and chip_smoke time them there); bf16's own engine
+// runs all three on the tensor cores (attention_flash_mma.cu):
 //  * _flash_dq_kernel (launched by _flash_bwd): dQ, key blocks innermost
 //    -> attention_flash_dq_kernel (K4);
 //  * _flash_dkv_kernel (launched by _flash_bwd): dK, dV, query blocks

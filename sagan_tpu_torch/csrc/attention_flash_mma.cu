@@ -1,8 +1,8 @@
 // SAGAN attention in bf16 on Hopper's tensor cores (sm_90a, mma.sync bf16
 // -> fp32): the single-pass forward and backward, and the flash forward
-// and fused flash backward.
+// and both flash backwards (fused, and dq apart from dk, dv).
 //
-// Replaces four TPU kernels of sagan_tpu/ops/pallas_attention.py on bf16
+// Replaces six TPU kernels of sagan_tpu/ops/pallas_attention.py on bf16
 // operands (fp32 operands keep the CUDA-core kernels of attention_fwd.cu,
 // attention_bwd.cu and attention_flash_bwd.cu: the tensor cores take fp32
 // only as TF32):
@@ -27,12 +27,21 @@
 //    type) before the dK and dQ products; dV from p rounded to bf16 (v's
 //    type). The mma operands are bf16, so both roundings are the TPU
 //    kernel's by construction.
+//  * _flash_dq_kernel (K4, launched by _flash_bwd, :444) and
+//    _flash_dkv_kernel (K5, :515), the two-kernel backward that the route
+//    takes where K6's dq partials would pass the slab budget (church512's
+//    512 map at B >= 7): attention_flash_dq_mma_kernel and
+//    attention_flash_dkv_mma_kernel here, after one delta pass
+//    (attention_flash_dq_delta_kernel) that both read. The same p, delta
+//    and roundings as K6: dl in bf16 (k's type) before the dQ and dK
+//    products, p in bf16 (v's type) before dV.
 //
 //   q [B, N, D]  k [B, M, D]  v [B, M, C]  g, o [B, N, C]  lse [B, N] fp32
 //   -> o [B, N, C] (K1), and lse (K3)
 //   -> dq [B, N, D], dk [B, M, D], dv [B, M, C] (K2)
 //   -> dk, dv and dq partials fp32 [B, NKB, N, D] (K6, NKB key blocks,
 //      summed by the caller in key-block order)
+//   -> dq (K4) | dk, dv (K5)
 //
 // What bounds them on the H100: per (query, key) pair one exponential on
 // the SFUs (16 a clock an SM: 16.4 ms for the 6.9e10 pairs of church512's
@@ -44,7 +53,10 @@
 // bytes are a few tens of MB (~20 us at the 512 map, ~3 us at the 64
 // map), so the SFU and the rate at which those instructions are issued
 // bind, not memory. K2 takes two exponentials a pair (its scores are
-// recomputed twice): a floor of 0.128 ms at the 64 map.
+// recomputed twice): a floor of 0.128 ms at the 64 map. So does the pair
+// K4 + K5 (each recomputes p): 16.4 ms a kernel at the 512 map at B = 4,
+// besides its padded thin contractions (K4: S and dP on m16n8k8, dQ on
+// m16n8k16 with d = 2 padded to n8; K5: S^T, dP^T, dV and dK as in K6).
 //
 // K3's design (FlashAttention-2's forward on mma.sync), each choice the
 // fastest of the alternatives the study times (the switches below;
@@ -118,6 +130,33 @@
 //  * each warp sums its key tiles' dQ in its mma accumulators, the warps'
 //    sums meet in shared memory in warp order, and the block writes its
 //    fp32 dq partial rows once: no atomics, the same bits every run.
+//
+// K4's design (FlashAttention-2's dq pass; K3's loop, fwd_mma_body, with
+// kOutDq):
+//  * a block of 4 warps, a warp one m16 tile of query rows, Q and dO held
+//    as A fragments in registers, each row's (-lse log2e, delta) read once
+//    from the delta pass;
+//  * K and V walked in 64-key tiles staged by cp.async as K3 stages them;
+//    per tile S = Q K^T and dP = dO V^T on the mma, p = 2^(s log2e -
+//    lse log2e) with the exponent one FFMA, no online max and no rescale
+//    (p is exact from lse), dl = p (dp - delta);
+//  * dl's C fragments, packed to bf16, are the A fragments of dQ += dl K
+//    (two n8 score tiles make one k16 tile, as K3 builds P for P V), K's B
+//    fragments by ldmatrix.trans of its row-major staged rows;
+//  * dq sums a 1,024-key group in fp32 C fragments and adds it to the
+//    row's running fp32 sum once a group, in key order (the groups of the
+//    CUDA-core K4 and of PLAIN_KEY_BLOCK); a warp owns its rows' whole sum:
+//    no partials, no atomics, the same bits every run;
+//  * keys past M are staged as zeros and only a ragged last tile masks.
+// K5's design: K6's key-major body (dqkv_mma_body) with dQ switched off at
+// compile time: no movmatrix, no dQ mma, no warp sum through shared memory
+// and no partial slab; 8 warps own 8 x KT m16 key tiles (K6's KT) with dK
+// and dV in fp32 C fragments, written once in k's and v's types, and walk
+// the query rows in 64-row tiles through K6's cp.async ring; its
+// registers are left to the compiler (145 at d = 2, c = 8: one block an
+// SM). Each choice is the fastest of the study's flips (bench_attn_floor512
+// k45_mma; PERF.md §6): K4's 128-key stage, its 8-warp block, K5 at twice
+// K6's KT and K5 held to two blocks an SM each read slower.
 //
 // The value width C is fixed per build (-DSAGAN_ATTN_C=8, 16, ...), one
 // small library per width holding all the kernels; D in {2, 4, 8, 16,
@@ -242,11 +281,47 @@ constexpr int kK2Fill = 1;
 static_assert(kK1WholeBytes <= 227 * 1024, "SAGAN_K1_WHOLE_BYTES: at most "
               "the 227 KB of shared memory a block can have");
 
+// K4's and K5's choices, flipped at build time for the 512-map study
+// (sagan_tpu_torch/tools/bench_attn_floor512.py, k45_mma):
+// -DSAGAN_K4_TILE=128 stages K4's keys 128 at a time (two 64-key register
+// tiles between one pair of barriers), -DSAGAN_K4_WARPS=8 makes K4's block
+// 8 warps, -DSAGAN_K5_KT_SCALE=2 gives K5's warps twice K6's key tiles,
+// and -DSAGAN_K5_MIN_BLOCKS=2 asks the compiler for two K5 blocks an SM
+// (at most 128 registers a thread; else it leaves K5's registers to the
+// compiler). The defaults are the shipped kernels.
+#ifdef SAGAN_K4_TILE
+constexpr int kK4Tile = SAGAN_K4_TILE;
+#else
+constexpr int kK4Tile = 64;
+#endif
+#ifdef SAGAN_K4_WARPS
+constexpr int kK4Warps = SAGAN_K4_WARPS;
+#else
+constexpr int kK4Warps = 4;
+#endif
+#ifdef SAGAN_K5_KT_SCALE
+constexpr int kK5KtScale = SAGAN_K5_KT_SCALE;
+#else
+constexpr int kK5KtScale = 1;
+#endif
+#ifdef SAGAN_K5_MIN_BLOCKS
+constexpr int kK5MinBlocks = SAGAN_K5_MIN_BLOCKS;
+#else
+constexpr int kK5MinBlocks = 1;
+#endif
+
 constexpr int kFwdWarps = 4;
 constexpr int kFwdTile = 64;  // keys a stage
 constexpr int kFwdGroups = kFwdTile / 8;  // n8 key groups a tile
 constexpr int kStatsWarps = 4;  // K2's stats pass: 64 query rows a block
 constexpr int kStatsRows = 16 * kStatsWarps;
+// K4 adds a 1,024-key group's dq to the row's running sum once a group:
+// the groups of the CUDA-core K4 and of the plain version
+// (ops/attention.py PLAIN_KEY_BLOCK); one running sum over 65,536 keys
+// loses the terms far below it
+constexpr int kDqGroupTiles = 1024 / kFwdTile;
+static_assert(kK4Tile % kFwdTile == 0 && 1024 % kK4Tile == 0,
+              "SAGAN_K4_TILE: a multiple of 64 keys that divides 1,024");
 
 // m16 row tiles a warp
 #ifdef SAGAN_MMA_ROW_TILES
@@ -256,7 +331,7 @@ constexpr int kRowTiles = 1;
 #endif
 
 // what a pass of fwd_mma_body writes
-enum FwdOut { kOutFlash, kOutFwd, kOutStats };
+enum FwdOut { kOutFlash, kOutFwd, kOutStats, kOutDq };
 
 template <int D, int C>
 struct FwdSmem {
@@ -280,31 +355,40 @@ __host__ inline bool stage_whole(int m) {
   return fwd_smem_bytes<D, C>(m, true, 1) <= kK1WholeBytes;
 }
 
-// K1, K3 and K2's stats pass: a block of kWarps warps, RT m16 row tiles a
-// warp, walks the key set in 64-key tiles (staged whole where kWhole, else
-// through a cp.async ring of kStages) with an online softmax of the mma
-// scores. kOutFlash and kOutFwd accumulate P V and write o (and, for
-// kOutFlash, lse); kOutStats computes dP = G V^T beside the scores,
-// accumulates A = sum e dp, and writes each row's (-lse log2e, A / l),
-// rows n..npad-1 (-inf, 0).
+// K1, K3, K2's stats pass and K4: a block of kWarps warps, RT m16 row
+// tiles a warp, walks the key set in 64-key tiles (staged whole where
+// kWhole, else kST tiles at a time through a cp.async ring of kStages)
+// with the mma scores. kOutFlash and kOutFwd take an online softmax,
+// accumulate P V and write o (and, for kOutFlash, lse) to `out`;
+// kOutStats computes dP = G V^T beside the scores, accumulates
+// A = sum e dp, and writes each row's (-lse log2e, A / l), rows n..npad-1
+// (-inf, 0). kOutDq reads those pairs from `ld` (no softmax state: p is
+// exact from lse), computes dP as the stats do, accumulates dL K with
+// dL = p (dp - delta) rounded to bf16, and writes dq to `out`.
 template <int D, int C, int kOut, int kWarps, int RT, int kStages,
-          bool kWhole>
+          bool kWhole, int kST = 1>
 __device__ __forceinline__ void fwd_mma_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ gin,
-    bf16* __restrict__ o, float* __restrict__ lse, float2* __restrict__ ld,
-    int n, int m, int npad) {
+    bf16* __restrict__ out, float* __restrict__ lse,
+    float2* __restrict__ ld, int n, int m, int npad) {
   constexpr int kThreads = 32 * kWarps;
   constexpr bool kStats = kOut == kOutStats;
   constexpr bool kFlash = kOut == kOutFlash;
+  constexpr bool kDq = kOut == kOutDq;
+  constexpr bool kDp = kStats || kDq;  // dP = G V^T beside the scores
   constexpr bool kK8 = D <= 8;       // scores on m16n8k8
   constexpr int KS = kK8 ? 1 : D / 16;  // k16 steps of the scores
   constexpr bool kCK8 = C == 8;      // dP on m16n8k8
   constexpr int CS = kCK8 ? 1 : C / 16;  // k16 steps of dP
   constexpr int NT = C / 8;          // n8 channel tiles
+  constexpr int DT = (D + 7) / 8;    // n8 dim tiles of dQ
+  constexpr int OT = kDq ? DT : NT;  // n8 tiles of the accumulated product
   constexpr bool kMask = kFlash && kMaskAll;
   constexpr bool kEx = kFlash && kExpf;
   constexpr bool kVt = kFlash && kVote;
+  static_assert(kST == 1 || (!kWhole && kStages == 1),
+                "several tiles a stage: synchronous staging only");
   using S = FwdSmem<D, C>;
   extern __shared__ __align__(16) char smem[];
 
@@ -317,15 +401,24 @@ __device__ __forceinline__ void fwd_mma_body(
   const bf16* kb = k + (size_t)b * m * D;
   const bf16* vb = v + (size_t)b * m * C;
   const int tiles = (m + kFwdTile - 1) / kFwdTile;
+  // the shared-memory slot of a 64-key tile
+  auto slot = [&](int tile) {
+    return kWhole ? tile : (tile / kST % kStages) * kST + tile % kST;
+  };
 
   // the padding of staged rows is never written by cp.async: zero it
-  zero_smem(smem, (kWhole ? tiles : kStages) * S::kStage, kThreads);
+  zero_smem(smem, (kWhole ? tiles : kStages * kST) * S::kStage, kThreads);
   __syncthreads();
-  auto load = [&](int tile) {
-    if (tile < tiles) {
-      char* st = smem + (kWhole ? tile : tile % kStages) * S::kStage;
-      stage_rows<D, kThreads>(st, kb, tile * kFwdTile, kFwdTile, m);
-      stage_rows<C, kThreads>(st + S::kK, vb, tile * kFwdTile, kFwdTile, m);
+  auto load = [&](int stage) {  // tiles stage * kST .. + kST - 1
+#pragma unroll
+    for (int i = 0; i < kST; ++i) {
+      const int tile = stage * kST + i;
+      if (tile < tiles) {
+        char* st = smem + slot(tile) * S::kStage;
+        stage_rows<D, kThreads>(st, kb, tile * kFwdTile, kFwdTile, m);
+        stage_rows<C, kThreads>(st + S::kK, vb, tile * kFwdTile, kFwdTile,
+                                m);
+      }
     }
     cp_async_commit();  // an empty group past the last tile keeps the count
   };
@@ -345,7 +438,7 @@ __device__ __forceinline__ void fwd_mma_body(
                : 0u;
   };
   uint32_t qa[RT][KS][4];
-  uint32_t ga[RT][kStats ? CS : 1][4];
+  uint32_t ga[RT][kDp ? CS : 1][4];
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
     const int lo = row0 + 16 * rt + g;
@@ -356,7 +449,7 @@ __device__ __forceinline__ void fwd_mma_body(
       qa[rt][ks][2] = aword(q, D, lo, 8 * ks + 4 + t);
       qa[rt][ks][3] = aword(q, D, lo + 8, 8 * ks + 4 + t);
     }
-    if constexpr (kStats) {
+    if constexpr (kDp) {
 #pragma unroll
       for (int cs = 0; cs < CS; ++cs) {
         ga[rt][cs][0] = aword(gin, C, lo, 8 * cs + t);
@@ -367,20 +460,30 @@ __device__ __forceinline__ void fwd_mma_body(
     }
   }
 
-  float acc[RT][kStats ? 1 : NT][4];
+  // acc: P V (dq: one 1,024-key group's dL K, added to tot once a group)
+  float acc[RT][kStats ? 1 : OT][4], tot[RT][kDq ? DT : 1][4];
   float mx[RT][2], nm[RT][2], l[RT][2];  // running max, -max log2e, sum
   float asum[RT][2];                     // the stats' sum of e dp
+  float2 lq[RT][2];  // dq: the row's (-lse log2e, delta); padded (-inf, 0)
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
-    for (int j = 0; j < (kStats ? 1 : NT); ++j)
+    for (int j = 0; j < (kStats ? 1 : OT); ++j)
       acc[rt][j][0] = acc[rt][j][1] = acc[rt][j][2] = acc[rt][j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (kDq ? DT : 1); ++j)
+      tot[rt][j][0] = tot[rt][j][1] = tot[rt][j][2] = tot[rt][j][3] = 0.f;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[rt][r] = -INFINITY;
       nm[rt][r] = INFINITY;
       l[rt][r] = 0.f;
       asum[rt][r] = 0.f;
+      if constexpr (kDq) {
+        const int row = row0 + 16 * rt + g + 8 * r;
+        lq[rt][r] = row < n ? ld[(size_t)b * npad + row]
+                            : make_float2(-INFINITY, 0.f);
+      }
     }
   }
 
@@ -392,16 +495,18 @@ __device__ __forceinline__ void fwd_mma_body(
     if constexpr (kWhole) {
       // staged once: no barrier in the loop
     } else if constexpr (kStages == 1) {
-      __syncthreads();  // every thread is done with tile it - 1
-      load(it);
-      cp_async_wait<0>();
-      __syncthreads();
+      if (it % kST == 0) {
+        __syncthreads();  // every thread is done with the last stage
+        load(it / kST);
+        cp_async_wait<0>();
+        __syncthreads();
+      }
     } else {
       cp_async_wait<kStages - 2>();  // tile `it` has landed
       __syncthreads();  // ... for every thread, all done with it - 1
       load(it + kStages - 1);
     }
-    const char* ks_ = smem + (kWhole ? it : it % kStages) * S::kStage;
+    const char* ks_ = smem + slot(it) * S::kStage;
     const char* vs = ks_ + S::kK;
 
     // B fragments of K^T: key group h's rows, d values as the mma's k
@@ -441,11 +546,11 @@ __device__ __forceinline__ void fwd_mma_body(
         }
       }
     }
-    // the stats' dP = G V^T in the scores' layout; V's B fragments loaded
-    // a few key groups at a time (a wide C would hold 16 words a group).
-    // Keys past M are staged as zeros: their dp is 0
-    float dp[RT][kStats ? kFwdGroups : 1][4];
-    if constexpr (kStats) {
+    // dP = G V^T (the stats, dq) in the scores' layout; V's B fragments
+    // loaded a few key groups at a time (a wide C would hold 16 words a
+    // group). Keys past M are staged as zeros: their dp is 0
+    float dp[RT][kDp ? kFwdGroups : 1][4];
+    if constexpr (kDp) {
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -494,77 +599,96 @@ __device__ __forceinline__ void fwd_mma_body(
             if (8 * h + 2 * t + (e & 1) >= tm) s[rt][h][e] = -INFINITY;
     }
 
-    // the online softmax: e = 2^(s log2e - m log2e) in place of s
-    float scale[RT][2], tl[RT][2], ta[RT][2];
-    bool moved = false;
-#pragma unroll
-    for (int rt = 0; rt < RT; ++rt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int h = 0; h < kFwdGroups; ++h)
-          tmax = fmaxf(tmax, fmaxf(s[rt][h][2 * r], s[rt][h][2 * r + 1]));
-        const float m_new = fmaxf(mx[rt][r], quad_max(tmax));
-        const float nm_new = -m_new * kLog2e;
-        // exactly 1 while the max holds; 0 on the first tile
-        const bool up = nm_new != nm[rt][r];
-        moved |= up;
-        if constexpr (kEx)
-          scale[rt][r] = __expf(mx[rt][r] - m_new);
-        else
-          scale[rt][r] = up ? ex2(nm_new - nm[rt][r]) : 1.f;
-        mx[rt][r] = m_new;
-        nm[rt][r] = nm_new;
-        float sum = 0.f, asm_ = 0.f;
-#pragma unroll
-        for (int h = 0; h < kFwdGroups; ++h) {
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[rt][h][e] = kEx ? __expf(s[rt][h][e] - m_new)
-                              : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
-            sum += s[rt][h][e];
-            if constexpr (kStats) asm_ = fmaf(s[rt][h][e], dp[rt][h][e], asm_);
-          }
-        }
-        tl[rt][r] = sum;  // the tile's terms, added to l once
-        ta[rt][r] = asm_;
-      }
-    }
-    if constexpr (kStats) {
+    if constexpr (kDq) {
+      // p = 2^(s log2e - lse log2e) exactly, dL = p (dp - delta) in place
+      // of s; a masked key's p is 2^-inf = 0
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          l[rt][r] = fmaf(l[rt][r], scale[rt][r], tl[rt][r]);
-          asum[rt][r] = fmaf(asum[rt][r], scale[rt][r], ta[rt][r]);
-        }
-      continue;
-    }
-    if (!kVt || __any_sync(kFull, moved)) {
+        for (int h = 0; h < kFwdGroups; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = lq[rt][e >> 1];
+            s[rt][h][e] = ex2(fmaf(s[rt][h][e], kLog2e, x.x)) *
+                          (dp[rt][h][e] - x.y);
+          }
+    } else {
+      // the online softmax: e = 2^(s log2e - m log2e) in place of s
+      float scale[RT][2], tl[RT][2], ta[RT][2];
+      bool moved = false;
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          acc[rt][j][0] *= scale[rt][0];
-          acc[rt][j][1] *= scale[rt][0];
-          acc[rt][j][2] *= scale[rt][1];
-          acc[rt][j][3] *= scale[rt][1];
+        for (int r = 0; r < 2; ++r) {
+          float tmax = -INFINITY;
+#pragma unroll
+          for (int h = 0; h < kFwdGroups; ++h)
+            tmax = fmaxf(tmax, fmaxf(s[rt][h][2 * r], s[rt][h][2 * r + 1]));
+          const float m_new = fmaxf(mx[rt][r], quad_max(tmax));
+          const float nm_new = -m_new * kLog2e;
+          // exactly 1 while the max holds; 0 on the first tile
+          const bool up = nm_new != nm[rt][r];
+          moved |= up;
+          if constexpr (kEx)
+            scale[rt][r] = __expf(mx[rt][r] - m_new);
+          else
+            scale[rt][r] = up ? ex2(nm_new - nm[rt][r]) : 1.f;
+          mx[rt][r] = m_new;
+          nm[rt][r] = nm_new;
+          float sum = 0.f, asm_ = 0.f;
+#pragma unroll
+          for (int h = 0; h < kFwdGroups; ++h) {
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              s[rt][h][e] = kEx ? __expf(s[rt][h][e] - m_new)
+                                : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
+              sum += s[rt][h][e];
+              if constexpr (kStats)
+                asm_ = fmaf(s[rt][h][e], dp[rt][h][e], asm_);
+            }
+          }
+          tl[rt][r] = sum;  // the tile's terms, added to l once
+          ta[rt][r] = asm_;
         }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) l[rt][r] = fmaf(l[rt][r], scale[rt][r],
-                                                    tl[rt][r]);
       }
-    } else {  // every scale is 1: the same bits as fmaf(l, 1, tl)
+      if constexpr (kStats) {
 #pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
+        for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-        for (int r = 0; r < 2; ++r) l[rt][r] += tl[rt][r];
+          for (int r = 0; r < 2; ++r) {
+            l[rt][r] = fmaf(l[rt][r], scale[rt][r], tl[rt][r]);
+            asum[rt][r] = fmaf(asum[rt][r], scale[rt][r], ta[rt][r]);
+          }
+        continue;
+      }
+      if (!kVt || __any_sync(kFull, moved)) {
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            acc[rt][j][0] *= scale[rt][0];
+            acc[rt][j][1] *= scale[rt][0];
+            acc[rt][j][2] *= scale[rt][1];
+            acc[rt][j][3] *= scale[rt][1];
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l[rt][r] = fmaf(l[rt][r], scale[rt][r],
+                                                      tl[rt][r]);
+        }
+      } else {  // every scale is 1: the same bits as fmaf(l, 1, tl)
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l[rt][r] += tl[rt][r];
+      }
     }
 
-    // acc += P V, 16 keys an mma: key groups 2u and 2u + 1 of the scores
-    // are the A fragment of keys 16u..16u+15; V's B fragments by
-    // ldmatrix.trans of its staged rows, two k16 steps at a time
+    // acc += P V (dq: dL K), 16 keys an mma: key groups 2u and 2u + 1 of
+    // the scores are the A fragment of keys 16u..16u+15; V's (K's) B
+    // fragments by ldmatrix.trans of its staged rows, two k16 steps at a
+    // time
+    const char* os = kDq ? ks_ : vs;
+    constexpr int kORow = kDq ? S::kKRow : S::kVRow;
 #pragma unroll
     for (int u = 0; u < kFwdGroups / 2; u += 2) {
       uint32_t pa[RT][2][4];
@@ -581,13 +705,13 @@ __device__ __forceinline__ void fwd_mma_body(
         }
       }
 #pragma unroll
-      for (int j = 0; j < (kStats ? 1 : NT); ++j) {
+      for (int j = 0; j < (kStats ? 1 : OT); ++j) {
         uint32_t vf[4];
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
             "{%0, %1, %2, %3}, [%4];\n"
             : "=r"(vf[0]), "=r"(vf[1]), "=r"(vf[2]), "=r"(vf[3])
-            : "r"(smem_addr(vs + (16 * u + lane) * S::kVRow + 16 * j)));
+            : "r"(smem_addr(os + (16 * u + lane) * kORow + 16 * j)));
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
@@ -595,6 +719,19 @@ __device__ __forceinline__ void fwd_mma_body(
             mma_bf16(acc[rt][j], pa[rt][w][0], pa[rt][w][1], pa[rt][w][2],
                      pa[rt][w][3], vf[2 * w], vf[2 * w + 1]);
         }
+      }
+    }
+    if constexpr (kDq) {
+      if ((it + 1) % kDqGroupTiles == 0) {  // a group's end, in key order
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int j = 0; j < DT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[rt][j][e] += acc[rt][j][e];
+              acc[rt][j][e] = 0.f;
+            }
       }
     }
   }
@@ -613,8 +750,25 @@ __device__ __forceinline__ void fwd_mma_body(
                       : make_float2(-INFINITY, 0.f);
       }
     }
+  } else if constexpr (kDq) {
+    // dq rows g, g + 8, dims 8j + 2t, + 1, in q's type
+    uint32_t* dw = reinterpret_cast<uint32_t*>(out) + (size_t)b * n * (D / 2);
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 16 * rt + g + 8 * r;
+        if (row >= n) continue;
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+          if (8 * j + 2 * t < D)
+            dw[(size_t)row * (D / 2) + 4 * j + t] = pack_bf16(
+                tot[rt][j][2 * r] + acc[rt][j][2 * r],
+                tot[rt][j][2 * r + 1] + acc[rt][j][2 * r + 1]);
+      }
+    }
   } else {
-    uint32_t* ow = reinterpret_cast<uint32_t*>(o) + (size_t)b * n * (C / 2);
+    uint32_t* ow = reinterpret_cast<uint32_t*>(out) + (size_t)b * n * (C / 2);
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
@@ -687,8 +841,14 @@ template <int D, int C>
 __host__ __device__ constexpr int bwd_keys_per_block() {
   return kBwdWarps * 16 * bwd_key_tiles<D, C>();
 }
+// K5's: K6's, times kK5KtScale
+template <int D, int C>
+__host__ __device__ constexpr int k5_key_tiles() {
+  return kK5KtScale * bwd_key_tiles<D, C>();
+}
 
-template <int D, int C, int KT>
+// shared memory of the key-major pass; without dQ (K5) no dq sums
+template <int D, int C, int KT, bool kDq = true>
 struct BwdSmem {
   static constexpr int KB = kBwdWarps * 16 * KT;
   static constexpr int kDRow = row_units(D) * 16;
@@ -699,17 +859,18 @@ struct BwdSmem {
   static constexpr int kLd = kG + kBwdQTile * kCRow;  // (-lse log2e, delta)
   static constexpr int kStage = kLd + kBwdQTile * 8;
   static constexpr int kRed = kRing + kBwdStages * kStage;  // dq sums
-  static constexpr int kBytes = kRed + kBwdWarps * kBwdQTile * D * 4;
+  static constexpr int kBytes =
+      kRed + (kDq ? kBwdWarps * kBwdQTile * D * 4 : 0);
 };
 
 // (-lse log2e, delta = g . o) fp32 of every query row, rows n..npad-1
 // (the last query tile's padding) (-inf, 0)
 template <int C>
-__global__ void __launch_bounds__(kDeltaThreads)
-    attention_flash_delta_kernel(const bf16* __restrict__ g,
-                                 const bf16* __restrict__ o,
-                                 const float* __restrict__ lse,
-                                 float2* __restrict__ ld, int n, int npad) {
+__device__ __forceinline__ void delta_body(const bf16* __restrict__ g,
+                                           const bf16* __restrict__ o,
+                                           const float* __restrict__ lse,
+                                           float2* __restrict__ ld, int n,
+                                           int npad) {
   const int b = blockIdx.y;
   const int row = blockIdx.x * kDeltaThreads + threadIdx.x;
   if (row >= npad) return;
@@ -736,10 +897,31 @@ __global__ void __launch_bounds__(kDeltaThreads)
   ld[(size_t)b * npad + row] = out;
 }
 
-// K6's and K2's key-major pass: a block owns 8 x KT m16 key tiles and
-// writes their dk, dv and its fp32 dq partial rows, from the (-lse log2e,
-// delta) pairs in `ld`
-template <int D, int C, int KT>
+// K6's delta pass, and K4's and K5's (one pass that both read): two names,
+// so that a profile tells the two backwards apart
+template <int C>
+__global__ void __launch_bounds__(kDeltaThreads)
+    attention_flash_delta_kernel(const bf16* __restrict__ g,
+                                 const bf16* __restrict__ o,
+                                 const float* __restrict__ lse,
+                                 float2* __restrict__ ld, int n, int npad) {
+  delta_body<C>(g, o, lse, ld, n, npad);
+}
+template <int C>
+__global__ void __launch_bounds__(kDeltaThreads)
+    attention_flash_dq_delta_kernel(const bf16* __restrict__ g,
+                                    const bf16* __restrict__ o,
+                                    const float* __restrict__ lse,
+                                    float2* __restrict__ ld, int n,
+                                    int npad) {
+  delta_body<C>(g, o, lse, ld, n, npad);
+}
+
+// K6's, K2's and K5's key-major pass: a block owns 8 x KT m16 key tiles
+// and writes their dk, dv and (kDq: K6, K2) its fp32 dq partial rows, from
+// the (-lse log2e, delta) pairs in `ld`. Without dQ there is no movmatrix,
+// no dQ mma and no warp sum through shared memory
+template <int D, int C, int KT, bool kDq>
 __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v,
@@ -755,7 +937,7 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
   constexpr int CS = kCK8 ? 1 : C / 16;
   constexpr int DT = (D + 7) / 8;     // n8 tiles of dK and dQ
   constexpr int NT = C / 8;           // n8 tiles of dV
-  using S = BwdSmem<D, C, KT>;
+  using S = BwdSmem<D, C, KT, kDq>;
   extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.y;
@@ -855,8 +1037,11 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
         for (int e = 0; e < 2; ++e) lq[grp][e] = lds[16 * qc + 8 * grp + 2 * t + e];
 
       float dq[DT][4];
+      if constexpr (kDq) {
 #pragma unroll
-      for (int j = 0; j < DT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+        for (int j = 0; j < DT; ++j)
+          dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+      }
 
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
@@ -881,8 +1066,11 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
             ldsm_x4(va[ks][0], va[ks][1], va[ks][2], va[ks][3],
                     vr + (2 * ks + (lane >> 4)) * 16);
         }
+        if constexpr (kDq) {
 #pragma unroll
-        for (int j = 0; j < DT; ++j) ldsm_x2_t(kbq[j][0], kbq[j][1], kr + 16 * j);
+          for (int j = 0; j < DT; ++j)
+            ldsm_x2_t(kbq[j][0], kbq[j][1], kr + 16 * j);
+        }
 
         // S^T and dP^T: keys g, g + 8 (rows) by queries 2t, 2t + 1 of
         // each n8 group
@@ -934,37 +1122,45 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < DT; ++j)
           mma_bf16(dka[kt][j], d00, d10, d01, d11, qt[j][0], qt[j][1]);
-        // dS (queries by keys) from dS^T's four blocks transposed
-        const uint32_t s00 = movmatrix_t(d00), s01 = movmatrix_t(d01);
-        const uint32_t s10 = movmatrix_t(d10), s11 = movmatrix_t(d11);
+        if constexpr (kDq) {
+          // dS (queries by keys) from dS^T's four blocks transposed
+          const uint32_t s00 = movmatrix_t(d00), s01 = movmatrix_t(d01);
+          const uint32_t s10 = movmatrix_t(d10), s11 = movmatrix_t(d11);
 #pragma unroll
-        for (int j = 0; j < DT; ++j)
-          mma_bf16(dq[j], s00, s01, s10, s11, kbq[j][0], kbq[j][1]);
+          for (int j = 0; j < DT; ++j)
+            mma_bf16(dq[j], s00, s01, s10, s11, kbq[j][0], kbq[j][1]);
+        }
       }
 
-      // this warp's dq of the 16 queries: rows g, g + 8, dims 8j + 2t, + 1
-      float* rw = red + (warp * kBwdQTile + 16 * qc) * D;
+      if constexpr (kDq) {
+        // this warp's dq of the 16 queries: rows g, g + 8, dims 8j + 2t,
+        // + 1
+        float* rw = red + (warp * kBwdQTile + 16 * qc) * D;
 #pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const int dim = 8 * j + 2 * t;
-        if (dim < D) {
-          rw[gq * D + dim] = dq[j][0];
-          rw[gq * D + dim + 1] = dq[j][1];
-          rw[(gq + 8) * D + dim] = dq[j][2];
-          rw[(gq + 8) * D + dim + 1] = dq[j][3];
+        for (int j = 0; j < DT; ++j) {
+          const int dim = 8 * j + 2 * t;
+          if (dim < D) {
+            rw[gq * D + dim] = dq[j][0];
+            rw[gq * D + dim + 1] = dq[j][1];
+            rw[(gq + 8) * D + dim] = dq[j][2];
+            rw[(gq + 8) * D + dim + 1] = dq[j][3];
+          }
         }
       }
     }
 
-    __syncthreads();  // every warp's dq sums are in red
-    const int r0 = it * kBwdQTile;
-    float* out = dq_part + ((size_t)(b * gridDim.x + blockIdx.x) * n + r0) * D;
-    const int valid = min(kBwdQTile, n - r0) * D;
-    for (int e = threadIdx.x; e < valid; e += kBwdThreads) {
-      float sum = 0.f;
+    if constexpr (kDq) {
+      __syncthreads();  // every warp's dq sums are in red
+      const int r0 = it * kBwdQTile;
+      float* out =
+          dq_part + ((size_t)(b * gridDim.x + blockIdx.x) * n + r0) * D;
+      const int valid = min(kBwdQTile, n - r0) * D;
+      for (int e = threadIdx.x; e < valid; e += kBwdThreads) {
+        float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w) sum += red[w * kBwdQTile * D + e];
-      out[e] = sum;
+        for (int w = 0; w < kBwdWarps; ++w) sum += red[w * kBwdQTile * D + e];
+        out[e] = sum;
+      }
     }
   }
 
@@ -999,8 +1195,37 @@ __global__ void __launch_bounds__(kBwdThreads)
                                     bf16* __restrict__ dv,
                                     float* __restrict__ dq_part, int n,
                                     int m, int npad) {
-  dqkv_mma_body<D, C, bwd_key_tiles<D, C>()>(q, k, v, g, ld, dk, dv, dq_part,
-                                              n, m, npad);
+  dqkv_mma_body<D, C, bwd_key_tiles<D, C>(), true>(q, k, v, g, ld, dk, dv,
+                                                    dq_part, n, m, npad);
+}
+
+// K5: dk, dv from the (-lse log2e, delta) pairs, K6's body without dQ
+template <int D, int C>
+__global__ void __launch_bounds__(kBwdThreads, kK5MinBlocks)
+    attention_flash_dkv_mma_kernel(const bf16* __restrict__ q,
+                                   const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   const bf16* __restrict__ g,
+                                   const float2* __restrict__ ld,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, int n, int m,
+                                   int npad) {
+  dqkv_mma_body<D, C, k5_key_tiles<D, C>(), false>(q, k, v, g, ld, dk, dv,
+                                                     nullptr, n, m, npad);
+}
+
+// K4: dq from the (-lse log2e, delta) pairs, query-major on K3's loop
+template <int D, int C>
+__global__ void __launch_bounds__(32 * kK4Warps)
+    attention_flash_dq_mma_kernel(const bf16* __restrict__ q,
+                                  const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v,
+                                  const bf16* __restrict__ g,
+                                  const float2* __restrict__ ld,
+                                  bf16* __restrict__ dq, int n, int m,
+                                  int npad) {
+  fwd_mma_body<D, C, kOutDq, kK4Warps, 1, 1, false, kK4Tile / kFwdTile>(
+      q, k, v, g, dq, nullptr, const_cast<float2*>(ld), n, m, npad);
 }
 
 template <int D, int C, int KT>
@@ -1014,7 +1239,8 @@ __global__ void __launch_bounds__(kBwdThreads)
                                    bf16* __restrict__ dv,
                                    float* __restrict__ dq_part, int n, int m,
                                    int npad) {
-  dqkv_mma_body<D, C, KT>(q, k, v, g, ld, dk, dv, dq_part, n, m, npad);
+  dqkv_mma_body<D, C, KT, true>(q, k, v, g, ld, dk, dv, dq_part, n, m,
+                                npad);
 }
 
 // K2's dq: the sum of the gradient pass's fp32 partials [B, NKB, N * D]
@@ -1200,6 +1426,45 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// K4 and K5: q, k, v, g, the (-lse log2e, delta) pairs, and the outputs
+// (K4: dq; K5: dk, dv)
+struct K45Args {
+  const void *q, *k, *v, *g;
+  const float2* ld;
+  void *out0, *out1;
+  int b, n, m;
+};
+
+template <int D>
+cudaError_t launch_dq(const K45Args& a, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  constexpr int rows = 16 * kK4Warps;
+  constexpr int bytes = kK4Tile / kFwdTile * FwdSmem<D, C>::kStage;
+  auto kernel = attention_flash_dq_mma_kernel<D, C>;
+  static const cudaError_t allowed = allow_smem(kernel, bytes);
+  if (allowed != cudaSuccess) return allowed;
+  kernel<<<dim3((a.n + rows - 1) / rows, a.b), 32 * kK4Warps, bytes, st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g), a.ld,
+      static_cast<bf16*>(a.out0), a.n, a.m, delta_rows(a.n));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const K45Args& a, cudaStream_t st) {
+  constexpr int C = SAGAN_ATTN_C;
+  using S = BwdSmem<D, C, k5_key_tiles<D, C>(), false>;
+  auto kernel = attention_flash_dkv_mma_kernel<D, C>;
+  static const cudaError_t allowed = allow_smem(kernel, S::kBytes);
+  if (allowed != cudaSuccess) return allowed;
+  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), kBwdThreads, S::kBytes,
+           st>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                 static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+                 a.ld, static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1),
+                 a.n, a.m, delta_rows(a.n));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on
@@ -1303,6 +1568,65 @@ extern "C" int sagan_attention_flash_dqkv_mma(
     case 8: return launch_bwd<8>(a, st);
     case 16: return launch_bwd<16>(a, st);
     case 32: return launch_bwd<32>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K4 and K5's delta pass: each query row's (-lse log2e, delta = g . o),
+// fp32, to `ld` [B, sagan_attention_flash_mma_delta_rows(N), 2] (rows
+// past N (-inf, 0)), which both kernels read.  `m` and `d` are not used.
+extern "C" int sagan_attention_flash_delta_mma(const void* g, const void* o,
+                                               const void* lse, void* ld,
+                                               int b, int n, int m, int d,
+                                               int c, int is_bf16,
+                                               void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  const int npad = delta_rows(n);
+  attention_flash_dq_delta_kernel<SAGAN_ATTN_C>
+      <<<dim3((npad + kDeltaThreads - 1) / kDeltaThreads, b), kDeltaThreads,
+         0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(g), static_cast<const bf16*>(o),
+          static_cast<const float*>(lse), static_cast<float2*>(ld), n, npad);
+  return cudaGetLastError();
+}
+
+// K4: dq [B, N, D] from the delta pass's `ld`.
+extern "C" int sagan_attention_flash_dq_mma(const void* q, const void* k,
+                                            const void* v, const void* g,
+                                            const void* ld, void* dq, int b,
+                                            int n, int m, int d, int c,
+                                            int is_bf16, void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  const K45Args a{q, k, v, g, static_cast<const float2*>(ld), dq, nullptr,
+                  b, n, m};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 2: return launch_dq<2>(a, st);
+    case 4: return launch_dq<4>(a, st);
+    case 8: return launch_dq<8>(a, st);
+    case 16: return launch_dq<16>(a, st);
+    case 32: return launch_dq<32>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K5: dk [B, M, D], dv [B, M, C] from the delta pass's `ld`.
+extern "C" int sagan_attention_flash_dkv_mma(const void* q, const void* k,
+                                             const void* v, const void* g,
+                                             const void* ld, void* dk,
+                                             void* dv, int b, int n, int m,
+                                             int d, int c, int is_bf16,
+                                             void* stream) {
+  if (c != SAGAN_ATTN_C || !is_bf16) return cudaErrorInvalidValue;
+  const K45Args a{q, k, v, g, static_cast<const float2*>(ld), dk, dv, b, n,
+                  m};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 2: return launch_dkv<2>(a, st);
+    case 4: return launch_dkv<4>(a, st);
+    case 8: return launch_dkv<8>(a, st);
+    case 16: return launch_dkv<16>(a, st);
+    case 32: return launch_dkv<32>(a, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -177,9 +177,9 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 VMEM_BUDGET = 12 * 1024 * 1024              # pallas_attention.py:81
 # bytes of K6's fp32 dq partials a backward may write: a memory cap on
-# the call's scratch, not a speed rule (in bf16 K6 is 7.2x faster than
-# K4 + K5 at church512's map, B = 4, NVIDIA H100 80GB HBM3 at 700 W,
-# PERF.md §6).  At 768 MiB the port takes K6 wherever the JAX package takes its
+# the call's scratch, not a speed rule (in bf16 K6 is 1.7x faster than
+# the tensor-core K4 + K5 at church512's map, B = 4, NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md §6).  At 768 MiB the port takes K6 wherever the JAX package takes its
 # fused backward at a model shape with B <= 4 (church512's 512 map at
 # B = 4: 537 MB) and K4 + K5 where it does not (the 512 map without
 # attn_downsample at B = 2: 1.07 GB), and church512 at B = 8 (1.07 GB)

@@ -10,19 +10,20 @@ Functions:
   the port of ``_flash_fwd_kernel`` (K3);
 * :func:`attention_flash_dq`, :func:`attention_flash_dkv` and
   :func:`attention_flash_dqkv`, the flash backward from the stored
-  (o, lse) (``csrc/attention_flash_bwd.cu``), the ports of
-  ``_flash_dq_kernel`` (K4), ``_flash_dkv_kernel`` (K5) and the fused
-  ``_flash_dqkv_kernel`` (K6);
+  (o, lse), the ports of ``_flash_dq_kernel`` (K4), ``_flash_dkv_kernel``
+  (K5) and the fused ``_flash_dqkv_kernel`` (K6), and
+  :func:`attention_flash_dq_dkv`, K4 then K5 as the two-kernel backward
+  runs them;
 * :class:`FusedAttention` (K1 forward, K2 backward) and
   :class:`FlashAttention` (K3 forward; K6, or K4 + K5, backward by
   :func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`), the
   ``torch.autograd.Function`` pairs, as the JAX package's ``custom_vjp``
   pairs them.
 
-K1, K2, K3 and K6 have two engines.  ``mma``
+Every kernel has two engines.  ``mma``
 (``csrc/attention_flash_mma.cu``) runs the contractions of every (query,
 key) pair on the tensor cores and takes bf16 only; ``fma`` (K1 and K3 in
-``csrc/attention_fwd.cu``, K2 in ``csrc/attention_bwd.cu``, K6 in
+``csrc/attention_fwd.cu``, K2 in ``csrc/attention_bwd.cu``, K4-K6 in
 ``csrc/attention_flash_bwd.cu``) runs them as fp32 FMAs on the CUDA cores
 and takes bf16 and fp32.  The dtype picks the engine: bf16 tensors take
 ``mma``, fp32 tensors ``fma`` (the tensor cores would take fp32 only as
@@ -34,7 +35,10 @@ The ``mma`` K2 is three launches of one call: a query-major stats pass
 (each row's -lse log2e and delta), a key-major gradient pass after K6's
 with fp32 dq partials over key blocks sized to fill the card
 (:func:`~sagan_tpu_torch.ops.attention.k2_key_blocks`), and their
-sum in key-block order.
+sum in key-block order.  The ``mma`` K4 and K5 read each query row's
+(-lse log2e, delta) from a delta pass that the two-kernel backward runs
+once for both (:func:`attention_flash_dq_dkv`); a K4 or K5 called alone
+runs it first.
 
 Each wrapper launches its kernel for tensors on the card and raises on
 anything the kernel does not take; it runs the plain version
@@ -43,10 +47,12 @@ There is no fallback from a failed build or launch.
 
 ``LAUNCHES``, ``BWD_LAUNCHES``, ``FLASH_FWD_LAUNCHES``,
 ``FLASH_DQ_LAUNCHES``, ``FLASH_DKV_LAUNCHES`` and ``FLASH_DQKV_LAUNCHES``
-count the kernels' launches (K1, K2, K3 and K6 on the ``fma`` engine), and
-``FWD_MMA_LAUNCHES``, ``BWD_MMA_LAUNCHES``, ``FLASH_FWD_MMA_LAUNCHES`` and
-``FLASH_DQKV_MMA_LAUNCHES`` those of the ``mma`` K1, K2, K3 and K6, so a
-run can show that its attention went through them.
+count the kernels' launches (K1-K6 on the ``fma`` engine), and
+``FWD_MMA_LAUNCHES``, ``BWD_MMA_LAUNCHES``, ``FLASH_FWD_MMA_LAUNCHES``,
+``FLASH_DQ_MMA_LAUNCHES``, ``FLASH_DKV_MMA_LAUNCHES`` and
+``FLASH_DQKV_MMA_LAUNCHES`` those of the ``mma`` K1-K6 (the delta pass
+of the two-kernel backward counts with K4's launch), so a run can show
+that its attention went through them.
 
 The wrappers of K1 and K3-K6 take ``tiles``, ``-D`` defines that build
 their library at other tiles (``csrc/attention_fwd.cu``'s
@@ -54,7 +60,8 @@ their library at other tiles (``csrc/attention_fwd.cu``'s
 ``SAGAN_BWD_ROWS``, ``SAGAN_BWD_KEY_TILE``, ``SAGAN_BWD_THREADS``,
 ``SAGAN_BWD_KPT``; with ``engine="mma"``, ``csrc/attention_flash_mma.cu``'s
 ``SAGAN_MMA_*``, each of which flips one of K3's design choices, and
-``SAGAN_K1_*`` and ``SAGAN_K2_*``, K1's and K2's), for the studies; the
+``SAGAN_K1_*``, ``SAGAN_K2_*``, ``SAGAN_K4_*`` and ``SAGAN_K5_*``, K1's,
+K2's, K4's and K5's), for the studies; the
 default ``()`` is the shipped library.  Tile defines without an engine
 name the ``fma`` kernels.
 """
@@ -94,6 +101,9 @@ _ENTRIES = {
     "sagan_attention_flash_dqkv_mma": (MMA_SOURCE, 10),   # ... part ld
     "sagan_attention_fwd_mma": (MMA_SOURCE, 4),           # q k v o
     "sagan_attention_bwd_mma": (MMA_SOURCE, 9),   # q k v g dq dk dv ld part
+    "sagan_attention_flash_delta_mma": (MMA_SOURCE, 4),   # g o lse ld
+    "sagan_attention_flash_dq_mma": (MMA_SOURCE, 6),      # q k v g ld dq
+    "sagan_attention_flash_dkv_mma": (MMA_SOURCE, 7),     # ... ld dk dv
 }
 
 LAUNCHES = 0
@@ -103,6 +113,8 @@ FLASH_DQ_LAUNCHES = 0
 FLASH_DKV_LAUNCHES = 0
 FLASH_DQKV_LAUNCHES = 0
 FLASH_FWD_MMA_LAUNCHES = 0
+FLASH_DQ_MMA_LAUNCHES = 0
+FLASH_DKV_MMA_LAUNCHES = 0
 FLASH_DQKV_MMA_LAUNCHES = 0
 FWD_MMA_LAUNCHES = 0
 BWD_MMA_LAUNCHES = 0
@@ -167,7 +179,7 @@ def dq_partial_shape(b: int, n: int, m: int, d: int, c: int,
 
 
 def _engine(q: torch.Tensor, engine: str | None, tiles: tuple) -> str:
-    """The engine of a K1, K2, K3 or K6 call on CUDA tensors: ``engine``
+    """The engine of a K1-K6 call on CUDA tensors: ``engine``
     as named, else ``mma`` for bf16 without tile defines and ``fma``
     otherwise; raises for ``mma`` on fp32."""
     if engine is None:
@@ -364,35 +376,108 @@ def attention_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def attention_flash_dq(q, k, v, o, lse, g,
-                       tiles: tuple = ()) -> torch.Tensor:
-    """dq in q's dtype from the stored (o, lse) at cotangent g (K4)."""
-    global FLASH_DQ_LAUNCHES
+def _flash_delta(q, o, lse, g, tiles: tuple = ()) -> torch.Tensor:
+    """The ``mma`` K4's and K5's delta pass on CUDA tensors: each query
+    row's (-lse log2e, delta = g . o), fp32 [B, N padded to 64, 2], padded
+    rows (-inf, 0)."""
+    b, n, _ = q.shape
+    c = g.shape[2]
+    ld = torch.empty((b, _delta_rows(n, c), 2), dtype=torch.float32,
+                     device=q.device)
+    _launch("sagan_attention_flash_delta_mma", (g, o, lse, ld), q, c, tiles)
+    return ld
+
+
+def _check_ld(ld: torch.Tensor, q: torch.Tensor, c: int) -> None:
+    """``ld`` as the delta pass writes it for q: fp32 [B, N padded, 2],
+    contiguous, on q's device."""
+    want = (q.shape[0], _delta_rows(q.shape[1], c), 2)
+    if (tuple(ld.shape) != want or ld.dtype != torch.float32
+            or ld.device != q.device or not ld.is_contiguous()):
+        raise ValueError(f"ld must be contiguous float32 {want} on "
+                         f"{q.device}, got {ld.dtype} {tuple(ld.shape)} on "
+                         f"{ld.device}")
+
+
+def attention_flash_dq(q, k, v, o, lse, g, tiles: tuple = (),
+                       engine: str | None = None,
+                       ld: torch.Tensor | None = None) -> torch.Tensor:
+    """dq in q's dtype from the stored (o, lse) at cotangent g (K4, on
+    ``engine``, by default ``mma`` for bf16 and ``fma`` for fp32).  The
+    ``mma`` K4 reads each query row's (-lse log2e, delta) from ``ld``, the
+    delta pass's scratch (:func:`attention_flash_dq_dkv` runs it once for
+    K4 and K5), and without it runs the delta pass first."""
+    global FLASH_DQ_LAUNCHES, FLASH_DQ_MMA_LAUNCHES
     if _on_cpu(q, k, v, o, lse, g):
+        _refuse_engine_off_card(engine)
         return attention_flash_bwd_reference(q, k, v, o, lse, g,
                                              _cpu_chunk(q, k))[0]
     _check(q, k, v, g, o, lse)
+    engine = _engine(q, engine, tuple(tiles))
+    c = v.shape[2]
     dq = torch.empty_like(q)
-    _launch("sagan_attention_flash_dq", (q, k, v, g, o, lse, dq), q,
-            v.shape[2], tiles)
-    FLASH_DQ_LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v, g, o)
+        if ld is None:
+            ld = _flash_delta(q, o, lse, g, tiles)
+        _check_ld(ld, q, c)
+        _launch("sagan_attention_flash_dq_mma", (q, k, v, g, ld, dq), q, c,
+                tiles)
+        FLASH_DQ_MMA_LAUNCHES += 1
+    else:
+        _launch("sagan_attention_flash_dq", (q, k, v, g, o, lse, dq), q, c,
+                tiles)
+        FLASH_DQ_LAUNCHES += 1
     return dq
 
 
-def attention_flash_dkv(q, k, v, o, lse, g, tiles: tuple = ()):
+def attention_flash_dkv(q, k, v, o, lse, g, tiles: tuple = (),
+                        engine: str | None = None,
+                        ld: torch.Tensor | None = None):
     """(dk, dv), fp32 sums cast to k's and v's dtypes, from the stored
-    (o, lse) at cotangent g (K5)."""
-    global FLASH_DKV_LAUNCHES
+    (o, lse) at cotangent g (K5, on ``engine`` as K4; ``ld`` as K4's)."""
+    global FLASH_DKV_LAUNCHES, FLASH_DKV_MMA_LAUNCHES
     if _on_cpu(q, k, v, o, lse, g):
+        _refuse_engine_off_card(engine)
         return attention_flash_bwd_reference(q, k, v, o, lse, g,
                                              _cpu_chunk(q, k))[1:]
     _check(q, k, v, g, o, lse)
+    engine = _engine(q, engine, tuple(tiles))
+    c = v.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("sagan_attention_flash_dkv", (q, k, v, g, o, lse, dk, dv), q,
-            v.shape[2], tiles)
-    FLASH_DKV_LAUNCHES += 1
+    if engine == "mma":
+        _check_mma_alignment(q, k, v, g, o)
+        if ld is None:
+            ld = _flash_delta(q, o, lse, g, tiles)
+        _check_ld(ld, q, c)
+        _launch("sagan_attention_flash_dkv_mma", (q, k, v, g, ld, dk, dv), q,
+                c, tiles)
+        FLASH_DKV_MMA_LAUNCHES += 1
+    else:
+        _launch("sagan_attention_flash_dkv", (q, k, v, g, o, lse, dk, dv), q,
+                c, tiles)
+        FLASH_DKV_LAUNCHES += 1
     return dk, dv
+
+
+def attention_flash_dq_dkv(q, k, v, o, lse, g, tiles: tuple = (),
+                           engine: str | None = None):
+    """(dq, dk, dv): K4 then K5 on ``engine`` (by default the dtype's), as
+    the two-kernel backward runs them; on ``mma`` after one delta pass
+    that both read (three launches)."""
+    if _on_cpu(q, k, v, o, lse, g):
+        _refuse_engine_off_card(engine)
+        return attention_flash_bwd_reference(q, k, v, o, lse, g,
+                                             _cpu_chunk(q, k))
+    _check(q, k, v, g, o, lse)
+    engine = _engine(q, engine, tuple(tiles))
+    ld = None
+    if engine == "mma":
+        _check_mma_alignment(q, k, v, g, o)
+        ld = _flash_delta(q, o, lse, g, tiles)
+    return (attention_flash_dq(q, k, v, o, lse, g, tiles, engine, ld),
+            *attention_flash_dkv(q, k, v, o, lse, g, tiles, engine, ld))
 
 
 def attention_flash_dqkv(q, k, v, o, lse, g, tiles: tuple = (),
@@ -473,8 +558,8 @@ class FlashAttention(torch.autograd.Function):
     gradient is needed (``_attention_flash_fwd``); backward
     :func:`attention_flash_dqkv` where its dq partials fit
     (:func:`~sagan_tpu_torch.ops.attention.flash_bwd_fused`), else
-    :func:`attention_flash_dq` and :func:`attention_flash_dkv`.  Each on
-    its dtype's engine."""
+    :func:`attention_flash_dq_dkv` (K4 and K5).  Each on its dtype's
+    engine."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -492,5 +577,4 @@ class FlashAttention(torch.autograd.Function):
         m, c = v.shape[1], v.shape[2]
         if flash_bwd_fused(b, n, m, d, c, q.element_size()):
             return attention_flash_dqkv(q, k, v, o, lse, g)
-        return (attention_flash_dq(q, k, v, o, lse, g),
-                *attention_flash_dkv(q, k, v, o, lse, g))
+        return attention_flash_dq_dkv(q, k, v, o, lse, g)

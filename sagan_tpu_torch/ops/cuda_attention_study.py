@@ -19,8 +19,8 @@ the kernel does not take; it runs the plain version
 The tile points of the studies' sweeps of the shipped kernels are here
 too (``FWD_POINTS``, ``BWD_POINTS``, and the design flips of the
 tensor-core kernels, ``MMA_POINTS``, ``K1_MMA_POINTS``,
-``K2_MMA_POINTS``), with :func:`build_specs`, every library the studies
-load, for one parallel build.
+``K2_MMA_POINTS``, ``K45_MMA_POINTS``), with :func:`build_specs`, every
+library the studies load, for one parallel build.
 """
 
 from __future__ import annotations
@@ -83,6 +83,19 @@ K2_MMA_DEFINES = {
 }
 K1_MMA_POINTS = tuple(K1_MMA_DEFINES)
 K2_MMA_POINTS = tuple(K2_MMA_DEFINES)
+# the tensor-core K4 and K5 (csrc/attention_flash_mma.cu) with one design
+# choice flipped a point, each its own library; the first is the shipped
+# pair.  K4: keys staged 128 at a time in place of 64, 8 warps a block in
+# place of 4; K5: twice K6's key tiles a warp, two blocks an SM (at most
+# 128 registers a thread) in place of the compiler's choice
+K45_MMA_DEFINES = {
+    ("shipped",): (),
+    ("k4_tile_128",): ("-DSAGAN_K4_TILE=128",),
+    ("k4_eight_warps",): ("-DSAGAN_K4_WARPS=8",),
+    ("k5_kt_x2",): ("-DSAGAN_K5_KT_SCALE=2",),
+    ("k5_two_blocks",): ("-DSAGAN_K5_MIN_BLOCKS=2",),
+}
+K45_MMA_POINTS = tuple(K45_MMA_DEFINES)
 
 
 def fwd_tiles(point) -> tuple:
@@ -108,15 +121,17 @@ def build_specs() -> list:
     """``_build.build`` specs of every library the studies load: S1 at
     every forward tile point (its fma engine takes K1's tile defines), S2,
     K1/K3 and K4-K6 at value width 8 at every tile point, and the
-    tensor-core K1/K2/K3/K6 at every ``MMA_POINTS``, ``K1_MMA_POINTS`` and
-    ``K2_MMA_POINTS`` point (one library a set of defines)."""
+    tensor-core K1-K6 at every ``MMA_POINTS``, ``K1_MMA_POINTS``,
+    ``K2_MMA_POINTS`` and ``K45_MMA_POINTS`` point (one library a set of
+    defines)."""
     specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
     specs.append((FOLDED_SOURCE, ()))
     for p in FWD_POINTS:
         specs += attention_specs((C,), ("attention_fwd",), fwd_tiles(p))
     for p in BWD_POINTS:
         specs += attention_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
-    mma = {**MMA_DEFINES, **K1_MMA_DEFINES, **K2_MMA_DEFINES}
+    mma = {**MMA_DEFINES, **K1_MMA_DEFINES, **K2_MMA_DEFINES,
+           **K45_MMA_DEFINES}
     for defines in dict.fromkeys(mma.values()):
         specs += attention_specs((C,), ("attention_flash_mma",), defines)
     return specs

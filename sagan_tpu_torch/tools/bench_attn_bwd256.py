@@ -8,8 +8,9 @@ The port of the JAX package's TPU study ``tools/bench_attn_bwd256.py``
 points here are the kernels' own tiles (``BWD_POINTS``: K4's query rows a
 block and keys a tile, K5's and K6's threads a block and keys a thread),
 each built into its own library of ``csrc/attention_flash_bwd.cu``, the
-first, CUDA-core design (K6 there through ``engine="fma"``). Sections,
-all on the shipped K3's (o, lse), the tensor-core K3 in bf16:
+first, CUDA-core design (``engine="fma"``: bf16's own engine runs K4-K6
+on the tensor cores). Sections, all on the shipped K3's (o, lse), the
+tensor-core K3 in bf16:
 
   k4_tiles  K4 (dq) at each point, max|Δ| against K4 at the shipped point
   k5_tiles  K5 (dk, dv) at each point, max|Δ| against K5 shipped
@@ -21,8 +22,8 @@ all on the shipped K3's (o, lse), the tensor-core K3 in bf16:
             within ``BWD_TOL`` (it rounds dl and p to bf16 before the
             products, as the TPU kernel and the plain version do; K4 and
             K5 keep them fp32) and its partials
-  anchor    the shipped K4 + K5, and K4's dq held against the plain
-            backward on the check rows (``held``)
+  anchor    the CUDA-core K4 + K5 at the shipped point, and K4's dq held
+            against the plain backward on the check rows (``held``)
   library   the backward's library call (autograd through ``sdpa_padded``)
             and plain version (``attention_flash_bwd_reference`` in
             query-row chunks)
@@ -73,18 +74,18 @@ def main(argv=None) -> dict:
     o, lse = ca.attention_flash_fwd(q, k, v)
     args = (q, k, v, o, lse, g)
     b, n, m, d, c = st.shape
-    dq = ca.attention_flash_dq(*args)
-    dk, dv = ca.attention_flash_dkv(*args)
+    dq = ca.attention_flash_dq(*args, (), st.fma)
+    dk, dv = ca.attention_flash_dkv(*args, (), st.fma)
 
     def k4(p):
         tiles = bwd_tiles(p)
-        return ca.attention_flash_dq, (*args, tiles), deltas(
-            (ca.attention_flash_dq(*args, tiles),), (dq,))
+        return ca.attention_flash_dq, (*args, tiles, st.fma), deltas(
+            (ca.attention_flash_dq(*args, tiles, st.fma),), (dq,))
 
     def k5(p):
         tiles = bwd_tiles(p)
-        return ca.attention_flash_dkv, (*args, tiles), deltas(
-            ca.attention_flash_dkv(*args, tiles), (dk, dv))
+        return ca.attention_flash_dkv, (*args, tiles, st.fma), deltas(
+            ca.attention_flash_dkv(*args, tiles, st.fma), (dk, dv))
 
     def k6(p):
         tiles = bwd_tiles(p)
@@ -101,8 +102,7 @@ def main(argv=None) -> dict:
         **deltas(ca.attention_flash_dqkv(*args), (dq, dk, dv), BWD_TOL),
         **partials(st, (), "mma")})
     st.record("anchor", "k4_k5", {
-        **st.time(lambda: (ca.attention_flash_dq(*args),
-                           ca.attention_flash_dkv(*args))),
+        **st.time(ca.attention_flash_dq_dkv, *args, (), st.fma),
         **held(dq, lambda q, o, lse, g, k, v: attention_flash_bwd_reference(
             q, k, v, o, lse, g)[0], (q, o, lse, g), (k, v), BWD_TOL)})
     st.record("library", "sdpa_bwd", st.time(sdpa_padded(q, k, v, g)))

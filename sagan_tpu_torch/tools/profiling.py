@@ -1,8 +1,7 @@
 """What the breakdown tools share: the card's name and power limit, and
 the device time and launches of each kernel in a ``torch.profiler``
-trace, with the port's kernels (attention K1-K6, K1, K2, K3 and K6 on
-either engine, the grouped spectral norm K7 and its backward) picked out
-by name."""
+trace, with the port's kernels (attention K1-K6 on either engine, the
+grouped spectral norm K7 and its backward) picked out by name."""
 
 from __future__ import annotations
 
@@ -24,7 +23,11 @@ ATTENTION_KERNELS = (
     ("K3 attention_flash_fwd", ("attention_flash_fwd_kernel<",)),
     ("K3 attention_flash_fwd_mma", ("attention_flash_fwd_mma_kernel<",)),
     ("K4 attention_flash_dq", ("attention_flash_dq_kernel<",)),
+    # the delta pass that K4 and K5 both read counts with K4
+    ("K4 attention_flash_dq_mma", ("attention_flash_dq_mma_kernel<",
+                                   "attention_flash_dq_delta_kernel<")),
     ("K5 attention_flash_dkv", ("attention_flash_dkv_kernel<",)),
+    ("K5 attention_flash_dkv_mma", ("attention_flash_dkv_mma_kernel<",)),
     ("K6 attention_flash_dqkv", ("attention_flash_dqkv_kernel<",)),
     # its launch writes (-lse log2e, delta) first, in a kernel of its own
     ("K6 attention_flash_dqkv_mma", ("attention_flash_dqkv_mma_kernel<",

@@ -2,13 +2,15 @@
 
     python -m sagan_tpu_torch.tools.train_breakdown [--steps 20] \\
         [--profile_steps 3] [--config example_configs/church64_attn.py] \\
-        [--img_size 64] [--num_classes 1] [--pallas_sn]
+        [--img_size 64] [--num_classes 1] [--batch B] [--pallas_sn]
 
 Runs the port's train step (``train/trainer.py``) on the config at full
 width (church64 by default: bf16, batch 64, update_ratio 1; or the resnet
 family, ``example_configs/imagenet128_cond.py --img_size 128
 --num_classes 1000``) at ``--img_size`` and ``--num_classes`` (the config
-files leave them to the dataset), with every spectral norm through the
+files leave them to the dataset), at the config's batch or ``--batch``
+(the global batch, on the one card: church512 at 8 takes the two-kernel
+flash backward, K4 + K5), with every spectral norm through the
 grouped kernel K7 when ``--pallas_sn`` (the config's ``use_pallas_sn``),
 from a seeded init on random uint8 images and labels, and reports, after
 5 warm-up steps:
@@ -113,6 +115,8 @@ def main(argv=None):
     ap.add_argument("--profile_steps", type=int, default=3)
     ap.add_argument("--img_size", type=int, default=64)
     ap.add_argument("--num_classes", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default: the config's)")
     ap.add_argument("--pallas_sn", action="store_true",
                     help="every spectral norm through K7 (use_pallas_sn)")
     args = ap.parse_args(argv)
@@ -123,6 +127,8 @@ def main(argv=None):
 
     config = resolve_config(load_config_file(args.config))
     config.update(img_size=args.img_size, num_classes=args.num_classes)
+    if args.batch is not None:
+        config.update(batch_size=args.batch, global_batch_size=args.batch)
     if args.pallas_sn:
         config["use_pallas_sn"] = True
     step, run = build_step(config, device)

@@ -4,8 +4,10 @@ the plain forward against ``_flash_fwd`` (o and lse), the plain backward
 against ``_flash_bwd_fused`` and ``_flash_bwd`` on the same (o, lse),
 ``FlashAttention`` against ``jax.vjp`` of ``_attention_flash``; the
 port's routing against the JAX dispatch at every vanilla model shape the
-kernels take at B <= 4, and its fused-backward rule's byte arithmetic; the
-wrappers' plumbing (engines, key blocks, profile names); and the church512
+kernels take at B <= 4, and its fused-backward rule's byte arithmetic; past
+both packages' slab budgets, ``FlashAttention``'s two-kernel backward
+against ``jax.vjp`` through the JAX two-kernel backward; the wrappers'
+plumbing (engines, key blocks, launches, profile names); and the church512
 weights carried across by ``convert``.
 
 Tolerances, each as a share of the largest magnitude of the JAX value
@@ -246,6 +248,105 @@ def test_routing_matches_jax_dispatch_at_every_model_shape():
     assert routes == {"single", "flash_fused", "flash_two_kernel"}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c", [(2, 8), (8, 16)])
+def test_two_kernel_backward_past_the_slab_budget_matches_jax(d, c, dtype,
+                                                              monkeypatch):
+    """Both packages' slab budgets forced to 0 (``DQ_SLAB_LIMIT`` on the
+    JAX module, ``DQ_SLAB_BUDGET`` on the port's, each package's own rule
+    taking the fused backward at this shape otherwise): ``jax.vjp`` of the
+    JAX flash op runs ``_flash_bwd`` (K4 + K5's TPU kernels, interpret
+    mode) and ``FlashAttention`` runs ``attention_flash_dq_dkv`` (K4 + K5;
+    the plain versions on the CPU); dq, dk and dv agree within
+    ``VJP_TOL``."""
+    b, n, m = 2, 256, 2048
+    itemsize = 2 if dtype == "bfloat16" else 4
+    assert pa._pick_flash_blocks_bwd_fused(n, m, d, c, itemsize)[0]
+    assert flash_bwd_fused(b, n, m, d, c, itemsize)
+    taken = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def call(*args, **kwargs):
+            taken.append(name)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(module, name, call)
+
+    for name in ("_flash_bwd", "_flash_bwd_fused"):
+        spy(pa, name)
+    for name in ("attention_flash_dq_dkv", "attention_flash_dqkv"):
+        spy(cuda_attention, name)
+    monkeypatch.setattr(pa, "DQ_SLAB_LIMIT", 0)
+    monkeypatch.setattr(attention_ops, "DQ_SLAB_BUDGET", 0)
+
+    arrays = _arrays(d, c, b=b, n=n, m=m, seed=9)
+    bn, bm = pa._pick_flash_blocks(n, m, d, c)
+    fbn, fbm = pa._pick_flash_blocks_fwd(n, m, d, c)
+    jq, jk, jv, jg = _jax(arrays, dtype)
+    _, vjp = jax.vjp(lambda q, k, v: pa._attention_flash(
+        q, k, v, bn, bm, fbn, fbm, 1, True), jq, jk, jv)
+    want = vjp(jg)
+    q, k, v, g = _port(arrays, dtype)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(cuda_attention.FlashAttention.apply(*leaves),
+                              leaves, g)
+    assert taken == ["_flash_bwd", "attention_flash_dq_dkv"]
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == getattr(torch, dtype) and x.shape == w.shape, name
+        assert _share(_flat(x), w) <= VJP_TOL[dtype], (name, _share(_flat(x),
+                                                                    w))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_two_kernel_backward_launches_delta_k4_and_k5(dtype, monkeypatch):
+    """With the card's checks and launches stubbed out (CPU tensors stand
+    in for CUDA ones) and ``flash_bwd_fused`` false, a ``FlashAttention``
+    backward in bf16 launches the delta pass, the tensor-core K4 and K5,
+    each once, both reading the scratch the delta pass wrote; in fp32 the
+    CUDA-core K4 and K5, which take (o, lse) themselves."""
+    launched = []
+    monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_attention, "_launch", lambda name, ts, *a: (
+        launched.append((name, ts))))
+    monkeypatch.setattr(cuda_attention, "_delta_rows",
+                        lambda n, c: -(-n // 64) * 64)
+    monkeypatch.setattr(cuda_attention, "flash_bwd_fused", lambda *a: False)
+    counters = ("FLASH_DQ_MMA_LAUNCHES", "FLASH_DKV_MMA_LAUNCHES",
+                "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
+                "FLASH_DQKV_MMA_LAUNCHES", "FLASH_DQKV_LAUNCHES")
+    before = [getattr(cuda_attention, name) for name in counters]
+    q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), dtype)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = cuda_attention.FlashAttention.apply(*leaves)
+    launched.clear()                     # the forward's launch
+    grads = torch.autograd.grad(out, leaves, g)
+    names = [name for name, _ in launched]
+    moved = [getattr(cuda_attention, name) - x
+             for name, x in zip(counters, before)]
+    if dtype == "bfloat16":
+        assert names == ["sagan_attention_flash_delta_mma",
+                         "sagan_attention_flash_dq_mma",
+                         "sagan_attention_flash_dkv_mma"]
+        ld = launched[0][1][3]
+        assert ld.shape == (1, 64, 2) and ld.dtype == torch.float32
+        assert launched[1][1][4] is ld and launched[2][1][4] is ld
+        assert moved == [1, 1, 0, 0, 0, 0]
+        # scratch of another shape never reaches a kernel
+        with pytest.raises(ValueError, match="ld must be"):
+            cuda_attention.attention_flash_dq(
+                *(t.detach() for t in leaves), torch.empty_like(g),
+                torch.empty(1, 8, 1), g, ld=torch.empty(1, 8, 2))
+        assert len(launched) == 3
+    else:
+        assert names == ["sagan_attention_flash_dq",
+                         "sagan_attention_flash_dkv"]
+        assert moved == [0, 0, 1, 1, 0, 0]
+    assert [tuple(x.shape) for x in grads] == [(1, 8, 2), (1, 16, 2),
+                                               (1, 16, 8)]
+
+
 def test_church512_takes_k6_at_its_batch_and_k4_k5_past_it():
     n, m, d, c = 512 * 512, 256 * 256, 2, 8
     assert not single_pass(m, d, c) and single_pass(32 * 32, 8, 32)
@@ -435,6 +536,9 @@ def test_profile_names_tell_the_attention_kernels_apart():
             ("attention_flash_dkv_kernel", 60.0, 2),
             ("attention_flash_dqkv_kernel", 70.0, 2),
             ("attention_flash_fwd_mma_kernel", 16.0, 4),
+            ("attention_flash_dq_mma_kernel", 20.0, 2),
+            ("attention_flash_dq_delta_kernel", 1.0, 2),
+            ("attention_flash_dkv_mma_kernel", 22.0, 2),
             ("attention_flash_dqkv_mma_kernel", 18.0, 2),
             ("attention_flash_delta_kernel", 2.0, 2))}
     # K2's dq sum takes no template arguments
@@ -450,7 +554,9 @@ def test_profile_names_tell_the_attention_kernels_apart():
         "K3 attention_flash_fwd": {"ms": 20.0, "launches": 2},
         "K3 attention_flash_fwd_mma": {"ms": 8.0, "launches": 2},
         "K4 attention_flash_dq": {"ms": 25.0, "launches": 1},
+        "K4 attention_flash_dq_mma": {"ms": 10.5, "launches": 1},
         "K5 attention_flash_dkv": {"ms": 30.0, "launches": 1},
+        "K5 attention_flash_dkv_mma": {"ms": 11.0, "launches": 1},
         "K6 attention_flash_dqkv": {"ms": 35.0, "launches": 1},
         "K6 attention_flash_dqkv_mma": {"ms": 10.0, "launches": 1}}
 
@@ -493,7 +599,9 @@ def test_plain_flash_dq_is_near_float64_past_one_key_block():
 
 ENGINE_COUNTERS = ("LAUNCHES", "BWD_LAUNCHES", "FWD_MMA_LAUNCHES",
                    "BWD_MMA_LAUNCHES", "FLASH_FWD_LAUNCHES",
+                   "FLASH_DQ_LAUNCHES", "FLASH_DKV_LAUNCHES",
                    "FLASH_DQKV_LAUNCHES", "FLASH_FWD_MMA_LAUNCHES",
+                   "FLASH_DQ_MMA_LAUNCHES", "FLASH_DKV_MMA_LAUNCHES",
                    "FLASH_DQKV_MMA_LAUNCHES")
 
 
@@ -513,12 +621,14 @@ def _wrapper_args(wrapper, q, k, v, g):
 
 @pytest.mark.parametrize("wrapper", ["attention_fused", "attention_bwd_fused",
                                      "attention_flash_fwd",
+                                     "attention_flash_dq",
+                                     "attention_flash_dkv",
                                      "attention_flash_dqkv"])
 @pytest.mark.parametrize("engine", ["mma", "fma"])
 def test_flash_wrappers_refuse_an_engine_on_cpu_tensors(wrapper, engine):
     """An engine names a CUDA kernel; CPU tensors run the plain version,
-    so naming one there raises, and nothing is counted (K1 and K2, whose
-    wrappers take an engine too, as K3 and K6)."""
+    so naming one there raises, and nothing is counted (every wrapper of
+    K1-K6 takes an engine)."""
     q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), "bfloat16")
     args = _wrapper_args(wrapper, q, k, v, g)
     before = _engine_counts()
@@ -528,18 +638,29 @@ def test_flash_wrappers_refuse_an_engine_on_cpu_tensors(wrapper, engine):
     assert before == _engine_counts()
 
 
-# each wrapper that takes an engine: (C entry of its mma kernel, of its fma
-# kernel, the counters they move)
+# each wrapper that takes an engine: (the C entries a call launches on its
+# mma engine, on its fma engine, the counters they move); the mma K4 and K5
+# called alone run the delta pass first
 ENGINE_ENTRIES = {
-    "attention_fused": ("sagan_attention_fwd_mma", "sagan_attention_fwd",
+    "attention_fused": (("sagan_attention_fwd_mma",),
+                        ("sagan_attention_fwd",),
                         "FWD_MMA_LAUNCHES", "LAUNCHES"),
-    "attention_bwd_fused": ("sagan_attention_bwd_mma", "sagan_attention_bwd",
+    "attention_bwd_fused": (("sagan_attention_bwd_mma",),
+                            ("sagan_attention_bwd",),
                             "BWD_MMA_LAUNCHES", "BWD_LAUNCHES"),
-    "attention_flash_fwd": ("sagan_attention_flash_fwd_mma",
-                            "sagan_attention_flash_fwd",
+    "attention_flash_fwd": (("sagan_attention_flash_fwd_mma",),
+                            ("sagan_attention_flash_fwd",),
                             "FLASH_FWD_MMA_LAUNCHES", "FLASH_FWD_LAUNCHES"),
+    "attention_flash_dq": (("sagan_attention_flash_delta_mma",
+                            "sagan_attention_flash_dq_mma"),
+                           ("sagan_attention_flash_dq",),
+                           "FLASH_DQ_MMA_LAUNCHES", "FLASH_DQ_LAUNCHES"),
+    "attention_flash_dkv": (("sagan_attention_flash_delta_mma",
+                             "sagan_attention_flash_dkv_mma"),
+                            ("sagan_attention_flash_dkv",),
+                            "FLASH_DKV_MMA_LAUNCHES", "FLASH_DKV_LAUNCHES"),
     "attention_flash_dqkv_partials": (
-        "sagan_attention_flash_dqkv_mma", "sagan_attention_flash_dqkv",
+        ("sagan_attention_flash_dqkv_mma",), ("sagan_attention_flash_dqkv",),
         "FLASH_DQKV_MMA_LAUNCHES", "FLASH_DQKV_LAUNCHES"),
 }
 
@@ -549,7 +670,7 @@ def test_the_dtype_picks_the_engine_and_mma_refuses_fp32(wrapper,
                                                          monkeypatch):
     """The rule itself, then each wrapper through it: with the card's
     checks and launch stubbed out (CPU tensors stand in for CUDA ones), a
-    bf16 call launches the mma entry, an fp32 or ``engine="fma"`` call
+    bf16 call launches the mma entries, an fp32 or ``engine="fma"`` call
     the fma one, and ``engine="mma"`` on fp32 raises before any launch."""
     bf16 = torch.empty(1, 4, 2, dtype=torch.bfloat16)
     fp32 = torch.empty(1, 4, 2)
@@ -581,7 +702,8 @@ def test_the_dtype_picks_the_engine_and_mma_refuses_fp32(wrapper,
         q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), dtype)
         before = getattr(cuda_attention, counter)
         fn(*_wrapper_args(wrapper, q, k, v, g), engine=engine)
-        assert launched.pop() == entry
+        assert tuple(launched) == entry
+        launched.clear()
         assert getattr(cuda_attention, counter) == before + 1
     q, k, v, g = _port(_arrays(2, 8, b=1, n=8, m=16), "float32")
     with pytest.raises(TypeError, match="bf16"):
