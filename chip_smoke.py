@@ -50,8 +50,11 @@ the build, and prints neither the kernels line nor the result line):
      imgs/s and ms/step and launch counts (the tensor-core K1 8 and K2 6
      per step, K1 2 per sample-grid forward, none on the CUDA cores;
      zeroed just before, read just after); a
-     restart that restores the checkpoint and trains a third epoch; and
-     ``generate`` sampling the checkpoint's EMA generator;
+     restart that restores the checkpoint and trains a third epoch (both
+     on the default ``device_cache: "auto"``: the dataset on the card);
+     ``generate`` sampling the checkpoint's EMA generator; and ``generate
+     --step`` on the first saved step equal to sampling that checkpoint
+     loaded directly, a step not saved raising ``KeyError``;
   8. the flash kernels at the church512 512-map site (N=262144, M=65536,
      d=2, c=8) at the config's B=4 and at B=8 (phase 13's, past the slab
      budget), bf16 and fp32: the forward K3 (o and lse), the backward
@@ -139,7 +142,28 @@ the build, and prints neither the kernels line nor the result line):
      study shape it times it at, against its plain version on the first
      2,048 query rows of batch 0 and the last 64 of the last batch
      element; the tile variants of K4-K6 against K4 + K5), the study
-     kernels launched.
+     kernels launched;
+ 22. the church64 feeds at full width on phase 7's records: the CLI on the
+     host feed (``device_cache: False``) for 2 epochs, then on the device
+     cache (the default "auto") for 2 and a restart for a 3rd, each
+     epoch's first call gathered on the card equal byte for byte to the
+     host feed's, each feed's epoch imgs/s; one streaming epoch
+     (``cache_dataset: False``, ``shuffle_buffer`` 512) through the native
+     reader equal to the pure-Python reader's, both decode rates; the
+     image folder (``use_image_generator``, 256 generated PNGs in two
+     class folders) trained through the tensor-core K1 and K2;
+ 23. one church512 step at B = 8 in bf16 with and without ``remat`` from
+     the same state: losses, gradient norms, u and BN stats held within
+     stated tolerances, launches (under remat K1 4 and K3 3: the stages'
+     attention runs again in the backward; K2 2, K4 and K5 1, as
+     without), device ms and peak memory of each; then the same step
+     with ``grad_accum_steps`` 2, whose micro-batches of 4 take K6;
+ 24. imagenet128_cond with ``use_pallas_sn`` in bf16 at batch 256 with
+     ``grad_accum_steps`` 4: the G update's accumulated gradients against
+     its four micro-batches' taken one at a time, the finalized BN stats
+     against the momentum update of their averaged moments, launches 4x a
+     batch-64 step's (each micro-batch of 64 takes phase 16's routes),
+     device ms and peak memory beside batch 64.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -173,7 +197,9 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from sagan_tpu_torch import generate, legacy_main
 from sagan_tpu_torch import main as train_cli
 from sagan_tpu_torch.convert import export_generator_npz
-from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
+from sagan_tpu_torch.data.loader import ImageDataset
+from sagan_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                            synthetic_images)
 from sagan_tpu_torch.generate import build_serve_fn, load_generator_npz
 from sagan_tpu_torch.models import get_discriminator, get_generator
 from sagan_tpu_torch.nn import layers
@@ -195,8 +221,9 @@ from sagan_tpu_torch.ops.spectral import spectral_normalize
 from sagan_tpu_torch.serve import GeneratorService, make_server
 from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
                                    bench_attn_floor256, bench_attn_floor512)
+from sagan_tpu_torch.train.checkpoint import CheckpointManager
 from sagan_tpu_torch.train.optim import make_gan_optimizers
-from sagan_tpu_torch.train.trainer import (TrainState, Trainer,
+from sagan_tpu_torch.train.trainer import (TrainState, Trainer, TrainStep,
                                            build_train_step)
 from sagan_tpu_torch.tools._study import held, max_delta, sdpa_padded
 from sagan_tpu_torch.tools.profiling import (kernel_ms_per_call,
@@ -998,7 +1025,40 @@ def phase_train_cli(card: str) -> tuple[int, int]:
     require(ema and imgs.shape == (16, 64, 64, 3) and imgs.std() > 0
             and bool(torch.isfinite(x).all()) and x.abs().max() <= 1,
             "generate did not restore finite EMA images")
+    _check_generate_step(files[3], smoke)
     return results["run"]
+
+
+def _check_generate_step(config_file: Path, smoke: Path) -> None:
+    """``generate --step <first saved step>`` gives the bytes of sampling
+    that checkpoint loaded directly (``restore_step``, its EMA G), and a
+    step that was not saved raises ``KeyError`` naming the saved ones."""
+    mgr = CheckpointManager(str(smoke / "ckpt"))
+    saved = mgr.all_steps()
+    first = saved[0]
+    argv = ["--config_path", str(config_file), "--device", "cuda", "--num",
+            "16", "--format", "npz", "--out", str(smoke / "samples_step")]
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = generate.main(argv + ["--step", str(first)])
+    ckpt = mgr.restore_step(first)
+    config = resolve_config(load_config_file(str(config_file)))
+    gen = get_generator({**config, **ckpt["meta"]})
+    gen.load_state_dict({**ckpt["gen"], **ckpt["ema"]})
+    want = generate.sample_images(gen.to("cuda"), num=16, batch=64,
+                                  z_dim=config["z_dim"], num_classes=1)
+    same = np.array_equal(np.load(written[0])["images"], want)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            generate.main(argv + ["--step", str(first + 1)])
+        missing = "no error"
+    except KeyError as err:
+        missing = str(err)
+    print(f"phase 7 generate --step {first} (saved steps {saved}): the "
+          f"checkpoint's bytes {'exactly' if same else 'NOT'}; --step "
+          f"{first + 1} raises KeyError {missing}", flush=True)
+    require(same and len(saved) == 2 and str(saved) in missing,
+            "generate --step did not sample the pinned checkpoint, or a "
+            "missing step did not raise naming the saved ones")
 
 
 CHURCH512 = ROOT / "example_configs" / "church512_attn.py"
@@ -2583,6 +2643,393 @@ def phase_studies(card: str) -> dict:
     require(all(launches.values()), f"a study kernel never ran: {launches}")
     return launches
 
+# phase 22: the streaming buffer of the church64 feed, and the image folder
+FEED_SHUFFLE = 512
+FOLDER_IMAGES = 256
+
+
+def _church64_file(path: Path, data: Path, epochs: int, **extra) -> Path:
+    """A copy of the church64 config on ``data`` for ``epochs`` epochs,
+    with ``extra`` keys (no summaries, sample grids or checkpoints unless
+    they say so)."""
+    extra = {"data_path": str(data), "epoch": epochs, "log_dir": None,
+             "img_dir": None, "ckpt_dir": None, "print_variables": False,
+             **extra}
+    path.write_text(f"import runpy\n"
+                    f"config = dict(runpy.run_path({str(CONFIG)!r})"
+                    f"['config'])\n"
+                    f"config.update({extra!r})\n")
+    return path
+
+
+def _first_calls(recorded: dict, steps_per_epoch: int):
+    """``TrainStep.__call__`` keeping (images, labels) of each epoch's
+    first call, by epoch, on the host."""
+    call = TrainStep.__call__
+
+    def recording(self, state, images_k, labels_k, latents_k=None):
+        if state.step % steps_per_epoch == 0:
+            recorded[state.step // steps_per_epoch] = (images_k.cpu(),
+                                                       labels_k.cpu())
+        return call(self, state, images_k, labels_k, latents_k)
+
+    return recording
+
+
+def phase_feeds(card: str) -> None:
+    """The church64 feeds at full width on phase 7's 2,048 synthetic
+    records: (a) the CLI on the host feed (``device_cache: False``) for 2
+    epochs, then under the default ``device_cache: "auto"`` (the dataset
+    on the card, index batches) for 2 epochs and a restart for a 3rd, the
+    first call of each epoch gathered on the card equal byte for byte to
+    the host feed's; (b) one streaming epoch (``cache_dataset: False``,
+    ``shuffle_buffer`` 512) through the native reader equal to the
+    pure-Python reader's, with both decode rates; (c) the image folder
+    (``use_image_generator``) of 256 generated 64 px PNGs in two class
+    folders, trained through the tensor-core K1 and K2."""
+    smoke = ROOT / "build" / "smoke"
+    data = smoke / "church64_synthetic"
+    if not (data / "metadata.pickle").exists():
+        make_synthetic_dataset(str(data), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED)
+    shutil.rmtree(smoke / "ckpt_feeds", ignore_errors=True)
+    steps_per_epoch = SMOKE_RECORDS // 64
+
+    # (a) the host feed, then the device cache and its restart
+    host, text, counts, _, _ = _run_cli(
+        _church64_file(smoke / "feeds_host.py", data, 2, device_cache=False),
+        card, "22a host feed")
+    steps = host.global_step()
+    require(host._device_data is None and "device cache" not in text
+            and "feed=host/native" in text
+            and counts == _launches(K1mma=8 * steps, K2mma=6 * steps),
+            f"the host-feed run: {counts} for {steps} steps, or a device "
+            f"cache / another reader")
+    want = {e: next(host._device_batches(e)) for e in range(3)}
+    recorded = {}
+    call = TrainStep.__call__
+    TrainStep.__call__ = _first_calls(recorded, steps_per_epoch)
+    try:
+        texts = []
+        for epochs in (2, 3):
+            trainer, text, counts, _, _ = _run_cli(
+                _church64_file(smoke / f"feeds_cache_e{epochs}.py", data,
+                               epochs, ckpt_dir=str(smoke / "ckpt_feeds")),
+                card, f"22a device cache {'run' if epochs == 2 else 'restart'}")
+            texts.append(text)
+            steps = (2 if epochs == 2 else 1) * steps_per_epoch
+            require(counts == _launches(K1mma=8 * steps, K2mma=6 * steps),
+                    f"device-cache run: launches {counts} for {steps} steps")
+    finally:
+        TrainStep.__call__ = call
+    lines = [line for text in texts for line in text.splitlines()
+             if line.startswith("device cache:")]
+    same = {e: torch.equal(recorded[e][0], want[e][0].cpu())
+            and torch.equal(recorded[e][1], want[e][1].cpu())
+            for e in range(3)}
+    restored = f"Restored from checkpoint at step {2 * steps_per_epoch}"
+    print(f"phase 22a: {lines}; each epoch's first call "
+          f"({tuple(want[0][0].shape)} uint8) gathered on the card against "
+          f"the host feed's, byte for byte: {same}; the restart: "
+          f"{restored in texts[1]} on {card}", flush=True)
+    require(len(lines) == 2 and all(same.values()) and restored in texts[1]
+            and all("feed=device-cache/native" in t for t in texts),
+            "the device cache did not give the host feed's batches")
+
+    # (b) one streaming epoch through each reader
+    batches, rates = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        n = len(ImageDataset(str(data), 64, use_native=native)
+                .materialized()[1])
+        rates[native] = n / (time.perf_counter() - t0)
+        ds = ImageDataset(str(data), 64, cache_in_memory=False,
+                          shuffle_buffer=FEED_SHUFFLE, use_native=native)
+        batches[native] = list(ds.epoch(0))
+        require(ds.reader == ("native" if native else "python"), ds.reader)
+    same = len(batches[True]) == len(batches[False]) == steps_per_epoch and \
+        all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(batches[True], batches[False]))
+    print(f"phase 22b streaming epoch (shuffle_buffer {FEED_SHUFFLE}, "
+          f"{len(batches[True])} batches of 64): native reader vs "
+          f"pure-Python reader byte for byte: {same}; decode "
+          f"{rates[True]:.0f} records/s native, {rates[False]:.0f} "
+          f"records/s Python (host clock, {SMOKE_RECORDS} 64 px records, "
+          f"crc checked) on the host of {card}", flush=True)
+    require(same, "the native reader's streaming epoch differs from the "
+                  "pure-Python reader's")
+
+    # (c) the image folder
+    from PIL import Image
+
+    folder = smoke / "church64_folder"
+    if not folder.exists():
+        for i, (img, label) in enumerate(synthetic_images(
+                FOLDER_IMAGES, 64, 2, seed=SEED)):
+            (folder / f"class{label}").mkdir(parents=True, exist_ok=True)
+            Image.fromarray(img).save(folder / f"class{label}" / f"{i}.png")
+    trainer, text, counts, _, _ = _run_cli(
+        _church64_file(smoke / "feeds_folder.py", folder, 1,
+                       use_image_generator=True, img_size=64,
+                       steps_per_call=4),
+        card, "22c image folder")
+    steps = trainer.global_step()
+    print(f"phase 22c image folder: {trainer.config['num_classes']} classes, "
+          f"{steps} steps; launches {counts}", flush=True)
+    require(steps == FOLDER_IMAGES // 64 and "device cache" not in text
+            and "feed=host/PIL" in text
+            and trainer.config["num_classes"] == 2
+            and counts == _launches(K1mma=8 * steps, K2mma=6 * steps),
+            f"the image-folder run: {steps} steps, launches {counts}")
+
+
+# phase 23: remat against no remat, one church512 step at B = 8 in bf16.
+# The same operations on the same values, but a cuDNN or cuBLAS algorithm
+# may sum in another order between two steps (and picks by the memory
+# free): losses and gradient norms within REMAT_RTOL (a few bf16
+# roundings), u and the BN running stats within REMAT_ATOL
+REMAT_RTOL = 2e-2
+REMAT_ATOL = 1e-3
+
+
+def _step_state(config, gen0, disc0, remat: bool):
+    gen, disc = copy.deepcopy(gen0), copy.deepcopy(disc0)
+    gen.remat = disc.remat = remat
+    gen.to("cuda").train()
+    disc.to("cuda").train()
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, None)
+    return state, build_train_step(config, sched_g, sched_d, gen, disc)
+
+
+def _timed_steps(step, state, images, labels, n: int) -> tuple:
+    """(median device ms of ``n`` steps between CUDA events, peak memory
+    GiB over them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, images, labels)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _rel_norms(got, want) -> float:
+    """Largest |got - want| of per-variable gradient norms over
+    max(|want|, 1e-3 max|want|)."""
+    floor = 1e-3 * want.abs().max()
+    return ((got - want).abs() / torch.maximum(want.abs(), floor)).max().item()
+
+
+def phase_remat512(card: str) -> None:
+    """One church512 training step at B = 8 in bf16 from the same state and
+    latents without remat, with ``remat: True`` and without again: losses,
+    gradient norms, u and BN running stats against the first; launches,
+    device ms and peak memory of each (two more steps timed).  Under remat
+    the stages' attention runs again in the backward: K1 twice more (D's
+    stage in D's and G's backward), K3 once more (G's 512 stage)."""
+    config = church512_config("bfloat16")
+    config.update(batch_size=8, global_batch_size=8)
+    gen0, disc0 = _church512_nets(config, SEED + 80)
+    rng = torch.Generator("cuda").manual_seed(SEED + 81)
+    images = torch.randint(0, 256, (1, 8, 512, 512, 3), dtype=torch.uint8,
+                           device="cuda", generator=rng)
+    labels = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
+    runs = []
+    for remat in (False, True, False):
+        state, step = _step_state(config, gen0, disc0, remat)
+        _zero_counts()               # the step starts here
+        m = step(state, images, labels)
+        torch.cuda.synchronize()
+        counts = _counts()           # and ends here
+        bufs = {f"{tag}.{k}": v.float().cpu()
+                for tag, net in (("G", state.gen), ("D", state.disc))
+                for k, v in net.named_buffers()}
+        ms, peak = _timed_steps(step, state, images, labels, 2)
+        runs.append(({k: v.detach().float().cpu() for k, v in m.items()},
+                     bufs, counts, ms, peak))
+        del state, step
+        torch.cuda.empty_cache()
+    want_m, want_b = runs[0][:2]
+    for (m, bufs, counts, ms, peak), remat in zip(runs, ("off", "on", "off")):
+        loss = max(abs(float(m[k]) - float(want_m[k])) /
+                   abs(float(want_m[k])) for k in ("G_loss", "D_loss",
+                                                   "G_grad_norm",
+                                                   "D_grad_norm"))
+        norms = max(_rel_norms(m[k], want_m[k])
+                    for k in ("G_grad_norms", "D_grad_norms"))
+        buf = max((bufs[k] - v).abs().max().item()
+                  for k, v in want_b.items())
+        print(f"phase 23 church512 B=8 bf16 remat {remat}: losses "
+              f"{float(m['G_loss']):.6f} / {float(m['D_loss']):.6f}, worst "
+              f"rel err against the first run: losses and global norms "
+              f"{loss:.3g}, per-variable gradient norms {norms:.3g} (tol "
+              f"{REMAT_RTOL:g}), u and BN stats max abs {buf:.3g} (tol "
+              f"{REMAT_ATOL:g}); launches {counts}; {ms:.3f} device ms a "
+              f"step (median of 2, CUDA events), peak memory {peak:.2f} GiB "
+              f"on {card}", flush=True)
+        require(loss <= REMAT_RTOL and norms <= REMAT_RTOL
+                and buf <= REMAT_ATOL, f"remat {remat} disagrees")
+    plain = _launches(K1mma=2, K2mma=2, K3mma=2, K4mma=1, K5mma=1)
+    require(runs[0][2] == runs[2][2] == plain
+            and runs[1][2] == _launches(K1mma=4, K2mma=2, K3mma=3, K4mma=1,
+                                        K5mma=1),
+            f"launches without remat {runs[0][2]}, with {runs[1][2]}")
+
+    # grad_accum_steps 2: micro-batches of 4, whose fp32 dq partials fit
+    # the slab budget, so each micro backward of G takes K6, not K4 + K5
+    # (the route goes by the call's shape)
+    state, step = _step_state(dict(config, grad_accum_steps=2), gen0, disc0,
+                              False)
+    _zero_counts()
+    m = step(state, images, labels)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ms, peak = _timed_steps(step, state, images, labels, 2)
+    losses = {k: float(m[k]) for k in ("G_loss", "D_loss")}
+    want = _launches(K1mma=4, K2mma=4, K3mma=4, K6mma=2)
+    print(f"phase 23 church512 B=8 bf16 grad_accum_steps 2 (micro-batches "
+          f"of 4): losses {losses}; launches {counts} (expected {want}: K6 "
+          f"for each micro backward of G, in the slab budget); {ms:.3f} "
+          f"device ms a step, peak memory {peak:.2f} GiB on {card}",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses.values())
+            and counts == want, f"accumulated B=8 step: {counts}, {losses}")
+
+
+# phase 24: gradient accumulation at imagenet128_cond's full width, bf16.
+# The accumulated G gradient against the mean of the micro-batch gradients
+# taken one at a time from a copy of the nets: the same operations, but
+# cuDNN's backward may sum in another order and round to bf16 (a few ulp
+# of 2^-8): each tensor within ACCUM_TOL of its largest value.  The
+# finalized BN stats against the momentum update of the micro-batches'
+# averaged moments, the same fp32 arithmetic: within 1e-4 (x max(1, |v|)).
+ACCUM_BATCH, ACCUM_STEPS = 256, 4
+ACCUM_TOL = 1e-2
+ACCUM_BN_TOL = 1e-4
+
+
+def _moment_hooks(bns) -> tuple:
+    """Forward pre-hooks on ``bns`` keeping each call's fp32 (E[x],
+    E[x²]); returns (the moments by layer, the hook handles)."""
+    moments = {bn: [] for bn in bns}
+
+    def hook(bn, args):
+        x = args[0].float()
+        moments[bn].append((x.mean(dim=(0, 2, 3)),
+                            x.square().mean(dim=(0, 2, 3))))
+
+    return moments, [bn.register_forward_pre_hook(hook) for bn in bns]
+
+
+def _check_accumulation(step, state, captured, latents, accum: int) -> None:
+    """The G update's accumulation (``captured``: copies of G and D as it
+    began, the mean gradients it returned) against its micro-batches run
+    one at a time on the copies, and G's finalized BN stats (``state``)
+    against the momentum update of their averaged moments."""
+    (gen, disc), got = captured
+    bns = layers.bn_moment_paths(gen)
+    old = [(bn.mean.clone(), bn.var.clone()) for bn in bns]
+    moments, handles = _moment_hooks(bns)
+    z, fake_labels = latents
+    micro = z.shape[0] // accum
+    total = None
+    for a in range(accum):
+        sl = slice(a * micro, (a + 1) * micro)
+        loss = step.gloss_fn(disc(gen(z[sl], fake_labels[sl]),
+                                  fake_labels[sl]))
+        grads = torch.autograd.grad(loss, list(gen.parameters()))
+        total = grads if total is None else [t + g for t, g in
+                                             zip(total, grads)]
+    for h in handles:
+        h.remove()
+    grad_err = max(_rel(g, t / accum) for g, t in zip(got, total))
+    m = layers.BN_MOMENTUM
+    bn_err = 0.0
+    for bn, live, (old_mean, old_var) in zip(
+            bns, layers.bn_moment_paths(state.gen), old):
+        mean = sum(x for x, _ in moments[bn]) / accum
+        var = torch.clamp(sum(y for _, y in moments[bn]) / accum
+                          - mean.square(), min=0.0)
+        for got_s, want_s in ((live.mean, m * old_mean + (1 - m) * mean),
+                              (live.var, m * old_var + (1 - m) * var)):
+            bn_err = max(bn_err, ((got_s - want_s).abs()
+                                  / want_s.abs().clamp_min(1.0)).max().item())
+    print(f"phase 24 accumulated G gradients ({len(got)} tensors) vs the mean "
+          f"of {accum} micro-batch gradients taken one at a time: worst err "
+          f"/ max|v| {grad_err:.3g} (tol {ACCUM_TOL:g}); finalized BN stats "
+          f"of {len(bns)} layers vs the momentum update of the averaged "
+          f"moments: {bn_err:.3g} (tol {ACCUM_BN_TOL:g})", flush=True)
+    require(grad_err <= ACCUM_TOL and bn_err <= ACCUM_BN_TOL
+            and all(len(v) == accum for v in moments.values()),
+            "the accumulated step disagrees with its micro-batches")
+
+
+def phase_accum128(card: str) -> None:
+    """imagenet128_cond (``use_pallas_sn``, bf16) at batch 256 with
+    ``grad_accum_steps`` 4 (micro-batches of 64): the G update's
+    accumulated gradients against the mean of the four micro-batch
+    gradients taken one at a time, the finalized BN stats against the
+    momentum update of the averaged moments; launches 4x those of a
+    batch-64 step; peak memory and device ms a step beside batch 64
+    without accumulation."""
+    out = {}
+    for batch, accum in ((64, 1), (ACCUM_BATCH, ACCUM_STEPS)):
+        config = imagenet_config(IMAGENET128, "bfloat16", use_pallas_sn=True,
+                                 batch_size=batch, global_batch_size=batch,
+                                 grad_accum_steps=accum)
+        gen = get_generator(config,
+                            rng=torch.Generator().manual_seed(SEED + 90))
+        disc = get_discriminator(config,
+                                 rng=torch.Generator().manual_seed(SEED + 91))
+        state, step = _step_state(config, gen, disc, False)
+        rng = torch.Generator("cuda").manual_seed(SEED + 92)
+        images = torch.randint(0, 256, (1, batch, 128, 128, 3),
+                               dtype=torch.uint8, device="cuda", generator=rng)
+        labels = torch.randint(0, 1000, (1, batch), dtype=torch.int32,
+                               device="cuda", generator=rng)
+        lat = step.latents(0, batch, "cuda")
+        captured = []
+        accumulated = TrainStep._accumulated
+
+        def spy(self, nets, micro_step, micro):
+            snapshot = [copy.deepcopy(net) for net in nets]
+            result = accumulated(self, nets, micro_step, micro)
+            captured.append((snapshot, [g.clone() for g in result[1]]))
+            return result
+
+        if accum > 1:
+            TrainStep._accumulated = spy
+        try:
+            _zero_counts()           # the step starts here
+            step(state, images, labels, [lat])
+            torch.cuda.synchronize()
+            counts = _counts()       # and ends here
+        finally:
+            TrainStep._accumulated = accumulated
+        if accum > 1:
+            _check_accumulation(step, state, captured[-1], lat["g"], accum)
+        del captured
+        ms, peak = _timed_steps(step, state, images, labels, 3)
+        out[accum] = counts, ms, peak
+        print(f"phase 24 imagenet128_cond bf16 use_pallas_sn batch {batch} "
+              f"grad_accum_steps {accum}: {ms:.3f} device ms a step (median "
+              f"of 3, CUDA events, host dispatch included), peak memory "
+              f"{peak:.2f} GiB; launches {counts} on {card}", flush=True)
+    one = _launches(K1mma=12, K2mma=8, K7=SN_CALLS_PER_STEP, K7w=SN_PER_STEP,
+                    K7bwd=SN_BWD_PER_STEP)
+    require(out[1][0] == one
+            and out[ACCUM_STEPS][0] == {k: ACCUM_STEPS * v
+                                        for k, v in one.items()},
+            f"launches: batch 64 {out[1][0]} (expected {one}), accumulated "
+            f"{out[ACCUM_STEPS][0]} (expected {ACCUM_STEPS}x)")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
@@ -2600,7 +3047,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
-    on = set(range(1, 22)) if args.only is None else set(args.only) | {1}
+    on = set(range(1, 25)) if args.only is None else set(args.only) | {1}
     r = {}
     phase_build()
     if 2 in on:
@@ -2646,6 +3093,12 @@ def main(argv=None) -> int:
         r["study_heads"] = phase_study_kernels(card)
     if 21 in on:
         r["study_launches"] = phase_studies(card)
+    if 22 in on:
+        phase_feeds(card)
+    if 23 in on:
+        phase_remat512(card)
+    if 24 in on:
+        phase_accum128(card)
     print(f"chip_smoke: phases {', '.join(map(str, sorted(on)))} passed in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     if args.only is not None:

@@ -1,6 +1,8 @@
-"""Host-side data pipeline, the port's own copy of the cached path of
-``sagan_tpu/data/loader.py``: TFRecord files -> decoded in-memory cache ->
-per-epoch shuffle -> batches -> a prefetch thread.
+"""Host-side data pipeline, the port's own copy of
+``sagan_tpu/data/loader.py`` on one process: TFRecord files -> decoded
+records (the native C++ reader, or the pure-Python codec) -> an in-memory
+cache with an exact per-epoch shuffle, or a streaming shuffle buffer ->
+batches -> a prefetch thread.
 
 * Batches leave the host as **uint8** [B, S, S, 3] (NHWC, as stored);
   the train step normalizes them to [-1, 1] on the device.
@@ -8,14 +10,16 @@ per-epoch shuffle -> batches -> a prefetch thread.
   w owns ``files[w::W]`` and the stream takes one record from each live
   worker in turn (the JAX loader reads them on W threads and merges in
   that fixed rotation; here one thread walks the same rotation).
-* Each epoch is an exact permutation of the cached records drawn from
-  ``np.random.default_rng((seed, epoch, pass))``, so the same files and
-  seed give the same batches as the JAX loader, and a resume that replays
-  an epoch and skips its consumed batches sees the batches it would have.
+* ``cache_in_memory`` (None: on when the decoded data is at most 2 GiB,
+  the JAX rule): each epoch is an exact permutation of the cached records
+  drawn from ``np.random.default_rng((seed, epoch, pass))``.  Off: the
+  records stream through a reservoir buffer of ``shuffle_buffer``
+  records reseeded from the same triple.  Either way the same files and
+  seed give the JAX loader's batches, and a resume that replays an epoch
+  and skips its consumed batches sees the batches it would have.
 * ``_lockstep`` makes every epoch exactly ``steps_per_epoch`` batches.
 
-The JAX loader's streaming shuffle buffer (``cache_dataset: False``) and
-its multi-host sharding are not ported (ROADMAP.md Queue 1 items 7, 14).
+Multi-host sharding is not ported (ROADMAP.md Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ from typing import Iterator
 
 import numpy as np
 
+from . import native
 from .tfrecord import load_metadata, parse_image_example, read_records
 
 PREFETCH_DEPTH = 2   # batches the loader thread keeps ready
-STREAMING_ITEM = ("cache_dataset: False (the streaming shuffle buffer) is "
-                  "not ported; the port caches the decoded dataset in RAM, "
-                  "ROADMAP.md Queue 1 item 7")
+SHUFFLE_BUFFER = 30000   # records in the streaming shuffle buffer
+CACHE_LIMIT = 2 << 30    # decoded bytes cached in RAM when not told
+NATIVE_CHUNK_BYTES = 32 << 20   # decoded bytes per native reader call
 
 
 def _find_files(data_path: str) -> list[str]:
@@ -45,16 +50,21 @@ def _find_files(data_path: str) -> list[str]:
 
 class ImageDataset:
     """Epoch-oriented iterator of (uint8 images [B,S,S,3], int32 labels
-    [B]) from a decoded in-memory cache of the dataset."""
+    [B]).  ``use_native`` None takes the native reader when it builds;
+    True raises when it does not."""
 
     def __init__(self, data_path: str, batch_size: int,
-                 data_size: int = -1, seed: int = 0, num_workers: int = 4,
+                 data_size: int = -1, shuffle_buffer: int = SHUFFLE_BUFFER,
+                 seed: int = 0, num_workers: int = 4,
                  cache_in_memory: bool | None = None,
-                 verify_crc: bool = True):
-        if cache_in_memory is False:
-            raise NotImplementedError(STREAMING_ITEM)
+                 verify_crc: bool = True, use_native: bool | None = None):
         self.files = _find_files(data_path)
         self.meta = load_metadata(data_path)
+        if use_native is None:
+            use_native = native.available()
+        elif use_native:
+            native.load()
+        self.reader = "native" if use_native else "python"
         # bit-rot must raise, not train on garbage
         self.verify_crc = verify_crc
         self.num_workers = max(1, num_workers)
@@ -63,10 +73,15 @@ class ImageDataset:
         self.num_records = int(self.meta["num_records"])
         self.batch_size = batch_size
         self.data_size = data_size
+        self.shuffle_buffer = shuffle_buffer
         self.seed = seed
         total = self.num_records if data_size in (-1, None) \
             else min(data_size, self.num_records)
         self.steps_per_epoch = total // batch_size
+        if cache_in_memory is None:
+            cache_in_memory = \
+                total * self.img_size * self.img_size * 3 <= CACHE_LIMIT
+        self.cache_in_memory = cache_in_memory
         self._cache = None
 
     def _items(self) -> Iterator[tuple]:
@@ -90,11 +105,40 @@ class ImageDataset:
 
     def _files_items(self, files: list) -> Iterator[tuple]:
         for path in files:
+            yield from self._file_items(path)
+
+    def _file_items(self, path: str) -> Iterator[tuple]:
+        if self.reader == "native":
+            img_bytes = self.img_size * self.img_size * 3
+            chunk = max(1, min(1024, NATIVE_CHUNK_BYTES // img_bytes))
+            for imgs, labels in native.read_image_examples(
+                    path, self.img_size, chunk, verify=self.verify_crc):
+                for i in range(imgs.shape[0]):
+                    # a copy, so that a record held in the shuffle buffer
+                    # does not keep its whole chunk alive
+                    yield imgs[i].copy(), int(labels[i])
+        else:
             for rec in read_records(path, verify=self.verify_crc):
                 yield parse_image_example(rec, self.img_size)
 
+    def _shuffled(self, rng: np.random.Generator) -> Iterator[tuple]:
+        """The records through a reservoir of ``shuffle_buffer``: each
+        new record swaps with a random one of a full buffer, which leaves;
+        the rest leave shuffled at the end."""
+        buf: list[tuple] = []
+        for item in self._items():
+            if len(buf) < self.shuffle_buffer:
+                buf.append(item)
+                continue
+            j = int(rng.integers(len(buf)))
+            buf[j], item = item, buf[j]
+            yield item
+        rng.shuffle(buf)  # type: ignore[arg-type]
+        yield from buf
+
     def materialized(self):
-        """The whole (truncated) dataset as (uint8 [n,S,S,3], int32 [n])."""
+        """The whole (truncated) dataset as (uint8 [n,S,S,3], int32 [n]),
+        decoded once (the device cache uploads these)."""
         if self._cache is None:
             imgs, labels = [], []
             for img, label in self._items():
@@ -103,20 +147,49 @@ class ImageDataset:
             self._cache = (np.stack(imgs), np.asarray(labels, np.int32))
         return self._cache
 
+    def epoch_index_batches(self, epoch_index: int) -> Iterator[np.ndarray]:
+        """Per-batch record indices (int32 [B]) of the cached ``epoch()``:
+        the same (seed, epoch, pass) permutation and lockstep wraparound,
+        so gathering them from ``materialized()`` gives its batches."""
+        n = len(self.materialized()[1])
+
+        def gen(attempt: int):
+            rng = np.random.default_rng((self.seed, epoch_index, attempt))
+            order = rng.permutation(n)
+            for i in range(n // self.batch_size):
+                yield order[i * self.batch_size:
+                            (i + 1) * self.batch_size].astype(np.int32)
+
+        return _lockstep(gen, self.steps_per_epoch)
+
     def epoch(self, epoch_index: int = 0) -> Iterator[tuple]:
         """One pass over the data in whole batches (the remainder is
         dropped), prefetched on a thread."""
-        imgs, labels = self.materialized()
+        if self.cache_in_memory:
+            imgs, labels = self.materialized()
 
-        def cached_gen(attempt: int):
-            rng = np.random.default_rng((self.seed, epoch_index, attempt))
-            order = rng.permutation(len(labels))
-            for i in range(len(labels) // self.batch_size):
-                idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-                yield imgs[idx], labels[idx]
+            def gen(attempt: int):
+                rng = np.random.default_rng((self.seed, epoch_index, attempt))
+                order = rng.permutation(len(labels))
+                for i in range(len(labels) // self.batch_size):
+                    idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+                    yield imgs[idx], labels[idx]
+        else:
+            def gen(attempt: int):
+                rng = np.random.default_rng((self.seed, epoch_index, attempt))
+                s = self.img_size
+                imgs = np.empty((self.batch_size, s, s, 3), np.uint8)
+                labels = np.empty((self.batch_size,), np.int32)
+                fill = 0
+                for img, label in self._shuffled(rng):
+                    imgs[fill] = img
+                    labels[fill] = label
+                    fill += 1
+                    if fill == self.batch_size:
+                        yield imgs.copy(), labels.copy()
+                        fill = 0
 
-        return _prefetch(_lockstep(cached_gen, self.steps_per_epoch),
-                         PREFETCH_DEPTH)
+        return _prefetch(_lockstep(gen, self.steps_per_epoch), PREFETCH_DEPTH)
 
 
 def _put_with_stop(q: "queue.Queue", item, stop: threading.Event) -> bool:
@@ -194,21 +267,27 @@ def _prefetch(it: Iterator, depth: int) -> Iterator:
 
 def get_dataset_and_info(config: dict):
     """(dataset, config with the dataset's ``img_size``, ``num_classes``
-    and ``num_records`` merged in).  ``use_image_generator`` (the
-    augmenting image-folder loader) is not ported and raises."""
-    if config.get("use_image_generator"):
-        raise NotImplementedError(
-            "use_image_generator: the augmenting image-folder loader is not "
-            "ported, ROADMAP.md Queue 1 item 7")
+    and ``num_records`` merged in).  ``use_image_generator`` takes the
+    augmenting image-folder loader (``data/image_folder.py``), else the
+    TFRecord one."""
     config = dict(config)
-    ds = ImageDataset(
-        config["data_path"],
-        batch_size=config.get("global_batch_size", config["batch_size"]),
-        data_size=config.get("data_size", -1),
-        seed=config.get("data_seed", 0),
-        num_workers=config.get("data_workers", 4),
-        cache_in_memory=config.get("cache_dataset"),
-        verify_crc=config.get("verify_crc", True),
-    )
+    batch = config.get("global_batch_size", config["batch_size"])
+    if config.get("use_image_generator"):
+        from .image_folder import ImageFolderDataset
+        ds = ImageFolderDataset(
+            config["data_path"], batch_size=batch,
+            img_size=config["img_size"],
+            data_size=config.get("data_size", -1),
+            seed=config.get("data_seed", 0))
+    else:
+        ds = ImageDataset(
+            config["data_path"], batch_size=batch,
+            data_size=config.get("data_size", -1),
+            shuffle_buffer=config.get("shuffle_buffer", SHUFFLE_BUFFER),
+            seed=config.get("data_seed", 0),
+            num_workers=config.get("data_workers", 4),
+            cache_in_memory=config.get("cache_dataset"),
+            verify_crc=config.get("verify_crc", True),
+        )
     config.update(ds.meta)
     return ds, config

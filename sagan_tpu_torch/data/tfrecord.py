@@ -1,6 +1,7 @@
 """Standalone TFRecord + tf.train.Example codec (no TensorFlow), the
-port's own copy of ``sagan_tpu/data/tfrecord.py`` without its native C++
-reader.
+port's own copy of ``sagan_tpu/data/tfrecord.py``: the portable reference
+implementation, beside the native C++ reader of ``data/native`` (the bulk
+decode path of the loader).
 
 The on-disk contract: files of framed protobuf ``tf.train.Example``
 records with features ``image_raw`` (raw uint8 bytes, HWC) and ``label``
@@ -14,7 +15,8 @@ TFRecord framing:
     bytes   data[length]
     uint32  masked_crc32c(data)
 with ``masked_crc = rotr15(crc32c(x)) + 0xa282ead8``.  crc32c runs in
-pure Python unless the ``google_crc32c`` package is installed.
+the ``google_crc32c`` package when it is installed, else in the native
+reader's slice-by-8 code (built at first use), else in pure Python.
 """
 
 from __future__ import annotations
@@ -61,7 +63,14 @@ try:  # the C implementation, when the package is installed
     def crc32c(data: bytes) -> int:
         return _gcrc.value(bytes(data))
 except ImportError:
-    crc32c = _crc32c_py
+    def crc32c(data: bytes) -> int:
+        # the native reader's crc, built on first use: verification must
+        # stay cheap enough to be on by default
+        from . import native
+        try:
+            return native.crc32c(data)
+        except OSError:
+            return _crc32c_py(data)
 
 
 def masked_crc32c(data: bytes) -> int:

@@ -6,12 +6,13 @@ Port of ``sagan_tpu/generate.py``:
     python -m sagan_tpu_torch.generate --config_path example_configs/foo.py \\
         [--weights g.npz] [--num 64] [--batch 64] [--seed 0] \\
         [--truncation 0.5] [--class_id 207] [--out samples/foo] \\
-        [--format png|npz|both] [--export copy.npz] [--device cuda|cpu]
+        [--format png|npz|both] [--export copy.npz] [--step N] \\
+        [--device cuda|cpu]
 
 Without ``--weights`` the generator comes from the newest readable port
 checkpoint in the config's ``ckpt_dir`` (``python -m sagan_tpu_torch.main``
-writes them): its EMA parameters when the run tracked them, with the live
-SN and BN buffers.  ``--weights`` is the JAX package's export (``python -m
+writes them), or the one of step ``--step``: its EMA parameters when the
+run tracked them, with the live SN and BN buffers.  ``--weights`` is the JAX package's export (``python -m
 sagan_tpu.generate --export g.npz``) or the port's own
 (:func:`convert.export_generator_npz`).
 
@@ -77,15 +78,19 @@ def load_generator_npz(config: dict, path: str, device="cuda"):
     return gen.to(resolve_device(device))
 
 
-def restore_generator(config: dict, device="cuda"):
+def restore_generator(config: dict, device="cuda", step: int | None = None):
     """The generator of the newest readable checkpoint in
-    ``config['ckpt_dir']``, in eval mode on ``device``: the EMA parameters
-    when the run tracked them (else the live ones) with the live SN and BN
-    buffers.  Fills ``img_size`` / ``num_classes`` missing from ``config``
-    from the checkpoint."""
+    ``config['ckpt_dir']`` (of step ``step`` when given: a missing step
+    raises ``KeyError`` naming the saved ones), in eval mode on
+    ``device``: the EMA parameters when the run tracked them (else the live
+    ones) with the live SN and BN buffers.  Fills ``img_size`` /
+    ``num_classes`` missing from ``config`` from the checkpoint."""
     ckpt_dir = config.get("ckpt_dir")
-    ckpt = (CheckpointManager(ckpt_dir).restore_latest()
-            if ckpt_dir and os.path.isdir(ckpt_dir) else None)
+    ckpt = None
+    if ckpt_dir and os.path.isdir(ckpt_dir):
+        mgr = CheckpointManager(ckpt_dir)
+        ckpt = (mgr.restore_latest() if step is None
+                else mgr.restore_step(step))
     if ckpt is None:
         raise FileNotFoundError(
             f"no checkpoint under ckpt_dir={ckpt_dir!r}: train first "
@@ -103,13 +108,15 @@ def restore_generator(config: dict, device="cuda"):
     return gen.to(resolve_device(device))
 
 
-def load_generator(config: dict, weights: str | None, device="cuda"):
+def load_generator(config: dict, weights: str | None, device="cuda",
+                   step: int | None = None):
     """The eval generator of ``weights`` (an exported npz) or, without
-    them, of the config's newest checkpoint, on ``device``."""
+    them, of the config's newest checkpoint (of ``step`` when given), on
+    ``device``."""
     if weights:
         fill_geometry(config, weights)
         return load_generator_npz(config, weights, device)
-    return restore_generator(config, device)
+    return restore_generator(config, device, step)
 
 
 def build_serve_fn(gen):
@@ -180,6 +187,8 @@ def main(argv=None):
                     help="output dir (default samples/<config name>)")
     ap.add_argument("--format", choices=("png", "npz", "both"),
                     default="png")
+    ap.add_argument("--step", type=int, default=None,
+                    help="restore this checkpointed step (default latest)")
     ap.add_argument("--weights", default=None,
                     help="exported generator .npz (default: the newest "
                          "checkpoint in the config's ckpt_dir)")
@@ -194,7 +203,7 @@ def main(argv=None):
     # fp32 convolutions stay fp32, as the JAX layers ask for HIGHEST
     torch.backends.cudnn.allow_tf32 = False
     config = resolve_config(load_config_file(args.config_path))
-    gen = load_generator(config, args.weights, device)
+    gen = load_generator(config, args.weights, device, args.step)
     num_classes = max(1, config.get("num_classes", 1))
     if args.class_id >= num_classes:
         raise SystemExit(

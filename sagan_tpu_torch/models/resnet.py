@@ -19,7 +19,8 @@ D: OptimizedBlock (SN-Conv 3x3 -> ReLU -> SN-Conv 3x3/2, shortcut SN-Conv
 Child names follow the JAX variable tree (``up{side}``, ``attn{side}``,
 ``down{side}``, ``final``, ``stem``, ``bn_out``, ``to_rgb``, ``head``,
 ``embed``, ``head_conv``), so ``convert.py`` maps them as they are.  G is
-built in eval mode, D in training mode, as in ``models/vanilla.py``.
+built in eval mode, D in training mode, and ``remat`` runs each ``blocks``
+stage under ``nn.layers.remat``, as in ``models/vanilla.py``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
-                         Dense, Embedding, global_sum_pool)
+                         Dense, Embedding, global_sum_pool, remat)
 from .vanilla import _attention, _power
 
 
@@ -107,6 +108,7 @@ class ResGenerator(nn.Module):
         self.num_classes = c.get("num_classes", 1)
         self.use_cond_bn = c.get("use_cond_bn", False) and self.use_label
         self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        self.remat = bool(c.get("remat", False))
         gf = c["gf_dim"]
         sn_iters = c.get("sn_iters", 1)
         power = _power(self.img_size)
@@ -144,9 +146,10 @@ class ResGenerator(nn.Module):
         x = self.stem(x)
         x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
         for blk, attn in self.blocks:
-            x = blk(x, labels) if self.use_cond_bn else blk(x)
-            if attn is not None:
-                x = attn(x)
+            def stage(x, labels, blk=blk, attn=attn):
+                x = blk(x, labels) if self.use_cond_bn else blk(x)
+                return x if attn is None else attn(x)
+            x = remat(stage, x, labels) if self.remat else stage(x, labels)
         x = self.to_rgb(F.relu(self.bn_out(x)))
         return torch.tanh(x.float()).to(self.dtype)
 
@@ -163,6 +166,7 @@ class ResDiscriminator(nn.Module):
         self.use_label = c.get("use_label", False)
         self.num_classes = c.get("num_classes", 1)
         self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        self.remat = bool(c.get("remat", False))
         df = c["df_dim"]
         sn_iters = c.get("sn_iters", 1)
         power = _power(self.img_size)
@@ -206,9 +210,10 @@ class ResDiscriminator(nn.Module):
     def forward(self, img, labels=None):
         x = img.to(self.dtype)
         for blk, attn in self.blocks:
-            x = blk(x)
-            if attn is not None:
-                x = attn(x)
+            def stage(x, blk=blk, attn=attn):
+                x = blk(x)
+                return x if attn is None else attn(x)
+            x = remat(stage, x) if self.remat else stage(x)
         x = self.final(x)
         if self.use_label:
             # projection discriminator: ReLU before the pool, as the JAX

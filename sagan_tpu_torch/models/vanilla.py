@@ -14,6 +14,8 @@ D: [B, 3, S, S] -> log2(img/4) stages of SN-Conv 4x4/2 -> LeakyReLU 0.1
 
 G is built in eval mode, the mode serving wants; the trainer switches it
 to training mode.  D is built in training mode, as ``nn.Module``s are.
+With ``remat`` each stage (a ``blocks`` entry) runs under
+``nn.layers.remat``, its activations recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import nn
 
 from ..nn.attention import SelfAttention
 from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
-                         Dense, Embedding, global_sum_pool, leaky_relu)
+                         Dense, Embedding, global_sum_pool, leaky_relu, remat)
 
 
 def _power(img_size: int) -> int:
@@ -58,6 +60,7 @@ class Generator(nn.Module):
         self.num_classes = c.get("num_classes", 1)
         self.use_cond_bn = c.get("use_cond_bn", False) and self.use_label
         self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        self.remat = bool(c.get("remat", False))
         gf = c["gf_dim"]
         sn_iters = c.get("sn_iters", 1)
         attn_at = set(c.get("attn_dim_G", [])) if c.get("use_attention") \
@@ -98,11 +101,12 @@ class Generator(nn.Module):
         x = self.stem(x)
         x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
         for convt, bn, attn in self.blocks:
-            x = convt(x)
-            x = bn(x, labels) if self.use_cond_bn else bn(x)
-            x = leaky_relu(x, 0.1)
-            if attn is not None:
-                x = attn(x)
+            def stage(x, labels, convt=convt, bn=bn, attn=attn):
+                x = convt(x)
+                x = bn(x, labels) if self.use_cond_bn else bn(x)
+                x = leaky_relu(x, 0.1)
+                return x if attn is None else attn(x)
+            x = remat(stage, x, labels) if self.remat else stage(x, labels)
         x = self.to_rgb(x)
         return torch.tanh(x.float()).to(self.dtype)
 
@@ -119,6 +123,7 @@ class Discriminator(nn.Module):
         self.use_label = c.get("use_label", False)
         self.num_classes = c.get("num_classes", 1)
         self.dtype = getattr(torch, c.get("compute_dtype", "float32"))
+        self.remat = bool(c.get("remat", False))
         df = c["df_dim"]
         sn_iters = c.get("sn_iters", 1)
         attn_at = set(c.get("attn_dim_D", [])) if c.get("use_attention") \
@@ -152,9 +157,10 @@ class Discriminator(nn.Module):
     def forward(self, img, labels=None):
         x = img.to(self.dtype)
         for conv, attn in self.blocks:
-            x = leaky_relu(conv(x), 0.1)
-            if attn is not None:
-                x = attn(x)
+            def stage(x, conv=conv, attn=attn):
+                x = leaky_relu(conv(x), 0.1)
+                return x if attn is None else attn(x)
+            x = remat(stage, x) if self.remat else stage(x)
         if self.use_label:
             # projection discriminator (Miyato & Koyama 2018)
             feat = global_sum_pool(x)                       # [B, C] fp32

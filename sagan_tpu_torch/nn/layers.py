@@ -16,13 +16,31 @@ routes every SN layer of a model through K7 (``"pallas"``): one grouped
 call at the start of each forward of the model normalizes all its SN
 weights and hands each layer its W̄, which the layer takes exactly once
 in that forward.
+
+:func:`remat` runs a stage of a model under non-reentrant
+``torch.utils.checkpoint``, which recomputes the stage in the backward.
+JAX's ``remat_span`` records a stage's aux updates once, in the forward;
+here the recompute calls the stage's modules a second time, so it runs
+under a replay flag in which BN writes no buffer and each SN layer
+returns the very W̄ its forward used (kept for the checkpoint's
+recompute) and stores no u: state moves once per forward, and the
+recompute's W̄ is the forward's.
+
+:func:`bn_accum_begin` / :func:`bn_accum_finalize` give gradient
+accumulation exact BN statistics (``sagan_tpu/nn/layers.py:273-330``):
+between them each BN adds its batch (mean, E[x²]) into its buffers, and
+finalize applies the momentum once to the micro-batches' average.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_spectral import spectral_norm_group
 from ..ops.spectral import spectral_normalize
@@ -34,6 +52,43 @@ BN_MOMENTUM = 0.99
 
 # what a layer holds in ``_sn_w_bar`` once it has taken its handed W̄
 _TAKEN = object()
+
+
+class _RematState(threading.local):
+    """The checkpointed stage running on this thread: ``store`` maps each
+    SN layer of its forward to the W̄ it used; ``replay`` is set while the
+    backward recomputes the stage (on the autograd engine's thread)."""
+    store: dict | None = None
+    replay = False
+
+
+_REMAT = _RematState()
+
+
+@contextlib.contextmanager
+def _remat_mode(store: dict, replay: bool):
+    saved = _REMAT.store, _REMAT.replay
+    _REMAT.store, _REMAT.replay = store, replay
+    try:
+        yield
+    finally:
+        _REMAT.store, _REMAT.replay = saved
+
+
+def _keep(t):
+    return t
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``, non-reentrant), BN and SN
+    state moving once (see the module docstring).  The stages draw no
+    random numbers, so the RNG state is not saved for the recompute."""
+    store: dict = {}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (_remat_mode(store, False),
+                                          _remat_mode(store, True)))
 
 
 class _SNLayer(nn.Module):
@@ -56,9 +111,31 @@ class _SNLayer(nn.Module):
     def weight(self) -> torch.Tensor:
         """The kernel this call uses, spectrally normalized if asked: the
         W̄ its root handed over for this forward, else its own (through
-        ``sn_backend``: K7 as a group of one, or the plain function)."""
+        ``sn_backend``: K7 as a group of one, or the plain function).  In
+        a stage under :func:`remat` the forward keeps its W̄, with the
+        graph to ``w`` and ``u`` saved outside the checkpoint, and the
+        recompute returns that W̄."""
         if not self.sn:
             return self.w
+        store = _REMAT.store
+        if store is None:
+            return self._sn_weight()
+        if _REMAT.replay:
+            if self not in store:
+                raise RuntimeError(
+                    f"{type(self).__name__} {tuple(self.w.shape)} ran in the "
+                    f"recompute of a checkpointed stage but not in its "
+                    f"forward")
+            return store[self]
+        if self in store:
+            raise RuntimeError(
+                f"{type(self).__name__} {tuple(self.w.shape)} was called "
+                f"twice in one checkpointed stage")
+        with torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+            store[self] = self._sn_weight()
+        return store[self]
+
+    def _sn_weight(self) -> torch.Tensor:
         w_bar = self._sn_w_bar
         if w_bar is _TAKEN:
             raise RuntimeError(
@@ -229,8 +306,10 @@ class Embedding(_SNLayer):
 
 class BatchNorm(nn.Module):
     """BatchNorm, eps ``BN_EPS``, fp32 math, result cast to ``dtype``:
-    batch moments and a running-stat update in training mode, the running
-    stats at eval."""
+    batch moments and a running-stat update in training mode (the moments'
+    sums while ``accumulating``), the running stats at eval."""
+
+    accumulating = False   # set between bn_accum_begin and _finalize
 
     def __init__(self, c, dtype=torch.float32):
         super().__init__()
@@ -248,6 +327,8 @@ class BatchNorm(nn.Module):
 class ConditionalBatchNorm(nn.Module):
     """Class-conditional BN: per-class gamma/beta tables, shared
     statistics."""
+
+    accumulating = False
 
     def __init__(self, c, num_classes, dtype=torch.float32):
         super().__init__()
@@ -267,24 +348,67 @@ def _bn(layer, x, gamma, beta):
     """``sagan_tpu/nn/layers.py::_bn_core`` on one device.  Training: the
     fp32 batch moments E[x] and E[x²] over (N, H, W), the biased variance
     max(E[x²] − E[x]², 0) for normalizing and for the running stat, and
-    running stats updated in place as m·old + (1 − m)·batch with m = 0.99;
+    running stats updated in place as m·old + (1 − m)·batch with m = 0.99
+    (while ``layer.accumulating``: E[x] and E[x²] added to them instead);
     gradients flow through the moments.  (``F.batch_norm``'s running
-    update would store the unbiased variance.)  Eval: the running
-    stats."""
+    update would store the unbiased variance.)  The recompute of a
+    :func:`remat` stage writes no buffer.  Eval: the running stats."""
     x32 = x.float()
     if layer.training:
         mean = x32.mean(dim=(0, 2, 3))
         mean_sq = x32.square().mean(dim=(0, 2, 3))
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            layer.mean.copy_(m * layer.mean + (1.0 - m) * mean)
-            layer.var.copy_(m * layer.var + (1.0 - m) * var)
+        if not _REMAT.replay:
+            with torch.no_grad():
+                if layer.accumulating:
+                    layer.mean.add_(mean)
+                    layer.var.add_(mean_sq)
+                else:
+                    m = BN_MOMENTUM
+                    layer.mean.copy_(m * layer.mean + (1.0 - m) * mean)
+                    layer.var.copy_(m * layer.var + (1.0 - m) * var)
     else:
         mean, var = layer.mean, layer.var
     inv = torch.rsqrt(var + BN_EPS)
     y = (x32 - mean.view(-1, 1, 1)) * inv.view(-1, 1, 1) * gamma + beta
     return y.to(layer.dtype)
+
+
+def bn_moment_paths(root: nn.Module) -> list:
+    """Every (conditional) BN under ``root``, in ``modules()`` order: the
+    layers whose statistics :func:`bn_accum_begin` and
+    :func:`bn_accum_finalize` handle."""
+    return [m for m in root.modules()
+            if isinstance(m, (BatchNorm, ConditionalBatchNorm))]
+
+
+@torch.no_grad()
+def bn_accum_begin(bns: list) -> list:
+    """Put ``bns`` in accumulation mode: their buffers zeroed, to hold the
+    sums of the micro-batches' (mean, E[x²]).  Returns the running stats
+    they held."""
+    saved = []
+    for bn in bns:
+        saved.append((bn.mean.clone(), bn.var.clone()))
+        bn.mean.zero_()
+        bn.var.zero_()
+        bn.accumulating = True
+    return saved
+
+
+@torch.no_grad()
+def bn_accum_finalize(bns: list, saved: list, n: int) -> None:
+    """End accumulation mode: the sums averaged over ``n`` micro-batches,
+    the variance max(E[x²] − mean², 0), and the momentum applied once
+    against the ``saved`` stats, so the running stats are the full
+    batch's (mean and E[x²] are linear in the data)."""
+    m = BN_MOMENTUM
+    for bn, (old_mean, old_var) in zip(bns, saved):
+        mean = bn.mean / n
+        var = torch.clamp(bn.var / n - mean.square(), min=0.0)
+        bn.mean.copy_(m * old_mean + (1.0 - m) * mean)
+        bn.var.copy_(m * old_var + (1.0 - m) * var)
+        bn.accumulating = False
 
 
 def leaky_relu(x, alpha=0.1):

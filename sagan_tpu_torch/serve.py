@@ -5,10 +5,11 @@ Port of ``sagan_tpu/serve.py``:
 
     python -m sagan_tpu_torch.serve --config_path cfg.py [--weights g.npz] \\
         [--port 8000] [--batch 64] [--ladder 1,8] [--host 127.0.0.1] \\
-        [--device cuda|cpu]
+        [--step N] [--device cuda|cpu]
 
 Without ``--weights`` it serves the EMA generator of the newest port
-checkpoint in the config's ``ckpt_dir`` (``generate.restore_generator``).
+checkpoint in the config's ``ckpt_dir``, or the one of step ``--step``
+(``generate.restore_generator``).
 
 stdlib HTTP (``http.server.ThreadingHTTPServer``) in front of the
 device-side-uint8 serve function (:func:`generate.build_serve_fn`):
@@ -295,6 +296,8 @@ def main(argv=None):
                     help="exported generator .npz (sagan_tpu.generate "
                          "--export); default: the newest checkpoint in "
                          "the config's ckpt_dir")
+    ap.add_argument("--step", type=int, default=None,
+                    help="restore this checkpointed step (default latest)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--batch", type=int, default=64,
@@ -321,7 +324,7 @@ def main(argv=None):
     except ValueError:
         raise SystemExit(f"--ladder must be comma-separated ints, got "
                          f"{args.ladder!r}")
-    gen = load_generator(config, args.weights, device)
+    gen = load_generator(config, args.weights, device, args.step)
     svc = GeneratorService(
         gen, z_dim=config["z_dim"], num_classes=config.get("num_classes", 1),
         batch=args.batch, seed=args.seed, ladder=ladder)

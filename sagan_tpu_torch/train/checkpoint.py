@@ -49,6 +49,15 @@ class CheckpointManager:
             os.remove(self.path(old))
         return path
 
+    def restore_step(self, step: int) -> dict:
+        """The checkpoint of step ``step`` (tensors on the CPU); raises
+        ``KeyError`` naming the saved steps when there is none."""
+        if step not in self.all_steps():
+            raise KeyError(f"no checkpoint at step {step}; available: "
+                           f"{self.all_steps()}")
+        return torch.load(self.path(step), map_location="cpu",
+                          weights_only=True)
+
     def restore_latest(self) -> dict | None:
         """The newest checkpoint that loads (tensors on the CPU), or None
         when the directory has none."""

@@ -14,6 +14,13 @@ metrics averaged over them).  One step:
   moves again;
 * the EMA of G's parameters, ``decay · ema + (1 − decay) · param``, with
   decay 0 (a copy) before step ``g_ema_start``;
+* with ``grad_accum_steps`` A > 1, each D update and the G update run
+  their B latents (drawn whole, as at A = 1) and images in A micro-batches
+  of B/A, each through its own G and D forwards (so SN's u moves once per
+  micro forward), and take the mean of the micro-batches' fp32 gradients,
+  losses and health; with ``exact_accum_bn`` (default) BN adds each
+  micro-batch's moments and applies its momentum once per update
+  (``nn.layers.bn_accum_begin`` / ``bn_accum_finalize``);
 * metrics: G/D loss, global gradient norms, the D-health fractions, and
   per-variable G means and gradient norms (and D's gradient norms).
 
@@ -26,7 +33,9 @@ draws what an unbroken one would, with no generator state to save; the
 numbers differ from JAX's threefry streams, so a caller that needs JAX's
 latents passes them in (``latents_k``).
 
-:class:`Trainer` is the epoch loop: host-fed uint8 batches, TensorBoard
+:class:`Trainer` is the epoch loop: uint8 batches fed from the host, or
+gathered on the device from the whole dataset uploaded there once
+(``device_cache``, JAX's rule for "auto"), TensorBoard
 scalars, PNG sample grids of the EMA generator, checkpoints in the port's
 own format, save-and-exit on SIGTERM/SIGINT and an exact mid-epoch
 resume, at the JAX trainer's cadences.
@@ -45,6 +54,7 @@ import torch
 
 from ..data.loader import get_dataset_and_info
 from ..models import get_discriminator, get_generator
+from ..nn.layers import bn_accum_begin, bn_accum_finalize, bn_moment_paths
 from ..ops.losses import get_loss
 from ..utils.device import resolve_device
 from ..utils.images import make_grid, save_image_grid
@@ -131,6 +141,9 @@ class TrainStep:
         self.fuse_d = config.get("fuse_d_batches", True)
         self.summary_var = config.get("summary_var", True)
         self.random_flip = config.get("random_flip", False)
+        self.accum = config.get("grad_accum_steps", 1)
+        self.exact_accum_bn = self.accum > 1 and config.get("exact_accum_bn",
+                                                            True)
         self.seed = config.get("seed", 0)
         self.sched_g, self.sched_d = sched_g, sched_d
         # per-variable metrics in the JAX order, and where each sits
@@ -187,7 +200,37 @@ class TrainStep:
         if self.mark is not None:
             self.mark(span)
 
+    def _accumulated(self, nets, micro_step, micro: int):
+        """``micro_step(sl)`` -> (loss, grads, health) on the batch slice
+        ``sl``: at ``grad_accum_steps`` 1 once on the whole batch, else on
+        each micro-batch of ``micro`` examples in turn, giving the means of
+        the losses, the fp32 gradients and the health, with the BN layers
+        of ``nets`` in accumulation mode when ``exact_accum_bn``."""
+        if self.accum == 1:
+            loss, grads, health = micro_step(slice(None))
+            return loss.detach(), grads, health
+        bns = [bn for net in nets for bn in bn_moment_paths(net)] \
+            if self.exact_accum_bn else []
+        saved = bn_accum_begin(bns)
+        for a in range(self.accum):
+            loss_a, grads_a, health_a = micro_step(
+                slice(a * micro, (a + 1) * micro))
+            if a == 0:
+                loss, grads, health = loss_a.detach(), list(grads_a), health_a
+            else:
+                loss = loss + loss_a.detach()
+                torch._foreach_add_(grads, grads_a)
+                health = {k: health[k] + health_a[k] for k in health}
+        bn_accum_finalize(bns, saved, self.accum)
+        return (loss / self.accum, torch._foreach_div(grads, self.accum),
+                {k: v / self.accum for k, v in health.items()})
+
     def one_step(self, state: TrainState, images_u8, labels, lat) -> dict:
+        batch = images_u8.shape[0]
+        if batch % self.accum:
+            raise ValueError(f"grad_accum_steps={self.accum} must divide "
+                             f"the global batch {batch}")
+        micro = batch // self.accum
         self._mark("start")
         gen, disc = state.gen, state.disc
         g_params = [p for _, p in gen.named_parameters()]
@@ -203,22 +246,32 @@ class TrainStep:
         d_loss_acc = 0.0
         health_acc = dict.fromkeys(HEALTH_KEYS, 0.0)
         for i, (z, fake_labels) in enumerate(lat["d"]):
-            with torch.no_grad():
-                fake = gen(z, fake_labels)
-            self._mark("fakes")
-            loss_d, health = self._d_loss(disc, images, labels, fake,
-                                          fake_labels)
-            grads_d = torch.autograd.grad(loss_d, d_params)
-            self._mark("d_fwd_bwd")
+            def d_micro(sl, z=z, fake_labels=fake_labels):
+                with torch.no_grad():
+                    fake = gen(z[sl], fake_labels[sl])
+                self._mark("fakes")
+                loss, health = self._d_loss(disc, images[sl], labels[sl],
+                                            fake, fake_labels[sl])
+                grads = torch.autograd.grad(loss, d_params)
+                self._mark("d_fwd_bwd")
+                return loss, grads, health
+
+            loss_d, grads_d, health = self._accumulated((gen, disc), d_micro,
+                                                        micro)
             _apply(state.opt_d, d_params, grads_d,
                    self.sched_d(state.step * self.update_ratio + i))
             self._mark("d_adam")
-            d_loss_acc = d_loss_acc + loss_d.detach()
+            d_loss_acc = d_loss_acc + loss_d
             health_acc = {k: health_acc[k] + health[k] for k in HEALTH_KEYS}
 
         z, fake_labels = lat["g"]
-        loss_g = self.gloss_fn(disc(gen(z, fake_labels), fake_labels))
-        grads_g = torch.autograd.grad(loss_g, g_params)
+
+        def g_micro(sl):
+            loss = self.gloss_fn(disc(gen(z[sl], fake_labels[sl]),
+                                      fake_labels[sl]))
+            return loss, torch.autograd.grad(loss, g_params), {}
+
+        loss_g, grads_g, _ = self._accumulated((gen, disc), g_micro, micro)
         self._mark("g_fwd_bwd")
         _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
         self._mark("g_adam")
@@ -235,7 +288,7 @@ class TrainStep:
         self._mark("ema")
 
         ratio = self.update_ratio
-        metrics = {"G_loss": loss_g.detach(), "D_loss": d_loss_acc / ratio,
+        metrics = {"G_loss": loss_g, "D_loss": d_loss_acc / ratio,
                    "G_grad_norm": _global_norm(grads_g),
                    "D_grad_norm": _global_norm(grads_d)}
         metrics.update({k: v / ratio for k, v in health_acc.items()})
@@ -273,6 +326,14 @@ def build_train_step(config, sched_g, sched_d, gen, disc) -> TrainStep:
                      [n for n, _ in disc.named_parameters()])
 
 
+def build_device_cache(ds, device) -> tuple:
+    """The dataset's decoded uint8 images [n, S, S, 3] and int32 labels
+    [n] (``ds.materialized()``) uploaded to ``device`` once."""
+    imgs, labels = ds.materialized()
+    return (torch.from_numpy(imgs).to(device),
+            torch.from_numpy(labels).to(device))
+
+
 def _check_ported(config) -> None:
     """Raise for what the JAX trainer does and the port does not yet."""
     unported = [
@@ -281,13 +342,6 @@ def _check_ported(config) -> None:
          f"ROADMAP.md Queue 1 item 14"),
         (config.get("model_parallel", 1) > 1,
          "model_parallel > 1, ROADMAP.md Queue 1 item 14"),
-        (bool(config.get("remat")), "remat, ROADMAP.md Queue 1 item 9"),
-        (config.get("grad_accum_steps", 1) > 1,
-         "grad_accum_steps > 1 (gradient accumulation with exact BN "
-         "statistics), ROADMAP.md Queue 1 item 8"),
-        (config.get("device_cache", "auto") is True,
-         "device_cache=True (the dataset held on the card); 'auto' and "
-         "False take the host feed, ROADMAP.md Queue 1 item 7"),
         (bool(config.get("profile_dir")),
          f"profile_dir={config.get('profile_dir')!r} (a profiler trace of "
          f"steps 10-20), ROADMAP.md Queue 1 item 19"),
@@ -368,6 +422,8 @@ class Trainer:
             else:
                 print("Initializing from scratch.")
         self._preempted = False
+        self._device_data = None
+        self._device_cache_checked = False
 
     # -- state ---------------------------------------------------------------
     def global_step(self) -> int:
@@ -416,27 +472,97 @@ class Trainer:
                 for n, v in zip(self.train_step.g_names, values)}
 
     # -- feed ------------------------------------------------------------------
+    def _maybe_build_device_cache(self) -> None:
+        """Upload the whole uint8 dataset to the device once and feed index
+        batches (``device_cache``): True, False, or "auto" (the default),
+        which takes it when the dataset has ``epoch_index_batches`` (the
+        TFRecord loader), caches in RAM (the index schedule is the cached
+        feed's; the streaming one shuffles otherwise) and fits
+        ``device_cache_budget_mb`` (2048); True raises where "auto"
+        declines.  The gathered batches are the host feed's, byte for
+        byte."""
+        if self._device_cache_checked:
+            return
+        self._device_cache_checked = True
+        config = self.config
+        mode = config.get("device_cache", "auto")
+        if not mode:
+            return
+        ds = self.ds_train
+        if not hasattr(ds, "epoch_index_batches"):
+            if mode is True:
+                raise ValueError(
+                    "device_cache=True needs the TFRecord dataset path "
+                    "(the augmenting image-folder loader re-draws images "
+                    "every epoch and cannot be frozen into a cache)")
+            return
+        if not getattr(ds, "cache_in_memory", False):
+            if mode is True:
+                raise ValueError(
+                    "device_cache=True conflicts with cache_dataset="
+                    "False: the index schedule reproduces the CACHED "
+                    "host feed (Fisher-Yates per epoch); the uncached "
+                    "host feed uses the streaming-buffer shuffle, a "
+                    "different schedule, so enabling both would break "
+                    "exact resume against it")
+            return
+        budget = config.get("device_cache_budget_mb", 2048) * (1 << 20)
+        est = len(ds.materialized()[1]) * ds.img_size * ds.img_size * 3
+        if est > budget:
+            if mode is True:
+                raise ValueError(
+                    f"device_cache=True but the (padded) local shard is "
+                    f"~{est >> 20} MB"
+                    f" > device_cache_budget_mb={budget >> 20}")
+            return
+        self._device_data = build_device_cache(ds, self.device)
+        imgs, labels = ds.materialized()
+        print(f"device cache: {imgs.nbytes >> 20} MB uploaded to "
+              f"{self.device} ({len(labels)} records); feeding index "
+              f"batches", flush=True)
+
+    def feed(self) -> str:
+        """Where the batches come from: "device-cache" or "host", and the
+        reader that decoded them."""
+        where = "host" if self._device_data is None else "device-cache"
+        return f"{where}/{self.ds_train.reader}"
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _gathered(self, arrays: tuple) -> tuple:
+        """A call's (images [K, B, S, S, 3], labels [K, B]): as sent, or,
+        from the device cache, gathered by its index batch [K, B]."""
+        if self._device_data is None:
+            return arrays
+        (idx,) = arrays
+        imgs, labels = self._device_data
+        flat = idx.reshape(-1)
+        return (imgs.index_select(0, flat).view(*idx.shape, *imgs.shape[1:]),
+                labels.index_select(0, flat).view(idx.shape))
+
     def _device_batches(self, epoch: int, skip_calls: int = 0):
         """(uint8 images [K, B, S, S, 3], int32 labels [K, B]) on the
-        device, one call ahead of the consumer; the first ``skip_calls``
-        calls of the epoch are skipped on the host (mid-epoch resume)."""
+        device, sent one call ahead of the consumer (with the device cache,
+        only the int32 indices are sent, and a call's batch is gathered as
+        it is taken); the first ``skip_calls`` calls of the epoch are
+        skipped on the host (mid-epoch resume)."""
         K = self.steps_per_call
-        cuda = self.device.type == "cuda"
-
-        def to_device(a):
-            t = torch.from_numpy(a)
-            if cuda:
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=cuda)
+        cached = self._device_data is not None
 
         def packed():
-            imgs_k, labels_k = [], []
-            for images, labels in self.ds_train.epoch(epoch):
-                imgs_k.append(images)
-                labels_k.append(labels)
-                if len(imgs_k) == K:
-                    yield np.stack(imgs_k), np.stack(labels_k)
-                    imgs_k, labels_k = [], []
+            source = (self.ds_train.epoch_index_batches(epoch) if cached
+                      else self.ds_train.epoch(epoch))
+            pack = []
+            for item in source:
+                pack.append(item)
+                if len(pack) == K:
+                    yield ((np.stack(pack),) if cached else
+                           tuple(np.stack(a) for a in zip(*pack)))
+                    pack = []
 
         pending = None
         for host_batch in packed():
@@ -444,11 +570,11 @@ class Trainer:
                 skip_calls -= 1
                 continue
             ready = pending
-            pending = tuple(to_device(a) for a in host_batch)
+            pending = tuple(self._to_device(a) for a in host_batch)
             if ready is not None:
-                yield ready
+                yield self._gathered(ready)
         if pending is not None:
-            yield pending
+            yield self._gathered(pending)
 
     # -- loop ------------------------------------------------------------------
     def _install_preemption_handler(self) -> dict:
@@ -485,6 +611,7 @@ class Trainer:
                 f"and evaluation (FID/IS) is not ported yet, ROADMAP.md "
                 f"Queue 1 item 15; set fid_epoch_freq to 0 or train fewer "
                 f"epochs")
+        self._maybe_build_device_cache()
         self._preempted = False
         previous = self._install_preemption_handler()
         try:
@@ -569,7 +696,8 @@ class Trainer:
                   f"D(real)={mean['D_real_mean']:+.2f} "
                   f"D(fake)={mean['D_fake_mean']:+.2f} "
                   f"in_margin={mean['D_real_in_margin']:.2f}/"
-                  f"{mean['D_fake_in_margin']:.2f} time={epoch_time:.1f}s "
+                  f"{mean['D_fake_in_margin']:.2f} feed={self.feed()} "
+                  f"time={epoch_time:.1f}s "
                   f"({imgs_per_sec:.1f} imgs/s, {step_ms:.2f} ms/step)",
                   flush=True)
             # checkpoints at epoch 5, then every 10th, and the last

@@ -81,16 +81,6 @@ def test_get_dataset_and_info_merges_metadata(tmp_path):
     assert ds.steps_per_epoch == 5
 
 
-@pytest.mark.parametrize("config,error", [
-    ({"use_image_generator": True}, NotImplementedError),
-    ({"cache_dataset": False}, NotImplementedError),
-])
-def test_unported_feeds_raise(tmp_path, config, error):
-    d = make_synthetic_dataset(str(tmp_path / "d"), num=8, img_size=8)
-    with pytest.raises(error, match="ROADMAP.md"):
-        get_dataset_and_info({"data_path": d, "batch_size": 4, **config})
-
-
 def test_corrupted_record_raises(tmp_path):
     """A flipped payload byte fails the crc check and raises at the
     consumer of the prefetch thread; ``verify_crc=False`` still reads."""

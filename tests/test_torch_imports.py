@@ -29,10 +29,12 @@ print(" ".join(names), "|", leaked)
 # Function in ops.cuda_attention; K7's wrapper, plain version and autograd
 # Function in ops.cuda_spectral; the study kernels' plain versions in
 # ops.attention_study, their wrappers in ops.cuda_attention_study, the
-# studies in tools.bench_attn_* and tools._study)
+# studies in tools.bench_attn_* and tools._study; the other feeds in
+# data.image_folder and the native reader's binding in data.native)
 MODULES = {
     "convert", "generate", "legacy_main", "main", "serve",
-    "data", "data.loader", "data.synthetic", "data.tfrecord",
+    "data", "data.image_folder", "data.loader", "data.native",
+    "data.synthetic", "data.tfrecord",
     "models", "models.resnet", "models.vanilla",
     "nn", "nn.attention", "nn.initializers", "nn.layers",
     "ops", "ops._build", "ops.attention", "ops.attention_study",

@@ -345,3 +345,61 @@ def test_generate_main_on_the_cpu_writes_samples(tmp_path):
     imgs = np.load(out / "samples_seed3.npz")["images"]
     assert imgs.shape == (5, 16, 16, 3) and imgs.dtype == np.uint8
     assert (out / "samples_seed3.png").stat().st_size > 0
+
+
+def _two_checkpoints(tmp_path):
+    """A ckpt_dir with steps 3 and 5 of two generators (no EMA), and a
+    config naming it; returns (config path, {step: generator})."""
+    from sagan_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    gens = {}
+    for step in (3, 5):
+        gen = get_generator(_tiny_cfg(),
+                            rng=torch.Generator().manual_seed(step))
+        mgr.save(step, {"step": step, "gen": gen.state_dict(), "ema": None,
+                        "meta": {"img_size": 16, "num_classes": 4,
+                                 "z_dim": 8}})
+        gens[step] = gen
+    path = tmp_path / "ckpt_cfg.py"
+    cfg = {k: v for k, v in TINY.items()
+           if k not in ("img_size", "num_classes")}
+    path.write_text(f"config = {{**{cfg!r}, "
+                    f"'ckpt_dir': {str(tmp_path / 'ckpt')!r}}}\n")
+    return str(path), gens
+
+
+def test_serve_step_serves_the_pinned_checkpoint(tmp_path, monkeypatch):
+    """``serve --step`` hands that checkpoint's generator to the service
+    (service and server stubbed, so that ``main`` returns); a missing step
+    raises ``KeyError`` naming the saved ones."""
+    cfg, gens = _two_checkpoints(tmp_path)
+    served = []
+
+    class Stub:
+        server_address = ("127.0.0.1", 0)
+        img_size, ladder = 16, (2,)
+
+        def __init__(self, gen=None, **kwargs):
+            if gen is not None:
+                served.append(gen)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(serve, "GeneratorService", Stub)
+    monkeypatch.setattr(serve, "make_server", lambda *a: Stub())
+    for step in (3, None):
+        serve.main(["--config_path", cfg, "--device", "cpu"]
+                   + (["--step", str(step)] if step else []))
+        got = served.pop(0).state_dict()
+        for k, v in gens[step or 5].state_dict().items():
+            assert torch.equal(got[k], v), k
+    with pytest.raises(KeyError, match=r"step 4; available: \[3, 5\]"):
+        serve.main(["--config_path", cfg, "--device", "cpu", "--step", "4"])
