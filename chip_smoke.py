@@ -149,7 +149,8 @@ the build, and prints neither the kernels line nor the result line):
      epoch's first call gathered on the card equal byte for byte to the
      host feed's, each feed's epoch imgs/s; one streaming epoch
      (``cache_dataset: False``, ``shuffle_buffer`` 512) through the native
-     reader equal to the pure-Python reader's, both decode rates; the
+     reader equal to the pure-Python reader's, the decode rates of both
+     readers at ``data_workers`` 1 and 4 (the records in 8 shards); the
      image folder (``use_image_generator``, 256 generated PNGs in two
      class folders) trained through the tensor-core K1 and K2;
  23. one church512 step at B = 8 in bf16 with and without ``remat`` from
@@ -163,7 +164,20 @@ the build, and prints neither the kernels line nor the result line):
      its four micro-batches' taken one at a time, the finalized BN stats
      against the momentum update of their averaged moments, launches 4x a
      batch-64 step's (each micro-batch of 64 takes phase 16's routes),
-     device ms and peak memory beside batch 64.
+     device ms and peak memory beside batch 64;
+ 25. evaluation: church64 at full width through the entry point for one
+     epoch of 32 calls (``steps_per_call`` 1) on phase 7's records with an
+     FID epoch (5,000 images through the proxy, then the proxy IS): its
+     host seconds split into real and fake statistics, fake images/s, and
+     its launches (the tensor-core K1 2 a G forward, no other kernel);
+     the profiler window's trace holding the K1 and K2 kernels of calls
+     [10, 20) exactly, the event file's ``hist/`` summaries; ``evaluate``
+     on its checkpoint with and without ``--raw_g`` (equal FIDs: below
+     ``g_ema_start`` the EMA is G); the proxy extractor and classifier on
+     the card against the CPU; InceptionV3 at full width (299 px) on an
+     npz of random weights against the CPU, timed per 64 images, and
+     ``evaluate`` through it; ``evaluate`` on phase 16's imagenet128_cond
+     checkpoint (one grouped K7 call and K1 2 a G forward).
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -2643,8 +2657,10 @@ def phase_studies(card: str) -> dict:
     require(all(launches.values()), f"a study kernel never ran: {launches}")
     return launches
 
-# phase 22: the streaming buffer of the church64 feed, and the image folder
+# phase 22: the streaming buffer of the church64 feed, the shards that the
+# decode workers split, and the image folder
 FEED_SHUFFLE = 512
+DECODE_SHARDS = 8
 FOLDER_IMAGES = 256
 
 
@@ -2736,13 +2752,20 @@ def phase_feeds(card: str) -> None:
             and all("feed=device-cache/native" in t for t in texts),
             "the device cache did not give the host feed's batches")
 
-    # (b) one streaming epoch through each reader
+    # (b) one streaming epoch through each reader, and the decode rates
+    # of both readers at data_workers 1 and 4 over the records in 8 shards
+    sharded = smoke / "church64_sharded"
+    if not (sharded / "metadata.pickle").exists():
+        make_synthetic_dataset(str(sharded), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED,
+                               num_shards=DECODE_SHARDS)
     batches, rates = {}, {}
     for native in (True, False):
-        t0 = time.perf_counter()
-        n = len(ImageDataset(str(data), 64, use_native=native)
-                .materialized()[1])
-        rates[native] = n / (time.perf_counter() - t0)
+        for workers in (1, 4):
+            t0 = time.perf_counter()
+            n = len(ImageDataset(str(sharded), 64, num_workers=workers,
+                                 use_native=native).materialized()[1])
+            rates[native, workers] = n / (time.perf_counter() - t0)
         ds = ImageDataset(str(data), 64, cache_in_memory=False,
                           shuffle_buffer=FEED_SHUFFLE, use_native=native)
         batches[native] = list(ds.epoch(0))
@@ -2752,10 +2775,12 @@ def phase_feeds(card: str) -> None:
             for a, b in zip(batches[True], batches[False]))
     print(f"phase 22b streaming epoch (shuffle_buffer {FEED_SHUFFLE}, "
           f"{len(batches[True])} batches of 64): native reader vs "
-          f"pure-Python reader byte for byte: {same}; decode "
-          f"{rates[True]:.0f} records/s native, {rates[False]:.0f} "
-          f"records/s Python (host clock, {SMOKE_RECORDS} 64 px records, "
-          f"crc checked) on the host of {card}", flush=True)
+          f"pure-Python reader byte for byte: {same}; decode (host "
+          f"clock, {SMOKE_RECORDS} 64 px records in {DECODE_SHARDS} shards, "
+          f"crc checked) records/s at data_workers 1 / 4: native "
+          f"{rates[True, 1]:.0f} / {rates[True, 4]:.0f}, Python "
+          f"{rates[False, 1]:.0f} / {rates[False, 4]:.0f} on the host of "
+          f"{card}", flush=True)
     require(same, "the native reader's streaming epoch differs from the "
                   "pure-Python reader's")
 
@@ -3031,6 +3056,318 @@ def phase_accum128(card: str) -> None:
             f"{out[ACCUM_STEPS][0]} (expected {ACCUM_STEPS}x)")
 
 
+# phase 25: evaluation.  The proxy and InceptionV3 on the card against the
+# CPU: the same fp32 operations (TF32 off) summed in other orders, within
+# EVAL_TOL of the largest |value|
+EVAL_TOL = 1e-4
+EVAL_IMAGES = 5000          # church64's fid_num_images
+EVAL_BATCH = 64
+INCEPTION_IMAGES = 256      # the evaluate CLI on the random-weights npz
+IMAGENET_EVAL_IMAGES = 512  # the evaluate CLI on phase 16's checkpoint
+
+
+@contextlib.contextmanager
+def _eval_spy(record: dict):
+    """While open: the FID epoch's host seconds (``Trainer._evaluate``,
+    synchronised) and launches, the real and fake statistics' seconds
+    (``fid.real_stats``, ``fid.fake_stats``: each ends in a copy to the
+    host), and the forwards of every evaluation G (a forward hook on what
+    ``eval_generator`` returns) into ``record``."""
+    from sagan_tpu_torch.train import fid as fid_module
+
+    evaluate_epoch = Trainer._evaluate
+    eval_generator = Trainer.eval_generator
+    stats = {"real_stats": fid_module.real_stats,
+             "fake_stats": fid_module.fake_stats}
+    record.setdefault("forwards", 0)
+
+    def timed_epoch(self, epoch, step):
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        evaluate_epoch(self, epoch, step)
+        torch.cuda.synchronize()
+        record["epoch_s"] = time.perf_counter() - t0
+        record["epoch_counts"] = {k: v - before[k]
+                                  for k, v in _counts().items()}
+
+    def hooked(self):
+        gen = eval_generator(self)
+        if not getattr(gen, "_smoke_hooked", False):
+            gen.register_forward_hook(
+                lambda *_: record.__setitem__("forwards",
+                                              record["forwards"] + 1))
+            gen._smoke_hooked = True
+        return gen
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            record[name + "_s"] = time.perf_counter() - t0
+            return out
+        return run
+
+    Trainer._evaluate = timed_epoch
+    Trainer.eval_generator = hooked
+    for name, fn in stats.items():
+        setattr(fid_module, name, timed(name, fn))
+    try:
+        yield record
+    finally:
+        Trainer._evaluate = evaluate_epoch
+        Trainer.eval_generator = eval_generator
+        for name, fn in stats.items():
+            setattr(fid_module, name, fn)
+
+
+# the launch counters by the kernels' names in tools/profiling.py
+PROFILE_NAMES = {"K1": "K1 attention_fwd", "K1mma": "K1 attention_fwd_mma",
+                 "K2": "K2 attention_bwd", "K2mma": "K2 attention_bwd_mma",
+                 "K3": "K3 attention_flash_fwd",
+                 "K3mma": "K3 attention_flash_fwd_mma",
+                 "K7": "K7 spectral_norm (grouped calls)",
+                 "K7w": "K7 weights normalized",
+                 "K7bwd": "K7 spectral_norm_bwd"}
+
+
+def _named(counts: dict) -> dict:
+    """The nonzero launch counts under tools/profiling.py's names."""
+    return {PROFILE_NAMES.get(k, k): v for k, v in counts.items() if v}
+
+
+def _trace_kernels(prof_dir: Path) -> dict:
+    """Launches of the tensor-core K1 and K2 (the first kernel of each, by
+    tools/profiling.py's names) and of all kernels in the one trace under
+    ``prof_dir``."""
+    from sagan_tpu_torch.tools.profiling import ATTENTION_KERNELS
+
+    (trace,) = prof_dir.glob("*.pt.trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    first = {label: kernels[0] for label, kernels in ATTENTION_KERNELS}
+    return {key: sum(first[PROFILE_NAMES[key]] in n for n in names)
+            for key in ("K1mma", "K2mma")} | {"all": len(names)}
+
+
+def _tags(log_dir: Path) -> set:
+    """The tags of every summary value in the event files of ``log_dir``."""
+    from sagan_tpu_torch.data.tfrecord import _iter_fields, read_records
+
+    tags = set()
+    for path in log_dir.glob("events.out.tfevents.*"):
+        for rec in read_records(str(path)):
+            for field, _, summary in _iter_fields(memoryview(rec)):
+                if field != 5:
+                    continue
+                for _, _, value in _iter_fields(summary):
+                    tags.update(bytes(v).decode()
+                                for f, _, v in _iter_fields(value) if f == 1)
+    return tags
+
+
+def _evaluate_cli(argv: list, record: dict) -> dict:
+    """``python -m sagan_tpu_torch.evaluate`` in this process on the card;
+    its JSON line, printed; launches and G forwards into ``record``."""
+    from sagan_tpu_torch import evaluate
+
+    out = io.StringIO()
+    with _eval_spy(record):
+        _zero_counts()               # the evaluation starts here
+        with contextlib.redirect_stdout(out):
+            result = evaluate.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        record["counts"] = _counts()  # and ends here
+    line = out.getvalue().strip().splitlines()[-1]
+    require(json.loads(line) == result, line)
+    return result
+
+
+def _max_rel(got, want) -> float:
+    return ((got.cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def phase_evaluate(card: str) -> None:
+    """Evaluation on the card: (a) church64 at full width through the
+    entry point for one epoch of 32 calls (``steps_per_call`` 1) on phase
+    7's records with an FID epoch (5,000 images, proxy FID and IS), the
+    profiler window over calls [10, 20) and weight histograms; (b)
+    ``evaluate`` on its checkpoint with and without ``--raw_g`` (below
+    ``g_ema_start`` the EMA is a copy of G: equal FIDs); (c) the proxy
+    extractor and classifier on the card against the CPU; (d) InceptionV3
+    at full width (299 px, 2048 features) on a random-weights npz against
+    the CPU, timed, and ``evaluate`` through it; (e) ``evaluate`` on phase
+    16's imagenet128_cond checkpoint (``use_pallas_sn``)."""
+    from sagan_tpu_torch.train.fid import get_extractor
+    from sagan_tpu_torch.train.inception import (InceptionV3Classifier,
+                                                 InceptionV3Features,
+                                                 write_random_weights_npz)
+    from sagan_tpu_torch.train.iscore import get_classifier
+
+    smoke = ROOT / "build" / "smoke"
+    data = smoke / "church64_synthetic"
+    if not (data / "metadata.pickle").exists():
+        make_synthetic_dataset(str(data), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED)
+    for sub in ("ckpt25", "logs25", "prof25"):
+        shutil.rmtree(smoke / sub, ignore_errors=True)
+    name = "chip_smoke_church64"
+    for stale in Path(".cache").glob(f"{name}_*"):   # the real statistics
+        stale.unlink()
+    config_file = _church64_file(
+        smoke / "evaluate25.py", data, 1, dataset=name, steps_per_call=1,
+        fid_epoch_freq=1, fid_num_images=EVAL_IMAGES, inception_score=True,
+        profile_dir=str(smoke / "prof25"), summary_histograms=True,
+        log_dir=str(smoke / "logs25"), ckpt_dir=str(smoke / "ckpt25"))
+
+    # (a) one epoch with an FID epoch
+    record = {}
+    with _eval_spy(record):
+        trainer, text, counts, _, _ = _run_cli(config_file, card,
+                                               "25a church64")
+    steps = trainer.global_step()
+    fid = re.search(r"^epoch 0: proxy_FID = (\S+)$", text, re.MULTILINE)
+    iscore = re.search(r"^epoch 0: proxy_IS = (\S+) ± (\S+)$", text,
+                       re.MULTILINE)
+    forwards = record["forwards"]
+    want_forwards = 2 * math.ceil(EVAL_IMAGES / EVAL_BATCH)
+    want_epoch = _launches(K1mma=2 * forwards)
+    want = _launches(K1mma=8 * steps + 2 * forwards, K2mma=6 * steps)
+    fake_s = record["fake_stats_s"]
+    print(f"phase 25a FID epoch: {record['epoch_s']:.3f} s (host clock, "
+          f"synchronised): real statistics {record['real_stats_s']:.3f} s "
+          f"({EVAL_IMAGES} records), fake statistics {fake_s:.3f} s "
+          f"({EVAL_IMAGES / fake_s:.0f} "
+          f"fake images/s, G forward and proxy features at B="
+          f"{EVAL_BATCH}), the IS the rest; proxy_FID "
+          f"{fid and fid.group(1)}, proxy_IS {iscore and iscore.group(1)} "
+          f"± {iscore and iscore.group(2)}; {forwards} G forwards; the FID "
+          f"epoch's launches {_named(record['epoch_counts'])} (K1 2 a G "
+          f"forward), the run's {_named(counts)} on {card}", flush=True)
+    require(steps == SMOKE_RECORDS // EVAL_BATCH and fid and iscore
+            and math.isfinite(float(fid.group(1)))
+            and float(fid.group(1)) > 0 and float(iscore.group(1)) >= 1.0
+            and forwards == want_forwards
+            and record["epoch_counts"] == want_epoch and counts == want,
+            f"the FID epoch: {steps} steps, {forwards} forwards (expected "
+            f"{want_forwards}), launches {record['epoch_counts']} (expected "
+            f"{want_epoch}), the run's {counts} (expected {want})")
+    window = _trace_kernels(smoke / "prof25")
+    tags = _tags(smoke / "logs25")
+    hists = sorted(t for t in tags if t.startswith("hist/"))
+    print(f"phase 25a profiler window (calls [10, 20), steps_per_call 1): "
+          f"{window['all']} kernels, K1 (tensor cores) {window['K1mma']}, "
+          f"K2 {window['K2mma']}; event file: {len(hists)} hist/ "
+          f"summaries, proxy_FID {'proxy_FID' in tags}, proxy_IS "
+          f"{'proxy_IS' in tags}", flush=True)
+    require(window["K1mma"] == 8 * 10 and window["K2mma"] == 6 * 10
+            and len(hists) == len(list(trainer.state.gen.parameters()))
+            + len(list(trainer.state.disc.parameters()))
+            and {"proxy_FID", "proxy_IS"} <= tags,
+            f"the trace or the event file: {window}, {len(hists)} hists")
+
+    # (b) evaluate on the checkpoint, with and without --raw_g
+    results = {}
+    for flags in ([], ["--raw_g", "--no_is"]):
+        record = {}
+        result = _evaluate_cli(["--config_path", str(config_file)] + flags,
+                               record)
+        results[" ".join(flags) or "ema"] = result
+        print(f"phase 25b evaluate {' '.join(flags)}: {json.dumps(result)}; "
+              f"{record['forwards']} G forwards, launches "
+              f"{_named(record['counts'])} on {card}", flush=True)
+        require(record["counts"] == _launches(K1mma=2 * record["forwards"]),
+                f"evaluate launched {record['counts']} for "
+                f"{record['forwards']} forwards")
+    ema, raw = results["ema"], results["--raw_g --no_is"]
+    require(ema["ema"] and not raw["ema"] and ema["step"] == steps
+            and ema["proxy_fid"] == raw["proxy_fid"]
+            and ema["proxy_inception_score"] >= 1.0,
+            f"below g_ema_start the EMA is G: {ema} vs {raw}")
+
+    # (c) the proxy extractor and classifier, card against CPU
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 25).uniform(
+        -1, 1, (256, 3, 64, 64)).astype(np.float32))
+    errs = {}
+    for kind, make in (("features", get_extractor),
+                       ("probabilities", get_classifier)):
+        cpu_net = make({"img_size": 64})
+        with torch.inference_mode():
+            want_v = cpu_net(imgs)
+            got_v = make({"img_size": 64}, "cuda")(imgs.cuda())
+        errs[kind] = _max_rel(got_v, want_v)
+    print(f"phase 25c proxy on the card vs the CPU, 256 images at 64 px: "
+          f"max|err| / max|v| features {errs['features']:.3g}, "
+          f"probabilities {errs['probabilities']:.3g} (tol {EVAL_TOL:g})",
+          flush=True)
+    require(max(errs.values()) <= EVAL_TOL, f"the proxy on the card: {errs}")
+
+    # (d) InceptionV3 at full width on random weights
+    npz = smoke / "inception_random.npz"
+    write_random_weights_npz(str(npz), seed=SEED)
+    x = imgs[:EVAL_BATCH]
+    errs = {}
+    for kind, cls in (("features", InceptionV3Features),
+                      ("probabilities", InceptionV3Classifier)):
+        with torch.inference_mode():
+            want_v = cls(str(npz))(x)
+            net = cls(str(npz)).cuda()
+            got_v = net(x.cuda())
+        errs[kind] = _max_rel(got_v, want_v)
+        if kind == "features":
+            with torch.inference_mode():
+                ms, _ = cuda_time_ms(net, x.cuda(), iters=5, reps=3,
+                                     warmup=2)
+    print(f"phase 25d InceptionV3 (299 px, 2048 features, random weights) "
+          f"on the card vs the CPU, {EVAL_BATCH} images resized from 64 px: "
+          f"max|err| / max|v| features {errs['features']:.3g}, "
+          f"probabilities {errs['probabilities']:.3g} (tol {EVAL_TOL:g}); "
+          f"{ms:.3f} ms per {EVAL_BATCH} images (CUDA events, median of 3 "
+          f"means of 5 calls, fp32, TF32 off), "
+          f"{EVAL_BATCH / ms * 1e3:.0f} images/s on {card}", flush=True)
+    require(max(errs.values()) <= EVAL_TOL, f"InceptionV3 on the card: {errs}")
+    inception_file = smoke / "evaluate25_inception.py"
+    inception_file.write_text(
+        config_file.read_text() + f"config.update(fid_extractor="
+        f"'inception', inception_weights={str(npz)!r})\n")
+    record = {}
+    result = _evaluate_cli(["--config_path", str(inception_file),
+                            "--num_images", str(INCEPTION_IMAGES)], record)
+    print(f"phase 25d evaluate with fid_extractor 'inception' (random "
+          f"weights: not a published-scale number): {json.dumps(result)}",
+          flush=True)
+    require(result["extractor"] == result["is_classifier"] == "inception"
+            and math.isfinite(result["fid"])
+            and result["inception_score"] >= 1.0,
+            f"evaluate through InceptionV3: {result}")
+
+    # (e) evaluate on phase 16's imagenet128_cond checkpoint
+    imagenet_file = smoke / "imagenet128_smoke_e3.py"
+    require(imagenet_file.exists(), "phase 25 needs phase 16's checkpoint")
+    record = {}
+    t0 = time.perf_counter()
+    result = _evaluate_cli(["--config_path", str(imagenet_file),
+                            "--num_images", str(IMAGENET_EVAL_IMAGES)],
+                           record)
+    seconds = time.perf_counter() - t0
+    forwards = record["forwards"]
+    want = _launches(K1mma=2 * forwards, K7=forwards,
+                     K7w=SN_PER_G * forwards)
+    print(f"phase 25e evaluate imagenet128_cond (use_pallas_sn) at "
+          f"--num_images {IMAGENET_EVAL_IMAGES}: {json.dumps(result)}; "
+          f"{seconds:.2f} s (host clock, with the Trainer's start-up); "
+          f"{forwards} G forwards; launches {_named(record['counts'])} "
+          f"(one grouped K7 call of {SN_PER_G} weights and K1 2 a forward) "
+          f"on {card}", flush=True)
+    require(forwards == 2 * IMAGENET_EVAL_IMAGES // EVAL_BATCH
+            and record["counts"] == want
+            and math.isfinite(result["proxy_fid"]),
+            f"evaluate imagenet128_cond: {forwards} forwards, launches "
+            f"{record['counts']} (expected {want})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU (see the module docstring).")
@@ -3047,7 +3384,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
-    on = set(range(1, 25)) if args.only is None else set(args.only) | {1}
+    on = set(range(1, 26)) if args.only is None else set(args.only) | {1}
     r = {}
     phase_build()
     if 2 in on:
@@ -3099,6 +3436,8 @@ def main(argv=None) -> int:
         phase_remat512(card)
     if 24 in on:
         phase_accum128(card)
+    if 25 in on:
+        phase_evaluate(card)
     print(f"chip_smoke: phases {', '.join(map(str, sorted(on)))} passed in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     if args.only is not None:

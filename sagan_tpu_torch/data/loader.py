@@ -6,10 +6,11 @@ batches -> a prefetch thread.
 
 * Batches leave the host as **uint8** [B, S, S, 3] (NHWC, as stored);
   the train step normalizes them to [-1, 1] on the device.
-* Files are read in the JAX loader's order: with ``num_workers`` W, worker
-  w owns ``files[w::W]`` and the stream takes one record from each live
-  worker in turn (the JAX loader reads them on W threads and merges in
-  that fixed rotation; here one thread walks the same rotation).
+* Files are read as the JAX loader reads them: with ``num_workers`` W,
+  worker w reads ``files[w::W]`` and the stream takes one record from
+  each live worker in turn, so it is a pure function of (files, W).  With
+  the native reader (whose calls release the GIL) and W > 1, each worker
+  decodes on a thread of its own into a bounded queue.
 * ``cache_in_memory`` (None: on when the decoded data is at most 2 GiB,
   the JAX rule): each epoch is an exact permutation of the cached records
   drawn from ``np.random.default_rng((seed, epoch, pass))``.  Off: the
@@ -25,6 +26,7 @@ Multi-host sharding is not ported (ROADMAP.md Queue 1 item 14).
 from __future__ import annotations
 
 import glob
+import itertools
 import os
 import queue
 import threading
@@ -39,6 +41,9 @@ PREFETCH_DEPTH = 2   # batches the loader thread keeps ready
 SHUFFLE_BUFFER = 30000   # records in the streaming shuffle buffer
 CACHE_LIMIT = 2 << 30    # decoded bytes cached in RAM when not told
 NATIVE_CHUNK_BYTES = 32 << 20   # decoded bytes per native reader call
+DECODE_CHUNK = 256       # records a decode worker hands over at once
+DECODE_QUEUE = 2         # chunks each decode worker keeps ready
+DECODE_THREAD = "sagan-decode"   # name prefix of the decode workers
 
 
 def _find_files(data_path: str) -> list[str]:
@@ -88,38 +93,85 @@ class ImageDataset:
         """(uint8 [S,S,3] image, int label) in the JAX loader's
         round-robin file order, truncated to ``data_size``."""
         limit = self.data_size if self.data_size not in (-1, None) else None
-        workers = min(self.num_workers, len(self.files))
-        streams = [self._files_items(self.files[w::workers])
-                   for w in range(workers)]
         produced = 0
-        while streams:
-            for stream in list(streams):
-                item = next(stream, None)
-                if item is None:
-                    streams.remove(stream)
-                    continue
-                if limit is not None and produced >= limit:
-                    return
-                yield item
-                produced += 1
+        for item in self._multi_file_items(self.files):
+            if limit is not None and produced >= limit:
+                return
+            yield item
+            produced += 1
 
-    def _files_items(self, files: list) -> Iterator[tuple]:
-        for path in files:
-            yield from self._file_items(path)
+    def _multi_file_items(self, files: list) -> Iterator[tuple]:
+        """``files`` read by up to ``num_workers`` workers, merged by a
+        fixed rotation: worker w reads ``files[w::workers]`` in order, and
+        the consumer takes one record from each live worker in turn.  With
+        the native reader each worker decodes on a thread of its own and
+        hands over decoded chunks, which the consumer splits into records
+        (a queue operation a record, or a worker's per-record Python, would
+        cost the consumer more of the GIL than the decode saves); the
+        Python reader's parse holds the GIL, so its workers are walked
+        inline (threads halved its rate on the card's host, PERF.md §5).
+        A worker's error is raised when the consumer reaches that worker's
+        end, not after the others drain (a consumer that stops at
+        ``steps_per_epoch`` would never see it); closing the stream early
+        stops and joins the threads."""
+        workers = min(self.num_workers, len(files))
 
-    def _file_items(self, path: str) -> Iterator[tuple]:
+        def chunks(w: int) -> Iterator[tuple]:
+            for path in files[w::workers]:
+                yield from self._file_chunks(path)
+
+        if workers <= 1 or self.reader != "native":
+            yield from _rotation([chunks(w) for w in range(workers)])
+            return
+
+        end = object()
+        queues = [queue.Queue(maxsize=DECODE_QUEUE) for _ in range(workers)]
+        errors: list = []
+        stop = threading.Event()
+
+        def run(w: int):
+            try:
+                for chunk in chunks(w):
+                    if not _put_with_stop(queues[w], chunk, stop):
+                        return
+            except Exception as e:   # raised by the consumer, in drained()
+                errors.append(e)
+            finally:
+                _put_with_stop(queues[w], end, stop)
+
+        def drained(w: int) -> Iterator[tuple]:
+            while (chunk := queues[w].get()) is not end:
+                yield chunk
+            if errors:
+                raise errors[0]
+
+        threads = [threading.Thread(target=run, args=(w,), daemon=True,
+                                    name=f"{DECODE_THREAD}-{w}")
+                   for w in range(workers)]
+        for t in threads:
+            t.start()
+        try:
+            yield from _rotation([drained(w) for w in range(workers)])
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+
+    def _file_chunks(self, path: str) -> Iterator[tuple]:
+        """(uint8 images [k, S, S, 3], int64 labels [k]) of the file
+        ``path`` in order, k from 1 to ``DECODE_CHUNK``."""
         if self.reader == "native":
             img_bytes = self.img_size * self.img_size * 3
-            chunk = max(1, min(1024, NATIVE_CHUNK_BYTES // img_bytes))
-            for imgs, labels in native.read_image_examples(
-                    path, self.img_size, chunk, verify=self.verify_crc):
-                for i in range(imgs.shape[0]):
-                    # a copy, so that a record held in the shuffle buffer
-                    # does not keep its whole chunk alive
-                    yield imgs[i].copy(), int(labels[i])
+            chunk = max(1, min(DECODE_CHUNK, NATIVE_CHUNK_BYTES // img_bytes))
+            yield from native.read_image_examples(
+                path, self.img_size, chunk, verify=self.verify_crc)
         else:
-            for rec in read_records(path, verify=self.verify_crc):
-                yield parse_image_example(rec, self.img_size)
+            records = read_records(path, verify=self.verify_crc)
+            while parsed := [parse_image_example(rec, self.img_size)
+                             for rec in itertools.islice(records,
+                                                         DECODE_CHUNK)]:
+                imgs, labels = zip(*parsed)
+                yield np.stack(imgs), np.asarray(labels, np.int64)
 
     def _shuffled(self, rng: np.random.Generator) -> Iterator[tuple]:
         """The records through a reservoir of ``shuffle_buffer``: each
@@ -192,6 +244,33 @@ class ImageDataset:
         return _prefetch(_lockstep(gen, self.steps_per_epoch), PREFETCH_DEPTH)
 
 
+def _rotation(sources: list) -> Iterator[tuple]:
+    """Records of the decoded chunks of ``sources``, one from each source
+    that has any left in turn."""
+    held = [iter(()) for _ in sources]
+    live = list(range(len(sources)))
+    while live:
+        for w in list(live):
+            item = next(held[w], None)
+            if item is None:
+                chunk = next(sources[w], None)
+                if chunk is None:
+                    live.remove(w)
+                    continue
+                held[w] = _records(chunk)
+                item = next(held[w])
+            yield item
+
+
+def _records(chunk: tuple) -> Iterator[tuple]:
+    """(uint8 [S,S,3] image, int label) records of a decoded chunk, each
+    image a copy, so that a record held in the shuffle buffer does not
+    keep its whole chunk alive."""
+    imgs, labels = chunk
+    for img, label in zip(imgs, labels.tolist()):
+        yield img.copy(), label
+
+
 def _put_with_stop(q: "queue.Queue", item, stop: threading.Event) -> bool:
     """Bounded-queue put that gives up once the consumer is gone (an early
     break or a preemption), so the producer thread never blocks forever."""
@@ -250,6 +329,11 @@ def _prefetch(it: Iterator, depth: int) -> Iterator:
             _put_with_stop(q, end, stop)
         except BaseException as e:  # re-raised by the consumer below
             _put_with_stop(q, _Error(e), stop)
+        finally:
+            # an abandoned stream releases what it holds (decode workers)
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()

@@ -36,9 +36,12 @@ latents passes them in (``latents_k``).
 :class:`Trainer` is the epoch loop: uint8 batches fed from the host, or
 gathered on the device from the whole dataset uploaded there once
 (``device_cache``, JAX's rule for "auto"), TensorBoard
-scalars, PNG sample grids of the EMA generator, checkpoints in the port's
-own format, save-and-exit on SIGTERM/SIGINT and an exact mid-epoch
-resume, at the JAX trainer's cadences.
+scalars (and, with ``summary_histograms``, weight histograms), PNG
+sample grids of the EMA generator, checkpoints in the port's own format,
+FID (and IS) epochs every ``fid_epoch_freq`` epochs (``train/fid.py``,
+``train/iscore.py``), a profiler trace of calls 10-20 of the first epoch
+(``profile_dir``), save-and-exit on SIGTERM/SIGINT and an exact
+mid-epoch resume, at the JAX trainer's cadences.
 """
 
 from __future__ import annotations
@@ -58,15 +61,19 @@ from ..nn.layers import bn_accum_begin, bn_accum_finalize, bn_moment_paths
 from ..ops.losses import get_loss
 from ..utils.device import resolve_device
 from ..utils.images import make_grid, save_image_grid
+from ..utils.profiling import TraceWindow
 from ..utils.tb_writer import SummaryWriter
 from ..utils.timing import StepTimer
 from .checkpoint import CheckpointManager
+from .fid import compute_fid_for_trainer, get_extractor
+from .iscore import get_classifier, inception_score_for_trainer
 from .optim import make_gan_optimizers, set_lr
 
 # purposes of the seeded random streams: per step (flip, G latents, D
-# update i's latents at _D + i) and at init
+# update i's latents at _D + i) and at init (the nets, the grids' fixed
+# latents, and the latents of FID and IS samples)
 _FLIP, _G, _D = 0, 1, 2
-_INIT_G, _INIT_D, _FIXED = 0, 1, 2
+_INIT_G, _INIT_D, _FIXED, _EVAL = 0, 1, 2, 3
 
 HEALTH_KEYS = ("D_real_mean", "D_fake_mean", "D_real_in_margin",
                "D_fake_in_margin")
@@ -342,12 +349,6 @@ def _check_ported(config) -> None:
          f"ROADMAP.md Queue 1 item 14"),
         (config.get("model_parallel", 1) > 1,
          "model_parallel > 1, ROADMAP.md Queue 1 item 14"),
-        (bool(config.get("profile_dir")),
-         f"profile_dir={config.get('profile_dir')!r} (a profiler trace of "
-         f"steps 10-20), ROADMAP.md Queue 1 item 19"),
-        (bool(config.get("summary_histograms")),
-         "summary_histograms (weight histograms in the summaries), "
-         "ROADMAP.md Queue 1 item 19"),
     ]
     for failed, what in unported:
         if failed:
@@ -603,14 +604,6 @@ class Trainer:
             print(f"training already complete (step {self.global_step()}, "
                   f"epoch {start_epoch}/{num_epochs})", flush=True)
             return
-        fid_freq = self.config.get("fid_epoch_freq", 0)
-        if fid_freq and any((e + 1) % fid_freq == 0
-                            for e in range(start_epoch, num_epochs)):
-            raise NotImplementedError(
-                f"fid_epoch_freq={fid_freq}: this run reaches an FID epoch, "
-                f"and evaluation (FID/IS) is not ported yet, ROADMAP.md "
-                f"Queue 1 item 15; set fid_epoch_freq to 0 or train fewer "
-                f"epochs")
         self._maybe_build_device_cache()
         self._preempted = False
         previous = self._install_preemption_handler()
@@ -628,6 +621,10 @@ class Trainer:
         K = self.steps_per_call
         summary_freq = max(1, config.get("summary_step_freq", 100) // K)
         img_dir = config.get("img_dir")
+        fid_freq = config.get("fid_epoch_freq", 0)
+        tracer = (TraceWindow(config["profile_dir"], start=10, stop=20,
+                              device=self.device)
+                  if config.get("profile_dir") else None)
         resume_skip = (self.global_step() % self.steps_per_epoch) // K
         if resume_skip:
             print(f"resuming mid-epoch: skipping {resume_skip} consumed "
@@ -641,9 +638,13 @@ class Trainer:
             skip = resume_skip if epoch == start_epoch else 0
             metrics = None
             for images, labels in self._device_batches(epoch, skip):
+                if tracer and epoch == start_epoch:
+                    tracer.step(count)   # calls [10, 20) of the first epoch
                 metrics = self.train_step(self.state, images, labels)
                 count += 1
                 if self._preempted:
+                    if tracer:
+                        tracer.close()
                     self._save_on_preemption()
                     return
                 if count % summary_freq == 0:
@@ -653,6 +654,8 @@ class Trainer:
                     self._summarize_step(fetched, acc)
                     acc_n += 1
                     acc_last = count
+            if tracer:
+                tracer.close()
             if count == 0:
                 raise RuntimeError("epoch produced no batches: data_size/"
                                    "global_batch too small for one call")
@@ -690,6 +693,14 @@ class Trainer:
                     scalars.update(self._var_summaries("grads_norm",
                                                        grad_norms))
                 self.writer.scalars(scalars, epoch)
+                if config.get("summary_histograms"):
+                    # each variable's distribution of values
+                    for tag, net in (("G", self.state.gen),
+                                     ("D", self.state.disc)):
+                        self.writer.histograms(
+                            {f"hist/{tag}/{n.replace('.', '/')}":
+                             p.detach().float().cpu().numpy().ravel()
+                             for n, p in net.named_parameters()}, epoch)
                 self.writer.flush()
             print(f"epoch {epoch}: G_loss={mean['G_loss']:.4f} "
                   f"D_loss={mean['D_loss']:.4f} "
@@ -713,6 +724,33 @@ class Trainer:
                 if self.writer:
                     self.writer.image("sample", make_grid(grid), step)
                     self.writer.flush()
+            if fid_freq and (epoch + 1) % fid_freq == 0:
+                self._evaluate(epoch, step)
+
+    def _evaluate(self, epoch: int, step: int) -> None:
+        """The FID epoch: FID of the evaluation G against the training
+        data and, with ``inception_score``, its IS, printed and written
+        at ``step`` under tags that name the backend actually used (the
+        proxy's are "proxy_FID" and "proxy_IS": its scale is not that of
+        published FIDs)."""
+        config = self.config
+        extractor = get_extractor(config, self.device)
+        fid_tag = "FID" if extractor.backend == "inception" else "proxy_FID"
+        fid = compute_fid_for_trainer(self, extractor=extractor)
+        print(f"epoch {epoch}: {fid_tag} = {fid:.2f}", flush=True)
+        if self.writer:
+            self.writer.scalar(fid_tag, fid, step)
+            self.writer.flush()
+        if config.get("inception_score"):
+            classifier = get_classifier(config, self.device)
+            is_tag = "IS" if classifier.backend == "inception" else "proxy_IS"
+            is_mean, is_std = inception_score_for_trainer(
+                self, classifier=classifier)
+            print(f"epoch {epoch}: {is_tag} = {is_mean:.2f} ± {is_std:.2f}",
+                  flush=True)
+            if self.writer:
+                self.writer.scalar(is_tag, is_mean, step)
+                self.writer.flush()
 
     def _summarize_step(self, fetched: dict, acc: dict) -> None:
         """Accumulate a summary point's scalars for the epoch mean and

@@ -1,7 +1,7 @@
 """TensorBoard-format event writer without TensorFlow, the port's own copy
 of ``sagan_tpu/utils/tb_writer.py``: events are protobuf ``Event``
 messages in TFRecord framing (the port's codec), so standard TensorBoard
-reads the output directly.  Scalar and image summaries.
+reads the output directly.  Scalar, image and histogram summaries.
 """
 
 from __future__ import annotations
@@ -56,6 +56,33 @@ def _encode_image_value(tag: str, png: bytes, h: int, w: int) -> bytes:
     return bytes(v)
 
 
+def _encode_histogram_value(tag: str, values: np.ndarray,
+                            bins: int = 30) -> bytes:
+    """Summary.Value with a HistogramProto (field 5): min/max/num/sum/
+    sum_squares + packed bucket_limit/bucket arrays."""
+    x = np.asarray(values, np.float64).ravel()
+    # drop non-finite entries: np.histogram's autodetected range raises
+    # on NaN/inf, which would kill the run at the epoch summary exactly
+    # when a diverged GAN most needs observing
+    x = x[np.isfinite(x)]
+    counts, edges = np.histogram(x, bins=bins)
+    h = bytearray()
+    for fid, val in ((1, x.min() if x.size else 0.0),
+                     (2, x.max() if x.size else 0.0),
+                     (3, float(x.size)),
+                     (4, float(x.sum())),
+                     (5, float(np.square(x).sum()))):
+        h.append((fid << 3) | 1)                 # double
+        h += struct.pack("<d", float(val))
+    for fid, arr in ((6, edges[1:]), (7, counts.astype(np.float64))):
+        payload = b"".join(struct.pack("<d", float(a)) for a in arr)
+        _write_len_delimited(h, fid, payload)    # packed repeated double
+    v = bytearray()
+    _write_len_delimited(v, 1, tag.encode())
+    _write_len_delimited(v, 5, bytes(h))         # Summary.Value.histo
+    return bytes(v)
+
+
 def _wrap_summary(values: list[bytes]) -> bytes:
     s = bytearray()
     for val in values:
@@ -88,6 +115,20 @@ class SummaryWriter:
     def scalars(self, values: dict, step: int) -> None:
         summary = _wrap_summary(
             [_encode_scalar_value(tag, float(v)) for tag, v in values.items()])
+        self._w.write(_encode_event(time.time(), step=step, summary=summary))
+
+    def scalar(self, tag: str, value, step: int) -> None:
+        self.scalars({tag: value}, step)
+
+    def histogram(self, tag: str, values, step: int) -> None:
+        self.histograms({tag: values}, step)
+
+    def histograms(self, values: dict, step: int) -> None:
+        """One histogram summary per ``{tag: array}`` entry, in one
+        event."""
+        summary = _wrap_summary(
+            [_encode_histogram_value(tag, np.asarray(v))
+             for tag, v in values.items()])
         self._w.write(_encode_event(time.time(), step=step, summary=summary))
 
     def image(self, tag: str, img: np.ndarray, step: int) -> None:

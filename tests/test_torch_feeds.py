@@ -3,12 +3,17 @@ seeds (exact: uint8 data): the in-RAM cache decision, the streaming
 shuffle buffer (``cache_dataset: False``), the native C++ reader and its
 crc32c, the augmenting image-folder loader, the device cache's index
 batches, and the trainer on the device-resident dataset against the host
-feed, bit for bit, across a mid-epoch restart too; and JAX's three
-``device_cache=True`` errors, word for word."""
+feed, bit for bit, across a mid-epoch restart too; JAX's three
+``device_cache=True`` errors, word for word; and the decode workers of
+``data_workers``: JAX's batches at 1 and 4, a dead worker's error before
+the epoch ends, no thread left behind by an epoch closed early."""
 
+import glob
 import os
 import pickle
 import signal
+import threading
+import time
 import types
 
 import numpy as np
@@ -22,7 +27,8 @@ from sagan_tpu.data.tfrecord import _crc32c_py as jax_crc32c_py
 from sagan_tpu.train.trainer import Trainer as JaxTrainer
 from sagan_tpu_torch.data import native, tfrecord
 from sagan_tpu_torch.data.image_folder import ImageFolderDataset
-from sagan_tpu_torch.data.loader import ImageDataset, get_dataset_and_info
+from sagan_tpu_torch.data.loader import (DECODE_THREAD, ImageDataset,
+                                         get_dataset_and_info)
 from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
 from sagan_tpu_torch.train.trainer import Trainer
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
@@ -345,3 +351,69 @@ def test_device_cache_true_raises_the_jax_errors(tmp_path, data32, case):
     auto.train(num_epochs=1)
     assert auto._device_data is None
     assert auto.global_step() == auto.steps_per_epoch
+
+
+def _decode_threads() -> list:
+    return [t for t in threading.enumerate()
+            if t.name.startswith(DECODE_THREAD) and t.is_alive()]
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+@pytest.mark.parametrize("use_native", [True, False])
+def test_decode_workers_give_the_jax_batches(tmp_path, workers, use_native):
+    """Five shards over ``data_workers`` 1 (inline) and 4 (worker 0 reads
+    two files): the cached and the streaming epochs equal JAX's."""
+    d = make_synthetic_dataset(str(tmp_path / "d"), num=75, img_size=8,
+                               num_classes=3, seed=2, num_shards=5)
+    for cached in (True, False):
+        kw = dict(batch_size=8, shuffle_buffer=16, seed=4,
+                  num_workers=workers, cache_in_memory=cached,
+                  use_native=use_native)
+        port, ref = ImageDataset(d, **kw), JaxDataset(d, **kw)
+        _assert_same_batches(list(port.epoch(1)), list(ref.epoch(1)),
+                             port.steps_per_epoch)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_a_corrupt_shard_raises_before_the_epoch_ends(tmp_path, use_native):
+    """Shard 1's first record is corrupt: its worker dies at once, and the
+    first batch of an 8-batch streaming epoch raises (the consumer reaches
+    that worker's end in the rotation's first round)."""
+    d = make_synthetic_dataset(str(tmp_path / "d"), num=64, img_size=8,
+                               seed=1, num_shards=4)
+    path = sorted(glob.glob(os.path.join(d, "*.tfrecords")))[1]
+    raw = bytearray(open(path, "rb").read())
+    raw[40] ^= 0xFF                  # inside the first record's payload
+    open(path, "wb").write(bytes(raw))
+    ds = ImageDataset(d, batch_size=8, shuffle_buffer=8, num_workers=4,
+                      cache_in_memory=False, use_native=use_native)
+    assert ds.steps_per_epoch == 8
+    epoch = ds.epoch(0)
+    with pytest.raises(IOError, match="corrupt data crc"):
+        next(epoch)
+    _wait_for_no_decode_threads()
+
+
+def _wait_for_no_decode_threads(timeout: float = 10.0) -> None:
+    deadline = time.monotonic() + timeout
+    while _decode_threads() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not _decode_threads()
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_an_epoch_closed_early_leaves_no_decode_thread(tmp_path, workers):
+    """The consumer takes one batch of a streaming epoch and closes it.
+    At 4 workers the records are decoded on four threads (each blocked on
+    its full queue by then: 3,072 records a worker, about 1,024 held), and
+    the prefetch thread closes the stream it was reading, which stops and
+    joins them; at 1 they are read inline."""
+    d = make_synthetic_dataset(str(tmp_path / "d"), num=12288, img_size=8,
+                               seed=1, num_shards=8)
+    ds = ImageDataset(d, batch_size=8, shuffle_buffer=8,
+                      num_workers=workers, cache_in_memory=False)
+    epoch = ds.epoch(0)
+    next(epoch)
+    assert len(_decode_threads()) == (4 if workers == 4 else 0)
+    epoch.close()
+    _wait_for_no_decode_threads()

@@ -30,9 +30,11 @@ print(" ".join(names), "|", leaked)
 # Function in ops.cuda_spectral; the study kernels' plain versions in
 # ops.attention_study, their wrappers in ops.cuda_attention_study, the
 # studies in tools.bench_attn_* and tools._study; the other feeds in
-# data.image_folder and the native reader's binding in data.native)
+# data.image_folder and the native reader's binding in data.native;
+# evaluation in evaluate, train.fid, train.inception and train.iscore, the
+# profiler window in utils.profiling)
 MODULES = {
-    "convert", "generate", "legacy_main", "main", "serve",
+    "convert", "evaluate", "generate", "legacy_main", "main", "serve",
     "data", "data.image_folder", "data.loader", "data.native",
     "data.synthetic", "data.tfrecord",
     "models", "models.resnet", "models.vanilla",
@@ -44,9 +46,10 @@ MODULES = {
     "tools.bench_attn_floor", "tools.bench_attn_floor256",
     "tools.bench_attn_floor512", "tools.profiling", "tools.serve_breakdown",
     "tools.train_breakdown",
-    "train", "train.checkpoint", "train.optim", "train.trainer",
+    "train", "train.checkpoint", "train.fid", "train.inception",
+    "train.iscore", "train.optim", "train.trainer",
     "utils", "utils.config", "utils.device", "utils.images",
-    "utils.tb_writer", "utils.timing",
+    "utils.profiling", "utils.tb_writer", "utils.timing",
 }
 
 

@@ -3,18 +3,26 @@ sagan_tpu_torch.main --device cpu``), on a copy of example_configs/test.py
 pointed at a small synthetic dataset: it writes a TensorBoard event file,
 PNG grids and a checkpoint; a re-run restores; a SIGTERM mid-epoch and a
 resume give bit-for-bit the state of an unbroken run; ``generate``
-without ``--weights`` samples the checkpoint's EMA generator."""
+without ``--weights`` samples the checkpoint's EMA generator; an FID epoch
+prints and writes the proxy FID and IS; ``profile_dir`` traces calls
+10-20; ``summary_histograms`` writes JAX's histogram encoding."""
 
+import json
 import os
+import re
 import signal
+import struct
 
 import numpy as np
 import pytest
 import torch
 
+from sagan_tpu.utils.tb_writer import \
+    _encode_histogram_value as jax_encode_histogram
 from sagan_tpu_torch import generate
 from sagan_tpu_torch import main as train_cli
 from sagan_tpu_torch.data.synthetic import make_synthetic_dataset
+from sagan_tpu_torch.data.tfrecord import _iter_fields, read_records
 from sagan_tpu_torch.train.checkpoint import CheckpointManager
 from sagan_tpu_torch.train.trainer import Trainer
 from sagan_tpu_torch.utils.config import load_config_file, resolve_config
@@ -187,8 +195,6 @@ def test_checkpoints_keep_the_newest_and_skip_unreadable(tmp_path):
 @pytest.mark.parametrize("update,match", [
     ({"num_devices": 2}, "multi-GPU"),
     ({"model_parallel": 2}, "model_parallel"),
-    ({"profile_dir": "traces"}, "profile_dir.*item 19"),
-    ({"summary_histograms": True}, "summary_histograms.*item 19"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
                                                         update, match):
@@ -199,15 +205,80 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
         Trainer(config, device="cpu")
 
 
-def test_a_run_that_reaches_an_fid_epoch_raises_at_start(tmp_path, data32):
+def _summaries(logdir) -> list:
+    """(step, tag, Summary.Value bytes) of every summary value in the
+    event files under ``logdir``."""
+    out = []
+    for name in sorted(os.listdir(logdir)):
+        for rec in read_records(os.path.join(logdir, name)):
+            fields = {f: v for f, _, v in _iter_fields(memoryview(rec))}
+            if 5 not in fields:
+                continue
+            for f, _, value in _iter_fields(fields[5]):
+                tag = next(bytes(v) for g, _, v in _iter_fields(value)
+                           if g == 1)
+                out.append((fields.get(2), tag.decode(), bytes(value)))
+    return out
+
+
+def test_an_fid_epoch_prints_and_writes_the_proxy_fid_and_is(
+        tmp_path, data32, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)   # the real statistics' cache: .cache/
     config = resolve_config(load_config_file(_config_file(
-        tmp_path, data32, fid_epoch_freq=2, ckpt_dir=None)))
+        tmp_path, data32, epoch=1, data_size=16, fid_epoch_freq=1,
+        fid_num_images=16, inception_score=True, img_dir=None,
+        ckpt_dir=None)))
     trainer = Trainer(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="FID"):
-        trainer.train()
-    assert trainer.global_step() == 0
-    trainer.train(num_epochs=1)   # epoch 0 is not an FID epoch
-    assert trainer.global_step() == 8
+    trainer.train()
+    out = capsys.readouterr().out
+    fid = re.search(r"^epoch 0: proxy_FID = ([\d.]+)$", out, re.MULTILINE)
+    assert fid and float(fid.group(1)) > 0
+    assert re.search(r"^epoch 0: proxy_IS = [\d.]+ ± [\d.]+$", out,
+                     re.MULTILINE)
+    written = {tag: (step, value) for step, tag, value
+               in _summaries(tmp_path / "logs")}
+    step, value = written["proxy_FID"]
+    got = struct.unpack("<f", value[-4:])[0]   # simple_value, last field
+    assert step == 2 and got == pytest.approx(float(fid.group(1)), abs=5e-3)
+    assert written["proxy_IS"][0] == 2
+    assert os.listdir(tmp_path / ".cache") == [
+        "synthetic_32_16_d16s0_torch_random256s42.pkl"]
+
+
+def test_profile_dir_traces_calls_10_to_20(tmp_path, data32):
+    """42 records at batch 2: 21 calls of one step.  The trace holds the
+    optimizer steps of calls [10, 20): 2 a call (D's and G's Adam)."""
+    config = resolve_config(load_config_file(_config_file(
+        tmp_path, data32, epoch=1, data_size=42, batch_size=2,
+        steps_per_call=1,
+        summary_step_freq=100, img_dir=None, ckpt_dir=None,
+        profile_dir=str(tmp_path / "prof"))))
+    trainer = Trainer(config, device="cpu")
+    trainer.train()
+    assert trainer.global_step() == 21
+    (trace,) = os.listdir(tmp_path / "prof")
+    assert trace.endswith(".pt.trace.json")
+    with open(tmp_path / "prof" / trace) as f:
+        events = json.load(f)["traceEvents"]
+    adam = [e for e in events if e.get("name") == "Optimizer.step#Adam.step"]
+    assert len(adam) == 2 * 10
+
+
+def test_summary_histograms_are_the_jax_encoding(tmp_path, data32):
+    config = resolve_config(load_config_file(_config_file(
+        tmp_path, data32, epoch=1, data_size=16, summary_histograms=True,
+        img_dir=None, ckpt_dir=None)))
+    trainer = Trainer(config, device="cpu")
+    trainer.train()
+    hists = {tag: value for step, tag, value in _summaries(tmp_path / "logs")
+             if tag.startswith("hist/")}
+    want = {}
+    for tag, net in (("G", trainer.state.gen), ("D", trainer.state.disc)):
+        for n, p in net.named_parameters():
+            name = f"hist/{tag}/{n.replace('.', '/')}"
+            want[name] = jax_encode_histogram(
+                name, p.detach().numpy().ravel())
+    assert len(want) > 10 and hists == want
 
 
 def test_trainer_refuses_the_cpu_unasked(tmp_path, data32, monkeypatch):
