@@ -177,7 +177,31 @@ the build, and prints neither the kernels line nor the result line):
      the card against the CPU; InceptionV3 at full width (299 px) on an
      npz of random weights against the CPU, timed per 64 images, and
      ``evaluate`` through it; ``evaluate`` on phase 16's imagenet128_cond
-     checkpoint (one grouped K7 call and K1 2 a G forward).
+     checkpoint (one grouped K7 call and K1 2 a G forward);
+ 26. data parallelism on the one card, every group of ranks started by
+     ``torch.distributed.run``: (a) ``sagan_tpu_torch.main`` on church64
+     at full width in bf16 in a one-rank NCCL group for 2 epochs of 20
+     steps, bit for bit equal to the same run without a group, with the
+     same launches (the tensor-core K1 8 and K2 6 a step; the group's read
+     from its profiler window of calls [10, 20)), the second epoch's ms a
+     step both ways and the window's all-reduces from its trace; (b) two
+     gloo ranks sharing ``cuda:0`` (this script as their worker,
+     ``--rank-jobs``) at a per-rank batch of 64 against one process at
+     128 on the same images and seed: church64 (4 steps) and
+     imagenet128_cond with ``use_pallas_sn`` (2 steps), fp32 and bf16,
+     beside a control (one process, the real images reversed: the card's
+     own noise of a reordered sum), the first fp32 step with D frozen at
+     1e-4, and church64's fp32 runs again with a planted fault in the BN
+     moments' backward, which both must catch; the ranks'
+     states bit for bit, the launches per rank (K1 8 / K2 6, K1 12 / K2 8
+     and K7 6 grouped calls and 3 backward calls a step); (c)
+     ``sagan_tpu_torch.main`` on two gloo ranks over phase 7's records in
+     3 uneven shards: an epoch on the host feed and one on the device
+     cache, bit for bit, each rank taking ``steps_per_epoch`` steps, a
+     checkpoint written by rank 0 and restored on both for another epoch;
+     (d) ``GeneratorService`` at ``num_devices`` 1 serving phase 4's
+     bytes, two replicas on the card serving the one-device images, and
+     ``serve --num_devices 2`` on one card raising.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -192,6 +216,8 @@ import functools
 import io
 import json
 import math
+import os
+import pickle
 import re
 import shutil
 import statistics
@@ -232,7 +258,9 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.ops.spectral import spectral_normalize
+from sagan_tpu_torch.parallel import mesh
 from sagan_tpu_torch.serve import GeneratorService, make_server
+from sagan_tpu_torch.serve import main as serve_main
 from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
                                    bench_attn_floor256, bench_attn_floor512)
 from sagan_tpu_torch.train.checkpoint import CheckpointManager
@@ -678,8 +706,9 @@ def _get(url: str):
         return r.status, dict(r.headers), body, time.perf_counter() - t0
 
 
-def phase_serve(gen32, card: str) -> int:
-    """Serve the church64 G over HTTP; returns the kernel launches."""
+def phase_serve(gen32, card: str) -> dict:
+    """Serve the church64 G over HTTP; returns the raw bytes served by
+    (n, seed)."""
     smoke_dir = ROOT / "build" / "smoke"
     smoke_dir.mkdir(parents=True, exist_ok=True)
     config = church64_config("bfloat16")
@@ -754,7 +783,7 @@ def phase_serve(gen32, card: str) -> int:
           f"forwards (2 attention sites each, the tensor-core K1; expected "
           f"{want})", flush=True)
     require(counts == want, f"serving launches {counts}, expected {want}")
-    return counts["K1mma"]
+    return raw
 
 
 # one fp32 step of the full-width church64 G and D, card vs CPU: every
@@ -3368,13 +3397,631 @@ def phase_evaluate(card: str) -> None:
             f"{record['counts']} (expected {want})")
 
 
+# -- phase 26: data parallelism ------------------------------------------------
+DP_DIR = ROOT / "build" / "smoke" / "dp"
+DP_TIMEOUT = 600          # seconds a group of ranks may take
+# Two ranks at batch 64 against one process at 128 on the card are the same
+# math in another summation order: each rank sums its 64 examples' weight
+# gradients (cuDNN taking its algorithms at that batch) and the all-reduce
+# adds the two.  The control, one process at 128 with the real images in
+# reverse order (mathematically the same step: D has no batch-coupled
+# layer), reads the card's own noise of a reordered sum.  Over several
+# steps at the configs' learning rates that noise grows: Adam with
+# beta1 = 0 moves an element whose gradient is ~0 by +-lr, and the next
+# step's metrics follow such moves.  On an H100 80GB HBM3 at 700 W the
+# control read up to 9.4e-4 relative on the losses and 1.2e-3 on the global
+# gradient norms (imagenet128_cond fp32, 2 steps), 3.0e-5 on BN's running
+# stats and 1.4e-4 on SN's u (of max(1, |value|)).  Those steps are held at
+# 4x the control's worst: DP_FP32_RTOL on the losses and global norms,
+# DP_FP32_BN_TOL and DP_FP32_U_TOL on the buffers, and the parameters and
+# EMA within 3 lr_d.
+DP_FP32_RTOL = 5e-3
+DP_FP32_BN_TOL = 1.2e-4
+DP_FP32_U_TOL = 6e-4
+# The first step with D frozen (lr_d 0) has none of that noise: its G
+# update takes its gradient before any parameter has moved, so every G
+# gradient reaches the BN cotangent's all-reduce (mesh._MeanAllReduce)
+# with only the reordered sums' rounding.  Its losses and global gradient
+# norms are held within DP_FROZEN_RTOL (on the card above, church64's read
+# 1.3e-7 and imagenet128_cond's G norm 1.2e-5, past 1e-5), its
+# per-variable norms within phase 6's per-norm limits, and the BN running
+# stats and SN u after it within 1e-5 (of max(1, |value|)).  A planted
+# fault, that backward returning its own rank's cotangent instead of the
+# ranks' mean, moved church64's G norm by 2.2e-2 there: every fp32 check
+# it runs under must fail.
+DP_FROZEN_RTOL = 1e-4
+DP_FROZEN_BUFFER_TOL = 1e-5
+# bf16: losses and global gradient norms within 5e-2 relative (bf16 keeps
+# 8 bits of mantissa, 3.9e-3 a rounding, compounding through G, D and the
+# loss; two ranks normalize and reduce in another order than one process)
+DP_BF16_RTOL = 5e-2
+DP_STEP_KEYS = ("G_loss", "D_loss", "G_grad_norm", "D_grad_norm")
+DP_BATCH = 64             # per rank: the configs' own per-device batch
+
+
+def _dp_config(path: Path, dtype: str, **extra) -> dict:
+    """A config file's dict at ``dtype``, not resolved: each process
+    resolves it against its own group."""
+    return {**load_config_file(str(path)), "compute_dtype": dtype,
+            "num_devices": None, "print_variables": False, **extra}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _planted_bn_fault(on: bool):
+    """While open (with ``on``): the cross-replica BN moments' backward
+    returns this rank's own cotangent over the world size instead of the
+    ranks' mean, so a rank's G gradient misses the other rank's BN
+    terms."""
+    backward = mesh._MeanAllReduce.backward
+    if on:
+        mesh._MeanAllReduce.backward = staticmethod(
+            lambda ctx, grad: grad / mesh.process_count())
+    try:
+        yield
+    finally:
+        mesh._MeanAllReduce.backward = backward
+
+
+def dp_steps(job: dict, device) -> dict:
+    """A training step of seeded nets (every attention sigma nonzero) on
+    this process's rows of each of the job's global batches,
+    with the step's seeded latents (a rank takes its rows of the global
+    draws): the metrics, the state after (and which entries are BN
+    running stats and SN u), the launches and the seconds.  One process
+    without a group takes the whole batch."""
+    device = torch.device(device)
+    world, rank = mesh.process_count(), mesh.process_index()
+    b = job["global_batch"] // world
+    cfg = resolve_config({**job["config"], "batch_size": b})
+    gen, disc = _church64_nets(cfg, job["seed"])
+    gen, disc = gen.to(device), disc.to(device)
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        cfg, gen.parameters(), disc.parameters(), steps_per_epoch=1)
+    state = TrainState(gen, disc, opt_g, opt_d, 0,
+                       {n: p.detach().clone()
+                        for n, p in gen.named_parameters()})
+    step = build_train_step(cfg, sched_g, sched_d, gen, disc)
+    rows = slice(rank * b, (rank + 1) * b)
+    images = torch.from_numpy(job["images"][:, rows]).to(device)
+    labels = torch.from_numpy(job["labels"][:, rows]).to(device)
+    metrics = []
+    _sync(device)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _planted_bn_fault(job.get("fault", False)):
+        for k in range(len(images)):
+            m = step(state, images[k:k + 1], labels[k:k + 1])
+            metrics.append({key: m[key].double().cpu().numpy()
+                            for key in (*DP_STEP_KEYS, "G_grad_norms",
+                                        "D_grad_norms")})
+        _sync(device)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    after = {f"G/{k}": v.cpu() for k, v in gen.state_dict().items()}
+    after.update({f"D/{k}": v.cpu() for k, v in disc.state_dict().items()})
+    after.update({f"EMA/{k}": v.cpu() for k, v in state.ema.items()})
+    buffers = {f"{tag}/{n}": ("SN u" if n.endswith(".u") or n == "u"
+                              else "BN stats")
+               for tag, net in (("G", gen), ("D", disc))
+               for n, _ in net.named_buffers()}
+    return {"metrics": metrics, "state": after, "buffers": buffers,
+            "counts": counts, "seconds": seconds, "lr": cfg["lr_d"],
+            "reduced": (sum(p.numel() for p in gen.parameters()),
+                        sum(p.numel() for p in disc.parameters()),
+                        cfg["update_ratio"])}
+
+
+def rank_worker(jobs_path: str) -> int:
+    """One rank of 26b's ``torch.distributed.run`` group: joins the group
+    (the file's backend, on its device: ``cuda:0`` for every rank,
+    sharing the card under gloo), runs the pickled step jobs in it,
+    pickles their results to ``<jobs_path>.<rank>`` and leaves the
+    group."""
+    with open(jobs_path, "rb") as f:
+        spec = pickle.load(f)   # written by phase 26 of this script
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh.initialize_distributed(
+        spec["backend"], num_processes=int(os.environ["WORLD_SIZE"]),
+        process_id=int(os.environ["RANK"]))
+    try:
+        results = [dp_steps(job, device) for job in spec["jobs"]]
+    finally:
+        mesh.shutdown_distributed()
+    with open(f"{jobs_path}.{os.environ['RANK']}", "wb") as f:
+        pickle.dump(results, f)
+    return 0
+
+
+def _launch(name: str, nproc: int, command: list) -> tuple:
+    """``command`` (a script and its arguments, or ``-m`` and a module)
+    on ``nproc`` ranks started by ``torch.distributed.run``, each rank's
+    output in its own file: (each rank's standard output, the launcher's
+    seconds)."""
+    logs = DP_DIR / name
+    shutil.rmtree(logs, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), "--log-dir", str(logs),
+         "--redirects", "3", *command], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+
+    def read(rank: int, stream: str) -> str:
+        paths = sorted(logs.glob(f"*/attempt_*/{rank}/{stream}.log"))
+        return paths[-1].read_text() if paths else ""
+
+    require(out.returncode == 0,
+            f"the ranks of {name} failed (their logs in {logs}): "
+            f"{out.stderr[-2000:]} rank 0: {read(0, 'stderr')[-3000:]}")
+    return [read(rank, "stdout") for rank in range(nproc)], seconds
+
+
+def _launch_ranks(jobs: list, name: str, nproc: int, backend: str,
+                  device: str = "cuda:0") -> tuple:
+    """Step ``jobs`` on ``nproc`` ranks (this script's rank worker) in one
+    ``backend`` group on ``device``: (each rank's results, its
+    seconds)."""
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    path = DP_DIR / f"{name}.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"jobs": jobs, "backend": backend, "device": device}, f)
+    _, seconds = _launch(name, nproc, [str(ROOT / "chip_smoke.py"),
+                                       "--rank-jobs", str(path)])
+    results = []
+    for rank in range(nproc):
+        with open(f"{path}.{rank}", "rb") as f:
+            results.append(pickle.load(f))   # written by our own ranks
+    return results, seconds
+
+
+def _cli_rank(text: str) -> dict:
+    """What one rank of ``sagan_tpu_torch.main`` printed: its last line's
+    step and state digest, its total steps, whether it fed from the
+    device cache, the step it restored, and the epoch lines' ms/step."""
+    (last,) = re.findall(r"^rank \d+ of \d+: step (\d+) state (\w+)$", text,
+                         re.MULTILINE)
+    restored = re.findall(r"^Restored from checkpoint at step (\d+)$", text,
+                          re.MULTILINE)
+    return {"step": int(last[0]), "digest": last[1],
+            "total": int(re.search(r"^total steps: (\d+)$", text,
+                                   re.MULTILINE)[1]),
+            "cache": "device cache: " in text,
+            "restored": int(restored[0]) if restored else None,
+            "ms": _ms_per_step(text)}
+
+
+def dp_cli(argv: list) -> dict:
+    """``sagan_tpu_torch.main`` with ``argv`` in this process (no group):
+    its output, step, state digest, launches and parameter counts."""
+    out = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        trainer = train_cli.main(argv)
+    _sync(trainer.device)
+    return {"text": out.getvalue(), "step": trainer.global_step(),
+            "digest": train_cli.state_digest(trainer), "counts": _counts(),
+            "params": (sum(p.numel() for p in trainer.state.gen.parameters()),
+                       sum(p.numel() for p in trainer.state.disc.parameters()),
+                       trainer.config["update_ratio"])}
+
+
+def _ms_per_step(text: str) -> list:
+    return [float(ms) for ms in re.findall(r"([\d.]+) ms/step\)$", text,
+                                           re.MULTILINE)]
+
+
+def _trace_all_reduces(prof_dir: Path) -> dict:
+    """The all-reduces in the one trace under ``prof_dir``: {name: (count,
+    ms)} of torch.distributed's host ops (``c10d::allreduce_``, host
+    clock) and of the NCCL kernels (device clock)."""
+    (trace,) = prof_dir.glob("*.pt.trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    found = {}
+    for e in events:
+        name, cat = e.get("name", ""), e.get("cat")
+        if ((cat == "cpu_op" and name.startswith("c10d::allreduce"))
+                or (cat == "kernel" and "nccl" in name.lower())):
+            n, ms = found.get(name, (0, 0.0))
+            found[name] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return found
+
+
+def phase_dp_one_rank(card: str) -> None:
+    """26a: church64 at full width (bf16, batch 64) through the entry
+    point under ``torch.distributed.run --nproc_per_node 1`` (a one-rank
+    NCCL group: every all-reduce runs) for 2 epochs of 20 steps on phase
+    7's records, against the same run without a group: the state bit for
+    bit, the launches unchanged (the tensor-core K1 8 and K2 6 a step:
+    the group's in the profiler window of calls [10, 20), the other's
+    counted), the second epoch's ms a step both ways (the first holds a
+    new process's warm-up, NCCL's start and the window) and the
+    all-reduces of the window's 10 steps from its trace."""
+    data = ROOT / "build" / "smoke" / "church64_synthetic"
+    if not (data / "metadata.pickle").exists():   # phase 7's records
+        make_synthetic_dataset(str(data), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED)
+    runs = {}
+    for label in ("group", "alone"):
+        prof = DP_DIR / f"prof_{label}"
+        shutil.rmtree(prof, ignore_errors=True)
+        cfg = _church64_file(DP_DIR / f"church64_dp_a_{label}.py", data, 2,
+                             data_size=20 * DP_BATCH, steps_per_call=1,
+                             profile_dir=str(prof))
+        runs[label] = (["--config_path", str(cfg), "--device", "cuda"], prof)
+    (text,), seconds = _launch("dp_a", 1, ["-m", "sagan_tpu_torch.main",
+                                           *runs["group"][0]])
+    ranked = _cli_rank(text)
+    alone = dp_cli(runs["alone"][0])
+    steps, window = alone["step"], 10
+    traced = {label: _trace_kernels(prof) for label, (_, prof) in
+              runs.items()}
+    reduces = {label: _trace_all_reduces(prof) for label, (_, prof) in
+               runs.items()}
+    host_ops = sum(n for name, (n, _) in reduces["group"].items()
+                   if name == "c10d::allreduce_")
+    per_step = {name: (n / window, ms / window)
+                for name, (n, ms) in reduces["group"].items()}
+    g, d, ratio = alone["params"]
+    want = _launches(K1mma=8 * steps, K2mma=6 * steps)
+    same = ranked["digest"] == alone["digest"]
+    print(f"phase 26a church64 bf16 B=64, {steps} steps (2 epochs of 20): "
+          f"one-rank NCCL group vs no group: state digest "
+          f"{'equal' if same else 'DIFFERENT'} ({ranked['digest'][:12]} / "
+          f"{alone['digest'][:12]}); launches without the group "
+          f"{_named(alone['counts'])} (expected {_named(want)}); tensor-core "
+          f"K1/K2 in the trace of calls [10, 20) with the group "
+          f"{traced['group']}, without {traced['alone']}; ms/step by epoch "
+          f"(host clock over the epoch, loader included) with the group "
+          f"{ranked['ms']}, without {_ms_per_step(alone['text'])}; "
+          f"all-reduces a step in the window (count, ms; host ops on the "
+          f"host clock, NCCL kernels on the card's): {per_step}, without "
+          f"the group {reduces['alone']}; gradients all-reduced a step: G "
+          f"{g:,} + {ratio} x D {d:,} fp32 values, "
+          f"{4 * (g + ratio * d) / 1e6:.2f} MB (and BN's moments); launcher "
+          f"{seconds:.1f} s on {card}", flush=True)
+    require(same, "the one-rank group changed the training state")
+    require(alone["counts"] == want and ranked["step"] == steps == 40,
+            f"launches {alone['counts']}, steps {ranked['step']} / {steps}")
+    require(all(t["K1mma"] == 8 * window and t["K2mma"] == 6 * window
+                for t in traced.values()), f"the window's K1/K2: {traced}")
+    require(host_ops >= 2 * window and not reduces["alone"],
+            f"the window's all-reduces: {reduces}")
+
+
+def _dp_step_jobs() -> list:
+    """26b's step jobs: church64 (4 steps) and imagenet128_cond with
+    ``use_pallas_sn`` (2 steps) at a per-rank batch of 64, fp32 and bf16,
+    on phase 7's and phase 16's synthetic records; each fp32 config's
+    first step with D frozen; and church64's fp32 jobs again with the
+    planted BN fault."""
+    jobs = []
+    for name, path, steps, size, classes, extra in (
+            ("church64", CONFIG, 4, 64, 1, {}),
+            ("imagenet128_cond", IMAGENET128, 2, 128, 1000,
+             {"use_pallas_sn": True})):
+        pairs = list(synthetic_images(steps * 128, size, classes, SEED))
+        images = np.stack([p[0] for p in pairs]).reshape(
+            steps, 128, size, size, 3)
+        labels = np.asarray([p[1] for p in pairs], np.int32).reshape(
+            steps, 128)
+        for dtype in ("float32", "bfloat16"):
+            jobs.append({"kind": "steps", "name": name, "dtype": dtype,
+                         "config": _dp_config(path, dtype, img_size=size,
+                                              num_classes=classes, **extra),
+                         "global_batch": 128, "seed": SEED + 26,
+                         "images": images, "labels": labels})
+        full = jobs[-2]
+        jobs.append({**full, "name": f"{name} frozen D", "frozen": True,
+                     "config": {**full["config"], "lr_d": 0.0},
+                     "images": images[:1], "labels": labels[:1]})
+        if name == "church64":
+            jobs += [{**full, "fault": True},
+                     {**jobs[-1], "fault": True}]
+    return jobs
+
+
+def _dp_expected(job: dict, steps: int) -> dict:
+    fp32 = job["dtype"] == "float32"
+    k1, k2 = ("K1", "K2") if fp32 else ("K1mma", "K2mma")
+    if job["name"].startswith("church64"):
+        return _launches(**{k1: 8 * steps, k2: 6 * steps})
+    return _launches(**{k1: 12 * steps, k2: 8 * steps,
+                        "K7": SN_CALLS_PER_STEP * steps,
+                        "K7w": SN_PER_STEP * steps,
+                        "K7bwd": SN_BWD_PER_STEP * steps})
+
+
+def _rel_err(x, y) -> float:
+    return float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30)))
+
+
+def _dp_errors(got: dict, want: dict, job: dict) -> tuple:
+    """({reading: worst error}, [what is beyond its tolerance]) of a
+    run's metrics and state against another's, at ``job``'s limits."""
+    fp32, frozen = job["dtype"] == "float32", job.get("frozen", False)
+    rtol = (DP_FROZEN_RTOL if frozen else
+            DP_FP32_RTOL if fp32 else DP_BF16_RTOL)
+    worst, bad = {}, []
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for key in DP_STEP_KEYS:
+            err = _rel_err(g[key], w[key])
+            worst[f"{key} rel"] = max(worst.get(f"{key} rel", 0.0), err)
+            if not np.isfinite(g[key]).all() or err > rtol:
+                bad.append(f"step {i} {key} {float(g[key]):.9g} vs "
+                           f"{float(w[key]):.9g}")
+        for key in ("G_grad_norms", "D_grad_norms"):
+            # over phase 6's per-norm limit (held in the frozen step)
+            share = np.abs(g[key] - w[key]) / (STEP_RTOL * np.abs(w[key])
+                                               + STEP_ATOL)
+            worst[f"{key} err/limit"] = max(
+                worst.get(f"{key} err/limit", 0.0), float(share.max()))
+            if frozen and share.max() > 1:
+                bad.append(f"step {i} {key}: {int((share > 1).sum())} "
+                           f"beyond phase 6's limit")
+    limits = ({"params": 3 * job["config"]["lr_g"],
+               "BN stats": DP_FROZEN_BUFFER_TOL,
+               "SN u": DP_FROZEN_BUFFER_TOL} if frozen else
+              {"params": 3 * want["lr"], "BN stats": DP_FP32_BN_TOL,
+               "SN u": DP_FP32_U_TOL})
+    kinds = want["buffers"]
+    require(got["state"].keys() == want["state"].keys(),
+            "the states hold other tensors")
+    for name, y in want["state"].items():
+        kind = kinds.get(name, "params")
+        diff = (got["state"][name].double() - y.double()).abs()
+        if not diff.numel():
+            continue
+        if kind != "params":
+            diff = diff / y.double().abs().clamp(min=1.0)
+        err = diff.max().item()
+        worst[f"{kind} max"] = max(worst.get(f"{kind} max", 0.0), err)
+        if fp32 and err > limits[kind]:
+            bad.append(f"{name} ({kind}) {err:.3g}")
+    return worst, bad
+
+
+def _dp_summary(errs: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+
+
+def _check_dp_steps(job: dict, ranks: list, one: dict, card: str,
+                    control: dict | None = None) -> None:
+    """Two ranks against one process at the global batch (and the control
+    against it), and the ranks against each other; a job with the planted
+    fault must fail the comparison."""
+    r0, r1 = ranks
+    fp32 = job["dtype"] == "float32"
+    fault = job.get("fault", False)
+    steps = len(one["metrics"])
+    same = r0["state"].keys() == r1["state"].keys() and all(
+        torch.equal(r0["state"][k], r1["state"][k]) for k in r0["state"])
+    errs, bad = _dp_errors(r0, one, job)
+    want_counts = _dp_expected(job, steps)
+    g, d, ratio = r0["reduced"]
+    if job.get("frozen"):
+        tol = (f"losses and global norms rtol {DP_FROZEN_RTOL:g}, "
+               f"per-variable norms phase 6's, params "
+               f"{3 * job['config']['lr_g']:g}, BN stats and SN u "
+               f"{DP_FROZEN_BUFFER_TOL:g}")
+    elif fp32:
+        tol = (f"losses and global norms rtol {DP_FP32_RTOL:g}, params "
+               f"{3 * one['lr']:g}, BN stats {DP_FP32_BN_TOL:g}, SN u "
+               f"{DP_FP32_U_TOL:g}")
+    else:
+        tol = f"losses and global norms rtol {DP_BF16_RTOL:g}"
+    title = (f"{job['name']} {job['dtype']}"
+             f"{' WITH THE PLANTED BN FAULT' if fault else ''}")
+    control_text = ""
+    if control is not None:
+        control_text = ("; the control, one process with the real images "
+                        "reversed: "
+                        + _dp_summary(_dp_errors(control, one, job)[0]))
+    print(f"phase 26b {title} per-rank batch 64 (global 128), {steps} "
+          f"steps: 2 gloo ranks on one card vs one process at batch 128: "
+          f"{_dp_summary(errs)} (tol {tol}; beyond it: "
+          f"{len(bad)} {bad[:3]}){control_text}; ranks bit for bit "
+          f"{same}; gradients all-reduced a step: G {g:,} + {ratio} x D "
+          f"{d:,} fp32 values, {4 * (g + ratio * d) / 1e6:.2f} MB; launches "
+          f"per rank {_named(r0['counts'])} / {_named(r1['counts'])} "
+          f"(expected {_named(want_counts)}); seconds: ranks "
+          f"{r0['seconds']:.2f} / {r1['seconds']:.2f}, one process "
+          f"{one['seconds']:.2f} (host clock, synchronised; two processes "
+          f"share one card: a correctness configuration, not a scaling "
+          f"figure) on {card}", flush=True)
+    require(same, f"26b {title}: the ranks' states differ")
+    require(r0["counts"] == r1["counts"] == want_counts,
+            f"26b {title}: launches {r0['counts']}, {r1['counts']}, "
+            f"expected {want_counts}")
+    if fault:
+        require(bad, f"26b {title}: the limits do not see the fault")
+    else:
+        require(not bad, f"26b {title}: {bad[:8]}")
+
+
+def _dp_cli_jobs() -> tuple:
+    """26c's CLI runs on phase 7's records written again in 3 shard files
+    (rank 0 reads 2, rank 1 one): one epoch on the host feed, one on the
+    device cache writing a checkpoint, and a restart for another epoch."""
+    data = DP_DIR / "church64_3shards"
+    if not (data / "metadata.pickle").exists():
+        make_synthetic_dataset(str(data), num=SMOKE_RECORDS, img_size=64,
+                               num_classes=1, seed=SEED, num_shards=3)
+    ckpt = DP_DIR / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = (("host", 1, {"device_cache": False}),
+            ("cache", 1, {"ckpt_dir": str(ckpt)}),
+            ("restart", 2, {"ckpt_dir": str(ckpt)}))
+    jobs = []
+    for label, epochs, extra in runs:
+        cfg = _church64_file(DP_DIR / f"church64_dp_c_{label}.py", data,
+                             epochs, steps_per_call=8, num_devices=2,
+                             **extra)
+        jobs.append({"label": label, "epochs": epochs, "argv": [
+            "--config_path", str(cfg), "--device", "cuda:0",
+            "--dist_backend", "gloo"]})
+    return jobs, ckpt
+
+
+def phase_dp_cli(card: str) -> None:
+    """26c: the CLI on two gloo ranks sharing the card, one
+    ``torch.distributed.run`` of ``sagan_tpu_torch.main`` a run."""
+    jobs, ckpt = _dp_cli_jobs()
+    ranks, lines, seconds = {}, [], 0.0
+    for job in jobs:
+        texts, secs = _launch(f"dp_c_{job['label']}", 2,
+                              ["-m", "sagan_tpu_torch.main", *job["argv"]])
+        seconds += secs
+        ranks[job["label"]] = a, b = [_cli_rank(t) for t in texts]
+        lines.append(f"{job['label']}: steps {a['step']}/{b['step']}, "
+                     f"device cache {a['cache']}/{b['cache']}, digests "
+                     f"{'equal' if a['digest'] == b['digest'] else 'DIFFER'}"
+                     f", ms/step {a['ms']}")
+        require(a["digest"] == b["digest"] and a["step"] == b["step"]
+                and a["total"] == b["total"],
+                f"26c {job['label']}: the ranks disagree")
+    host, cache, restart = (ranks[j["label"]] for j in jobs)
+    spe = host[0]["total"]
+    saved = sorted(os.listdir(ckpt))
+    print(f"phase 26c CLI, 2 gloo ranks on one card, church64 bf16 per-rank "
+          f"batch 64 over 3 uneven shards ({SMOKE_RECORDS} records; rank 0 "
+          f"2 files, rank 1 one, which wraps): {spe} steps an epoch; "
+          f"{'; '.join(lines)}; host feed vs device cache "
+          f"{'bit for bit' if host[0]['digest'] == cache[0]['digest'] else 'DIFFER'}"
+          f"; checkpoints {saved}, restored at steps "
+          f"{[r['restored'] for r in restart]}; launchers {seconds:.1f} s "
+          f"on {card}", flush=True)
+    require(spe == (SMOKE_RECORDS // 2) // DP_BATCH and host[0]["step"] == spe
+            and cache[0]["step"] == spe and restart[0]["step"] == 2 * spe
+            and restart[0]["total"] == 2 * spe,
+            "26c: the ranks did not take steps_per_epoch steps an epoch")
+    require(not any(r["cache"] for r in host)
+            and all(r["cache"] for r in cache + restart),
+            "26c: the feeds are not the host's and the device cache's")
+    require(host[0]["digest"] == cache[0]["digest"],
+            "26c: the device cache and the host feed trained apart")
+    require(saved == [f"ckpt-{spe:08d}.pt", f"ckpt-{2 * spe:08d}.pt"]
+            and all(r["restored"] == spe for r in restart),
+            f"26c checkpoints {saved}, restored "
+            f"{[r['restored'] for r in restart]}")
+
+
+def phase_dp_serve(gen32, card: str, served: dict | None) -> None:
+    """26d: ``GeneratorService`` at ``num_devices`` 1 on phase 4's weights
+    serves phase 4's bytes; two replicas on the one card (``devices``
+    cuda:0 twice, each slice on its own inference thread) serve the
+    one-device images of the same chunks (fp32, within 1 LSB: cuDNN may
+    take other algorithms at half the batch); ``serve --num_devices 2``
+    on one card raises, naming the counts."""
+    weights = ROOT / "build" / "smoke" / "church64_g.npz"
+    config = church64_config("bfloat16")
+    if not weights.exists():
+        export_generator_npz(gen32, str(weights), config)
+    gen = load_generator_npz(config, str(weights), "cuda")
+    svc = GeneratorService(gen, z_dim=config["z_dim"], num_classes=1,
+                           batch=64, ladder=(1, 8), num_devices=1)
+    try:
+        got = {(n, rep): svc.sample(n, rep, -1, 0.0).tobytes()
+               for n, rep in (served or {})}
+    finally:
+        svc.close()
+    same = all(got[key] == body for key, body in (served or {}).items())
+    fp32 = church64_config("float32")
+    gen = load_generator_npz(fp32, str(weights), "cuda")
+    one = GeneratorService(gen, z_dim=128, num_classes=1, batch=64,
+                           ladder=(2, 8))
+    two = GeneratorService(gen, z_dim=128, num_classes=1, batch=64,
+                           ladder=(1, 8), num_devices=2,
+                           devices=["cuda:0", "cuda:0"])
+    try:
+        worst = 0
+        for n, seed in ((1, 0), (8, 1), (64, 2), (70, 3)):
+            a = one.sample(n, seed, -1, 0.0).astype(np.int16)
+            b = two.sample(n, seed, -1, 0.0).astype(np.int16)
+            worst = max(worst, int(np.abs(a - b).max()))
+        ladders = (one.ladder, two.ladder)
+    finally:
+        one.close()
+        two.close()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve_main(["--config_path", str(CONFIG), "--weights",
+                        str(weights), "--num_devices", "2"])
+        refused = "no error"
+    except ValueError as err:
+        refused = str(err)
+    print(f"phase 26d serve: num_devices 1 gives phase 4's bytes for "
+          f"{len(got)} requests: {same if served else 'phase 4 not run'}; "
+          f"two replicas on one card (ladders {ladders}) vs one device, "
+          f"fp32: max |diff| {worst} LSB (tol 1); serve --num_devices 2 "
+          f"raises: {refused} on {card}", flush=True)
+    require(same and worst <= 1 and ladders[0] == ladders[1] == [2, 8, 64],
+            "26d: serving at num_devices 1 or 2 disagrees")
+    require("requested 2 devices, have 1" in refused,
+            f"serve --num_devices 2 on one card: {refused}")
+
+
+def phase_dp(card: str, gen32, served: dict | None) -> None:
+    """Phase 26: data parallelism on the one card (see the module
+    docstring).  Every check runs and prints; the phase then fails on the
+    first that failed."""
+    DP_DIR.mkdir(parents=True, exist_ok=True)
+    failed = []
+
+    def check(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError as err:
+            print(f"phase 26 FAILED: {err}", flush=True)
+            failed.append(err)
+
+    check(phase_dp_one_rank, card)
+    jobs = _dp_step_jobs()
+    ranks, seconds = _launch_ranks(jobs, "dp_b", 2, "gloo")
+    print(f"phase 26b: the two-rank launcher took {seconds:.1f} s (start-up "
+          f"of two processes on one card included)", flush=True)
+    refs = {}   # one process's run of each job (a planted fault's twin's)
+    for i, job in enumerate(jobs):
+        key = (job["name"], job["dtype"])
+        control = None
+        if key not in refs:
+            refs[key] = dp_steps(job, torch.device("cuda"))
+            if job["dtype"] == "float32":
+                control = dp_steps({**job, "images": np.ascontiguousarray(
+                    job["images"][:, ::-1]), "labels": np.ascontiguousarray(
+                    job["labels"][:, ::-1])}, torch.device("cuda"))
+        check(_check_dp_steps, job, [r[i] for r in ranks], refs[key], card,
+              control)
+    check(phase_dp_cli, card)
+    check(phase_dp_serve, gen32, card, served)
+    require(not failed, f"phase 26: {len(failed)} check(s) failed, the "
+                        f"first: {failed[0] if failed else ''}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one "
                                  "NVIDIA GPU (see the module docstring).")
     ap.add_argument("--only", type=int, nargs="+", metavar="PHASE",
                     help="run only these phases (1 always runs; 4 needs 3) "
                          "and print no kernels line and no result line")
+    ap.add_argument("--rank-jobs", metavar="PICKLE",
+                    help="run as one rank of phase 26b's group (started "
+                         "by torch.distributed.run) on the jobs in this "
+                         "file")
     args = ap.parse_args(argv)
+    if args.rank_jobs:
+        return rank_worker(args.rank_jobs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
@@ -3384,17 +4031,17 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
-    on = set(range(1, 26)) if args.only is None else set(args.only) | {1}
+    on = set(range(1, 27)) if args.only is None else set(args.only) | {1}
     r = {}
     phase_build()
     if 2 in on:
         r["head"] = phase_kernels(card)
         phase_all_widths()
-    if {3, 4} & on:
+    gen32, served = None, None
+    if {3, 4, 26} & on:
         gen32 = phase_generator(card)
         if 4 in on:
-            phase_serve(gen32, card)
-        del gen32
+            served = phase_serve(gen32, card)
     if 5 in on:
         r["bwd_head"] = phase_bwd_kernels(card)
         phase_bwd_all_widths()
@@ -3438,6 +4085,9 @@ def main(argv=None) -> int:
         phase_accum128(card)
     if 25 in on:
         phase_evaluate(card)
+    if 26 in on:
+        phase_dp(card, gen32, served)
+    del gen32
     print(f"chip_smoke: phases {', '.join(map(str, sorted(on)))} passed in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     if args.only is not None:

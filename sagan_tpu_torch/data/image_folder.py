@@ -1,10 +1,12 @@
 """Augmenting image-folder loader (``use_image_generator``), the port's own
-copy of ``sagan_tpu/data/image_folder.py`` on one process: class
+copy of ``sagan_tpu/data/image_folder.py``: class
 subfolders in sorted order (a flat folder is one class), images decoded
 with PIL and resized (nearest) to ``img_size``, each drawn through random
 horizontal flips, shifts of up to ±0.3 of the side with nearest-edge fill
 and a brightness factor in [0.7, 1.3], from the epoch's numpy generator,
-so the same folder and seed give the JAX loader's batches.
+so the same folder and seed give the JAX loader's batches.  Process p of
+``process_count`` takes ``files[p::count]``; every process takes the
+global count's ``steps_per_epoch``, so they stay in lockstep.
 """
 
 from __future__ import annotations
@@ -80,14 +82,18 @@ class ImageFolderDataset:
 
     def __init__(self, data_path: str, batch_size: int, img_size: int,
                  data_size: int = -1, seed: int = 0, shift: float = 0.3,
-                 brightness=(0.7, 1.3), hflip: bool = True):
+                 brightness=(0.7, 1.3), hflip: bool = True,
+                 process_index: int = 0, process_count: int = 1):
         self.files, self.num_classes = _scan(data_path)
         if data_size not in (-1, None):
             self.files = self.files[:data_size]
+        total = len(self.files)
+        self.files = self.files[process_index::process_count]
+        self.process_index = process_index
         self.batch_size = batch_size
         self.img_size = img_size
         self.num_records = len(self.files)
-        self.steps_per_epoch = self.num_records // batch_size
+        self.steps_per_epoch = (total // process_count) // batch_size
         self.seed = seed
         self.shift, self.brightness, self.hflip = shift, brightness, hflip
         self.meta = {"img_size": img_size, "num_classes": self.num_classes,
@@ -125,4 +131,5 @@ class ImageFolderDataset:
                     yield imgs.copy(), labels.copy()
                     fill = 0
 
-        return _prefetch(_lockstep(gen, self.steps_per_epoch), PREFETCH_DEPTH)
+        return _prefetch(_lockstep(gen, self.steps_per_epoch,
+                                   self.process_index), PREFETCH_DEPTH)

@@ -1,5 +1,6 @@
 """Host-side data pipeline, the port's own copy of
-``sagan_tpu/data/loader.py`` on one process: TFRecord files -> decoded
+``sagan_tpu/data/loader.py``: TFRecord files -> this process's shard ->
+decoded
 records (the native C++ reader, or the pure-Python codec) -> an in-memory
 cache with an exact per-epoch shuffle, or a streaming shuffle buffer ->
 batches -> a prefetch thread.
@@ -18,9 +19,14 @@ batches -> a prefetch thread.
   records reseeded from the same triple.  Either way the same files and
   seed give the JAX loader's batches, and a resume that replays an epoch
   and skips its consumed batches sees the batches it would have.
-* ``_lockstep`` makes every epoch exactly ``steps_per_epoch`` batches.
-
-Multi-host sharding is not ported (ROADMAP.md Queue 1 item 14).
+* Per-process shards, JAX's rule: with at least ``process_count`` files,
+  process p reads ``files[p::count]`` (and ``data_size // count``
+  records); with fewer, every process walks all files and takes the
+  records whose global index is p modulo the count.
+* ``_lockstep`` makes every epoch exactly ``steps_per_epoch`` batches,
+  ``steps_per_epoch`` coming from the global record count, so every
+  process takes the same number of steps (the collectives stay matched)
+  whatever its shard's length.
 """
 
 from __future__ import annotations
@@ -55,14 +61,16 @@ def _find_files(data_path: str) -> list[str]:
 
 class ImageDataset:
     """Epoch-oriented iterator of (uint8 images [B,S,S,3], int32 labels
-    [B]).  ``use_native`` None takes the native reader when it builds;
-    True raises when it does not."""
+    [B]) of process ``process_index``'s shard, B its ``batch_size``.
+    ``use_native`` None takes the native reader when it builds; True
+    raises when it does not."""
 
     def __init__(self, data_path: str, batch_size: int,
                  data_size: int = -1, shuffle_buffer: int = SHUFFLE_BUFFER,
                  seed: int = 0, num_workers: int = 4,
                  cache_in_memory: bool | None = None,
-                 verify_crc: bool = True, use_native: bool | None = None):
+                 verify_crc: bool = True, use_native: bool | None = None,
+                 process_index: int = 0, process_count: int = 1):
         self.files = _find_files(data_path)
         self.meta = load_metadata(data_path)
         if use_native is None:
@@ -80,25 +88,46 @@ class ImageDataset:
         self.data_size = data_size
         self.shuffle_buffer = shuffle_buffer
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         total = self.num_records if data_size in (-1, None) \
             else min(data_size, self.num_records)
-        self.steps_per_epoch = total // batch_size
+        per_host = total // process_count
+        self.steps_per_epoch = per_host // batch_size
         if cache_in_memory is None:
             cache_in_memory = \
-                total * self.img_size * self.img_size * 3 <= CACHE_LIMIT
+                per_host * self.img_size * self.img_size * 3 <= CACHE_LIMIT
         self.cache_in_memory = cache_in_memory
         self._cache = None
 
     def _items(self) -> Iterator[tuple]:
-        """(uint8 [S,S,3] image, int label) in the JAX loader's
-        round-robin file order, truncated to ``data_size``."""
+        """(uint8 [S,S,3] image, int label) of this process's shard, in
+        the JAX loader's order: by file (the shard's files in the
+        round-robin of the decode workers, ``data_size // count`` records)
+        when there are at least ``process_count`` files, else by global
+        record index stride over the files read in order (truncated to
+        ``data_size`` records in all)."""
         limit = self.data_size if self.data_size not in (-1, None) else None
-        produced = 0
-        for item in self._multi_file_items(self.files):
-            if limit is not None and produced >= limit:
-                return
-            yield item
-            produced += 1
+        pid, count = self.process_index, self.process_count
+        if count == 1 or len(self.files) >= count:
+            if limit is not None:
+                limit //= count
+            produced = 0
+            for item in self._multi_file_items(self.files[pid::count]):
+                if limit is not None and produced >= limit:
+                    return
+                yield item
+                produced += 1
+            return
+        index = 0
+        for path in self.files:
+            for chunk in self._file_chunks(path):
+                for item in _records(chunk):
+                    if limit is not None and index >= limit:
+                        return
+                    if index % count == pid:
+                        yield item
+                    index += 1
 
     def _multi_file_items(self, files: list) -> Iterator[tuple]:
         """``files`` read by up to ``num_workers`` workers, merged by a
@@ -212,7 +241,7 @@ class ImageDataset:
                 yield order[i * self.batch_size:
                             (i + 1) * self.batch_size].astype(np.int32)
 
-        return _lockstep(gen, self.steps_per_epoch)
+        return _lockstep(gen, self.steps_per_epoch, self.process_index)
 
     def epoch(self, epoch_index: int = 0) -> Iterator[tuple]:
         """One pass over the data in whole batches (the remainder is
@@ -241,7 +270,8 @@ class ImageDataset:
                         yield imgs.copy(), labels.copy()
                         fill = 0
 
-        return _prefetch(_lockstep(gen, self.steps_per_epoch), PREFETCH_DEPTH)
+        return _prefetch(_lockstep(gen, self.steps_per_epoch,
+                                   self.process_index), PREFETCH_DEPTH)
 
 
 def _rotation(sources: list) -> Iterator[tuple]:
@@ -283,11 +313,13 @@ def _put_with_stop(q: "queue.Queue", item, stop: threading.Event) -> bool:
     return False
 
 
-def _lockstep(make_gen, n: int) -> Iterator[tuple]:
+def _lockstep(make_gen, n: int, host: int = 0) -> Iterator[tuple]:
     """Yield EXACTLY ``n`` batches: truncate a long stream and wrap around
-    (re-shuffled, pass index ``attempt``) a short one.  ``make_gen`` takes
-    the pass index and derives its RNG from it, so the stream stays a pure
-    function of the config."""
+    (re-shuffled, pass index ``attempt``) a short one, so process
+    ``host``, whatever its shard's length, takes as many steps as the
+    others (a short one would leave them waiting in the gradient
+    all-reduce).  ``make_gen`` takes the pass index and derives its RNG
+    from it, so the stream stays a pure function of the config."""
     count = 0
     attempt = 0
     while count < n:
@@ -299,11 +331,12 @@ def _lockstep(make_gen, n: int) -> Iterator[tuple]:
             if count == n:
                 return
         if not produced:
-            raise RuntimeError(f"data stream yielded no full batch "
-                               f"(need {n})")
+            raise RuntimeError(f"host {host}: data stream yielded no full "
+                               f"batch (need {n})")
         attempt += 1
-        print(f"data: stream ran short at {count}/{n} batches; wrapping "
-              f"(pass {attempt})", flush=True)
+        print(f"data: host {host} local stream ran short at {count}/{n} "
+              f"batches; wrapping (pass {attempt}) to keep the global step "
+              f"count in lockstep", flush=True)
 
 
 def _prefetch(it: Iterator, depth: int) -> Iterator:
@@ -353,16 +386,21 @@ def get_dataset_and_info(config: dict):
     """(dataset, config with the dataset's ``img_size``, ``num_classes``
     and ``num_records`` merged in).  ``use_image_generator`` takes the
     augmenting image-folder loader (``data/image_folder.py``), else the
-    TFRecord one."""
+    TFRecord one; either serves process ``process_index``'s shard in
+    batches of ``global_batch_size // process_count``."""
     config = dict(config)
-    batch = config.get("global_batch_size", config["batch_size"])
+    process_count = config.get("process_count", 1)
+    process_index = config.get("process_index", 0)
+    batch = config.get("global_batch_size",
+                       config["batch_size"]) // process_count
     if config.get("use_image_generator"):
         from .image_folder import ImageFolderDataset
         ds = ImageFolderDataset(
             config["data_path"], batch_size=batch,
             img_size=config["img_size"],
             data_size=config.get("data_size", -1),
-            seed=config.get("data_seed", 0))
+            seed=config.get("data_seed", 0),
+            process_index=process_index, process_count=process_count)
     else:
         ds = ImageDataset(
             config["data_path"], batch_size=batch,
@@ -372,6 +410,7 @@ def get_dataset_and_info(config: dict):
             num_workers=config.get("data_workers", 4),
             cache_in_memory=config.get("cache_dataset"),
             verify_crc=config.get("verify_crc", True),
+            process_index=process_index, process_count=process_count,
         )
     config.update(ds.meta)
     return ds, config

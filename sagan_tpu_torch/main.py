@@ -6,28 +6,79 @@
 ``--debug`` truncates the run (at most 2000 records and 2 epochs) and
 writes no checkpoints, so a smoke run never writes into, or resumes from,
 the real run's checkpoint directory.
+
+Data-parallel over W cards, one process a card:
+
+    python -m torch.distributed.run --nproc_per_node W \\
+        -m sagan_tpu_torch.main --config_path ... [--dist_backend nccl|gloo]
+
+Under the launcher (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT`` in the environment) each process joins
+the group (``--dist_backend``: nccl on the card, gloo with ``--device
+cpu``), trains on ``cuda:<LOCAL_RANK>`` and prints its step and a digest
+of its state at the end (equal on every rank); the group is left at exit.
+Without those variables nothing changes.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from pprint import pprint
+
+import torch
+
+
+def state_digest(trainer) -> str:
+    """sha1 of every parameter and buffer of G and D and the EMA, in
+    state-dict order: equal on every rank while the replicas agree bit
+    for bit."""
+    digest = hashlib.sha1()
+    s = trainer.state
+    for tensors in (s.gen.state_dict(), s.disc.state_dict(), s.ema or {}):
+        for name, t in tensors.items():
+            digest.update(name.encode())
+            digest.update(t.detach().cpu().contiguous().view(-1)
+                          .view(torch.uint8).numpy())
+    return digest.hexdigest()
 
 
 def main(argv=None):
+    from .parallel import mesh
     from .train.trainer import Trainer
     from .utils.config import get_parameters, load_config_file, resolve_config
 
     args = get_parameters(argv)
-    config = load_config_file(args.config_path)
-    if args.debug:
-        size = config.get("data_size", -1)
-        config["data_size"] = min(size if size > 0 else 10**9, 2000)
-        config["epoch"] = min(config.get("epoch", 1), 2)
-        config["ckpt_dir"] = None
-    config = resolve_config(config)
-    pprint(config)
-    trainer = Trainer(config, device=args.device)
-    trainer.train()
+    launched = "WORLD_SIZE" in os.environ
+    device = args.device
+    if launched:
+        backend = args.dist_backend or (
+            "gloo" if args.device.startswith("cpu") else "nccl")
+        device = mesh.rank_device(args.device, backend)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)   # NCCL's card, before its start
+        mesh.initialize_distributed(
+            backend, num_processes=int(os.environ["WORLD_SIZE"]),
+            process_id=int(os.environ["RANK"]))
+    try:
+        config = load_config_file(args.config_path)
+        if args.debug:
+            size = config.get("data_size", -1)
+            config["data_size"] = min(size if size > 0 else 10**9, 2000)
+            config["epoch"] = min(config.get("epoch", 1), 2)
+            config["ckpt_dir"] = None
+        config = resolve_config(config)
+        if mesh.process_index() == 0:
+            pprint(config)
+        trainer = Trainer(config, device=device)
+        trainer.train()
+        if launched:
+            print(f"rank {mesh.process_index()} of {mesh.process_count()}: "
+                  f"step {trainer.global_step()} state "
+                  f"{state_digest(trainer)}", flush=True)
+    finally:
+        if launched:
+            mesh.shutdown_distributed()
     return trainer
 
 

@@ -30,6 +30,12 @@ recompute's W̄ is the forward's.
 accumulation exact BN statistics (``sagan_tpu/nn/layers.py:273-330``):
 between them each BN adds its batch (mean, E[x²]) into its buffers, and
 finalize applies the momentum once to the micro-batches' average.
+
+Under a ``torch.distributed`` group BN is cross-replica: E[x] and E[x²]
+are averaged over the ranks (``parallel.mesh.all_reduce_mean_grad``, one
+all-reduce a layer) before the variance, as JAX's ``_batch_moments``
+pmeans them, so the running stats move by the global batch's moments on
+every rank and the gradient is the global batch's.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_spectral import spectral_norm_group
 from ..ops.spectral import spectral_normalize
+from ..parallel.mesh import all_reduce_mean_grad, distributed
 from . import initializers as init
 
 BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
@@ -351,12 +358,16 @@ def _bn(layer, x, gamma, beta):
     running stats updated in place as m·old + (1 − m)·batch with m = 0.99
     (while ``layer.accumulating``: E[x] and E[x²] added to them instead);
     gradients flow through the moments.  (``F.batch_norm``'s running
-    update would store the unbiased variance.)  The recompute of a
+    update would store the unbiased variance.)  Under a group the moments
+    are the mean of the ranks' (cross-replica BN).  The recompute of a
     :func:`remat` stage writes no buffer.  Eval: the running stats."""
     x32 = x.float()
     if layer.training:
         mean = x32.mean(dim=(0, 2, 3))
         mean_sq = x32.square().mean(dim=(0, 2, 3))
+        if distributed():
+            mean, mean_sq = all_reduce_mean_grad(
+                torch.stack([mean, mean_sq])).unbind(0)
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
         if not _REMAT.replay:
             with torch.no_grad():

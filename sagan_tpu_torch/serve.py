@@ -5,7 +5,7 @@ Port of ``sagan_tpu/serve.py``:
 
     python -m sagan_tpu_torch.serve --config_path cfg.py [--weights g.npz] \\
         [--port 8000] [--batch 64] [--ladder 1,8] [--host 127.0.0.1] \\
-        [--step N] [--device cuda|cpu]
+        [--step N] [--device cuda|cpu] [--num_devices M]
 
 Without ``--weights`` it serves the EMA generator of the newest port
 checkpoint in the config's ``ckpt_dir``, or the one of step ``--step``
@@ -20,7 +20,11 @@ device-side-uint8 serve function (:func:`generate.build_serve_fn`):
   the full batch;
 * **de-normalization on the device**: the host fetch moves uint8;
 * **one inference thread**: one generator forward in flight at a time;
-  concurrent HTTP readers queue (the JAX server's inference lock).
+  concurrent HTTP readers queue (the JAX server's inference lock);
+* **data-parallel over M cards** (``--num_devices``, JAX's serving over a
+  1-D mesh): G replicated on cards 0…M−1, every batch size a multiple of
+  M, each chunk's latents split into M equal slices, each run on its
+  card's own inference thread, the images gathered in order.
 
 Endpoints:
   GET /healthz                          -> 200 "ok" once the model is hot
@@ -34,6 +38,7 @@ Endpoints:
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 import time
@@ -47,9 +52,6 @@ import torch
 from .generate import build_serve_fn, draw_latents, load_generator
 from .utils.config import load_config_file, resolve_config
 from .utils.device import resolve_device
-
-MULTI_GPU_ITEM = ("serving over several GPUs comes with the multi-GPU slice, "
-                  "ROADMAP.md Queue 1 item 14")
 
 # Per-request output ceiling in raw uint8 bytes (64 MiB).  /sample's n cap
 # derives from this and the image size, so one request can never hold the
@@ -79,36 +81,49 @@ class GeneratorService:
     them (the JAX server's inference lock): PyTorch keeps cuDNN's
     execution plans per thread, so a forward on each HTTP handler's fresh
     thread would plan every convolution anew (~50 ms a request on an
-    H100).  ``close()`` stops the thread.  ``num_devices > 1`` is not
-    ported yet and raises."""
+    H100).  ``close()`` stops the threads.
+
+    ``num_devices`` M > 1 serves data-parallel: G is copied to each of
+    ``devices`` (default: cards 0…M−1, or M times the CPU for a G there;
+    more cards than are visible raises), every batch size rounds up to a
+    multiple of M, and device i's slice of a chunk runs on device i's own
+    inference thread (device 0's also draws the latents and gathers the
+    images in order).  Tests pass ``devices=["cpu", "cpu"]``."""
 
     def __init__(self, gen, z_dim: int, num_classes: int, batch: int,
                  seed: int = 0, num_devices: int = 1,
-                 ladder: tuple = (1, 8)):
-        if (num_devices or 1) > 1:
-            raise NotImplementedError(MULTI_GPU_ITEM)
+                 ladder: tuple = (1, 8), devices=None):
         self.z_dim = z_dim
         self.num_classes = max(1, num_classes)
         self.device = next(gen.parameters()).device
-        self._worker = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="sagan-inference")
+        self._devices = _serving_devices(self.device, num_devices or 1,
+                                         devices)
+        self.num_devices = len(self._devices)
+        self._fn = build_serve_fn(gen)
+        self._replica_fns = [build_serve_fn(copy.deepcopy(gen).to(d))
+                             for d in self._devices[1:]]
+        self._workers = [ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"sagan-inference-{i}")
+            for i in range(self.num_devices)]
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self.requests_total = 0
         self.images_total = 0
         self.images_computed_total = 0
         self.sample_seconds_total = 0.0
-        self.num_devices = 1
+        # every compiled size splits evenly over the devices
+        m = self.num_devices
+        batch = -(-batch // m) * m
         sizes = {batch}
         for s in ladder or ():
-            if 0 < int(s) <= batch:
-                sizes.add(int(s))
+            s = -(-int(s) // m) * m
+            if 0 < s <= batch:
+                sizes.add(s)
         self.ladder = sorted(sizes)
         self.batch = batch
-        self._fn = build_serve_fn(gen)
         try:
-            out = self._worker.submit(self._warm_up).result()
+            out = self._workers[0].submit(self._warm_up).result()
         except BaseException:
-            self._worker.shutdown(wait=False)
+            self.close(wait=False)
             raise
         self.img_size = int(out.shape[1])
         self.max_request_images = request_cap(self.ladder[0], self.img_size)
@@ -117,12 +132,24 @@ class GeneratorService:
         for s in self.ladder:
             z = torch.zeros((s, self.z_dim), device=self.device)
             labels = torch.zeros((s,), dtype=torch.long, device=self.device)
-            out = self._fn(z, labels).cpu().numpy()
+            out = self._forward(z, labels)
         return out
 
-    def close(self) -> None:
-        """Stop the inference thread (after any forward in flight)."""
-        self._worker.shutdown(wait=True)
+    def _forward(self, z, labels) -> np.ndarray:
+        """A chunk's uint8 images, on device 0's thread: slice i of the
+        latents on device i's thread (slice 0 here), gathered in order."""
+        zs, ls = z.chunk(self.num_devices), labels.chunk(self.num_devices)
+        others = [worker.submit(_serve_slice, fn, zi, li, d)
+                  for worker, fn, zi, li, d in zip(
+                      self._workers[1:], self._replica_fns, zs[1:], ls[1:],
+                      self._devices[1:])]
+        first = self._fn(zs[0], ls[0]).cpu().numpy()
+        return np.concatenate([first] + [f.result() for f in others])
+
+    def close(self, wait: bool = True) -> None:
+        """Stop the inference threads (after any forward in flight)."""
+        for worker in self._workers:
+            worker.shutdown(wait=wait)
 
     def _chunks(self, n: int):
         """Ladder decomposition of ``n``: greedy
@@ -157,8 +184,8 @@ class GeneratorService:
         """n uint8 images [n, H, W, 3] from ladder chunks, sliced to n.
         A ``seed`` gives the same images every time; without one the
         server's own latent stream advances."""
-        return self._worker.submit(self._sample, n, seed, class_id,
-                                   truncation).result()
+        return self._workers[0].submit(self._sample, n, seed, class_id,
+                                       truncation).result()
 
     def _sample(self, n, seed, class_id, truncation) -> np.ndarray:
         out = []
@@ -168,7 +195,7 @@ class GeneratorService:
         for size in self._chunks(n):
             z, labels = draw_latents(rng, size, self.z_dim, self.num_classes,
                                      truncation, class_id)
-            out.append(self._fn(z, labels).cpu().numpy())
+            out.append(self._forward(z, labels))
             self.images_computed_total += size
         self.requests_total += 1
         self.images_total += n
@@ -188,6 +215,34 @@ class GeneratorService:
             f"sagan_sample_seconds_total {self.sample_seconds_total:.6f}\n"
             "# TYPE sagan_serving_devices gauge\n"
             f"sagan_serving_devices {self.num_devices}\n")
+
+
+def _serving_devices(home: torch.device, num_devices: int,
+                     devices=None) -> list:
+    """The devices G serves from: ``devices`` as given (their count must
+    be ``num_devices`` when that is above 1), else ``home`` for one, else
+    cards 0…M−1 (a G on the CPU: M times the CPU, which counts as one
+    device), raising past the visible count as JAX's ``make_mesh``."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if num_devices > 1 and num_devices != len(devices):
+            raise ValueError(f"num_devices={num_devices} contradicts the "
+                             f"{len(devices)} devices passed")
+        if devices[0] != home:
+            raise ValueError(f"the first serving device {devices[0]} is not "
+                             f"G's, {home}")
+        return devices
+    if num_devices == 1:
+        return [home]
+    have = torch.cuda.device_count() if home.type == "cuda" else 1
+    if num_devices > have:
+        raise ValueError(f"requested {num_devices} devices, have {have}")
+    return [torch.device("cuda", i) for i in range(num_devices)]
+
+
+def _serve_slice(fn, z, labels, device) -> np.ndarray:
+    """``fn`` on ``device``'s copy of (z, labels), fetched as uint8."""
+    return fn(z.to(device), labels.to(device)).cpu().numpy()
 
 
 def _make_handler(svc: GeneratorService):
@@ -307,7 +362,7 @@ def main(argv=None):
                          "requests without paying the full batch; '' runs "
                          "only --batch")
     ap.add_argument("--num_devices", type=int, default=1,
-                    help="GPUs to serve from (only 1 is ported)")
+                    help="cards to serve from, data-parallel (0..M-1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu to run there)")
@@ -316,8 +371,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     # fp32 convolutions stay fp32, as the JAX layers ask for HIGHEST
     torch.backends.cudnn.allow_tf32 = False
-    if args.num_devices > 1:
-        raise NotImplementedError(MULTI_GPU_ITEM)
     config = resolve_config(load_config_file(args.config_path))
     try:
         ladder = tuple(int(s) for s in args.ladder.split(",") if s.strip())
@@ -327,11 +380,13 @@ def main(argv=None):
     gen = load_generator(config, args.weights, device, args.step)
     svc = GeneratorService(
         gen, z_dim=config["z_dim"], num_classes=config.get("num_classes", 1),
-        batch=args.batch, seed=args.seed, ladder=ladder)
+        batch=args.batch, seed=args.seed, ladder=ladder,
+        num_devices=args.num_devices)
     srv = make_server(svc, args.host, args.port)
     host, port = srv.server_address[:2]
     print(f"serving {svc.img_size}px generator on http://{host}:{port} "
-          f"(batch ladder {svc.ladder}, {device})", flush=True)
+          f"(batch ladder {svc.ladder}, {device}, {args.num_devices} "
+          f"device(s))", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -9,7 +9,14 @@ files); weights cross over as the JAX export npz (``convert.py``).
 
 Each file is written under a temporary name and ``os.replace``d, so a
 reader never sees half a checkpoint; the newest ``max_to_keep`` are kept,
-and a restore takes the newest file that loads.
+and a restore takes the newest file that loads, renaming each unreadable
+one to ``<name>.corrupt`` (quarantine) so a later save of its step is not
+shadowed by it.
+
+Under a ``torch.distributed`` group the directory is shared: process 0
+alone writes, renames and deletes; every process restores the same file
+after a barrier, and a quarantine happens between barriers, as JAX's
+``_quarantine`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import re
 
 import torch
 
+from ..parallel import mesh
+
 _NAME = re.compile(r"^ckpt-(\d{8})\.pt$")
 
 
@@ -27,20 +36,27 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 10):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        self.primary = mesh.process_index() == 0
+        if self.primary:
+            os.makedirs(self.directory, exist_ok=True)
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt-{step:08d}.pt")
 
     def all_steps(self) -> list[int]:
         """Saved steps, oldest first."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(
             _NAME.match, os.listdir(self.directory)) if m)
 
-    def save(self, step: int, payload: dict) -> str:
+    def save(self, step: int, payload: dict) -> str | None:
         """Write ``payload`` (tensors on any device, plain Python values)
         as step ``step``'s checkpoint; drop all but the newest
-        ``max_to_keep``.  Returns the path."""
+        ``max_to_keep``.  Returns the path (None on a process other than
+        0, which writes nothing)."""
+        if not self.primary:
+            return None
         path = self.path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -60,7 +76,9 @@ class CheckpointManager:
 
     def restore_latest(self) -> dict | None:
         """The newest checkpoint that loads (tensors on the CPU), or None
-        when the directory has none."""
+        when the directory has none; each unreadable newer one is
+        quarantined."""
+        mesh.barrier()
         for step in reversed(self.all_steps()):
             try:
                 return torch.load(self.path(step), map_location="cpu",
@@ -69,4 +87,17 @@ class CheckpointManager:
                     pickle.UnpicklingError) as err:
                 print(f"checkpoint at step {step} is unreadable ({err}); "
                       f"trying the one before", flush=True)
+                self._quarantine(step)
         return None
+
+    def _quarantine(self, step: int) -> None:
+        """Rename step ``step``'s file to ``<name>.corrupt``: process 0
+        alone, between barriers, so no process lists the step while
+        another renames it."""
+        mesh.barrier()
+        if self.primary:
+            dst = self.path(step) + ".corrupt"
+            os.replace(self.path(step), dst)
+            print(f"quarantined unreadable checkpoint step {step} -> {dst}",
+                  flush=True)
+        mesh.barrier()

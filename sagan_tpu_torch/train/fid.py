@@ -4,7 +4,9 @@
   float64 (the JAX module's framework-free code, copied), with the
   matrix square root through the symmetric product Σ₁^½ Σ₂ Σ₁^½.
 * Real-set statistics cached under ``.cache/`` by dataset, size, count,
-  data view and extractor, published atomically.
+  data view and extractor (and process, under a group of several: each
+  process measures its own shard against the same seeded fakes),
+  published atomically.
 * Feature extractors: ``inception`` (``train/inception.py``, from a local
   npz of InceptionV3 weights) and the random-feature proxy
   :class:`RandomConvFeatures`.  The port draws the proxy's kernels from a
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import _same_padding
+from ..parallel import mesh
 
 PROXY_BACKEND = "random_proxy_torch"
 
@@ -228,9 +231,9 @@ def cache_path(config: dict, num_images: int, cache_tag: str) -> str:
     """``.cache/{name}_{img_size}_{n}_d{data_size}s{data_seed}_{tag}.pkl``,
     JAX's key: the dataset's name (a sha1 of its path when unset), the
     data view (truncation and shuffle seed pick the first ``n`` records)
-    and the extractor.  JAX adds ``_p{process_index}`` in multi-process
-    runs; the port runs one process until multi-GPU lands (ROADMAP.md
-    Queue 1 item 14)."""
+    and the extractor; under a group of several processes also
+    ``_p{process_index}``, as JAX's: each process reads its own shard, so
+    their real statistics must not share a file."""
     name = config.get("dataset")
     if not name:
         # two datasets evaluated from one working directory must not
@@ -238,6 +241,8 @@ def cache_path(config: dict, num_images: int, cache_tag: str) -> str:
         path = os.path.abspath(str(config.get("data_path", "data")))
         name = "data_" + hashlib.sha1(path.encode()).hexdigest()[:10]
     view = f"d{config.get('data_size', -1)}s{config.get('data_seed', 0)}"
+    if mesh.process_count() > 1:
+        view += f"_p{mesh.process_index()}"
     return os.path.join(".cache", f"{name}_{config['img_size']}_"
                                   f"{num_images}_{view}_{cache_tag}.pkl")
 

@@ -1,4 +1,4 @@
-"""GAN trainer on one device, port of ``sagan_tpu/train/trainer.py``.
+"""GAN trainer, one card a process, port of ``sagan_tpu/train/trainer.py``.
 
 :func:`build_train_step` gives the step of the JAX package's
 ``build_train_step`` (``steps_per_call`` K sequential steps per call,
@@ -24,6 +24,14 @@ metrics averaged over them).  One step:
 * metrics: G/D loss, global gradient norms, the D-health fractions, and
   per-variable G means and gradient norms (and D's gradient norms).
 
+Data parallelism (``parallel/mesh.py``): under a ``torch.distributed``
+group each rank runs the step on its own rows of the global batch; each D
+update's gradients, loss and health and the G update's gradients and loss
+are mean-all-reduced before the optimizer (after the micro-batch mean),
+as JAX pmeans them, and BN's moments are the ranks' mean (cross-replica
+BN).  No ``DistributedDataParallel``: its reducer hooks never fire under
+``torch.autograd.grad``.
+
 The port keeps the state in its modules and optimizers and updates them in
 place (:class:`TrainState`); gradients are taken with
 ``torch.autograd.grad`` of each net's loss with respect to that net's
@@ -31,7 +39,9 @@ parameters only.  Each step draws its randomness from device
 ``torch.Generator``s seeded by (seed, step, purpose), so a resumed run
 draws what an unbroken one would, with no generator state to save; the
 numbers differ from JAX's threefry streams, so a caller that needs JAX's
-latents passes them in (``latents_k``).
+latents passes them in (``latents_k``).  The draws are the global batch's,
+of which a rank takes its rows, so W ranks at batch B draw what one
+process draws at batch W·B.
 
 :class:`Trainer` is the epoch loop: uint8 batches fed from the host, or
 gathered on the device from the whole dataset uploaded there once
@@ -41,7 +51,11 @@ sample grids of the EMA generator, checkpoints in the port's own format,
 FID (and IS) epochs every ``fid_epoch_freq`` epochs (``train/fid.py``,
 ``train/iscore.py``), a profiler trace of calls 10-20 of the first epoch
 (``profile_dir``), save-and-exit on SIGTERM/SIGINT and an exact
-mid-epoch resume, at the JAX trainer's cadences.
+mid-epoch resume, at the JAX trainer's cadences.  Under a group each rank
+trains on its own card (the CLI's ``cuda:<LOCAL_RANK>``, ``main.py``),
+feeds its own shard of the data (the device cache holds the rank's shard,
+padded to the largest), and only process 0 writes summaries, sample
+grids, checkpoints, the profiler trace and the epoch and FID lines.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from ..data.loader import get_dataset_and_info
 from ..models import get_discriminator, get_generator
 from ..nn.layers import bn_accum_begin, bn_accum_finalize, bn_moment_paths
 from ..ops.losses import get_loss
+from ..parallel import mesh
 from ..utils.device import resolve_device
 from ..utils.images import make_grid, save_image_grid
 from ..utils.profiling import TraceWindow
@@ -112,6 +127,18 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def _mean_over_ranks(grads, loss, health: dict) -> tuple:
+    """``lax.pmean`` of an update's fp32 gradients, loss and health, in one
+    all-reduce; as given without a group."""
+    if not mesh.distributed():
+        return grads, loss, health
+    keys = list(health)
+    out = mesh.all_reduce_mean([*grads, loss.float(),
+                                *(health[k].float() for k in keys)])
+    n = len(grads)
+    return out[:n], out[n], dict(zip(keys, out[n + 1:]))
+
+
 def _apply(opt, params, grads, lr: float) -> None:
     """One optimizer update with ``grads``; no ``.grad`` outlives it."""
     set_lr(opt, lr)
@@ -152,6 +179,9 @@ class TrainStep:
         self.exact_accum_bn = self.accum > 1 and config.get("exact_accum_bn",
                                                             True)
         self.seed = config.get("seed", 0)
+        # this rank's rows of each step's global draws
+        self.rank = config.get("process_index", 0)
+        self.ranks = config.get("process_count", 1)
         self.sched_g, self.sched_d = sched_g, sched_d
         # per-variable metrics in the JAX order, and where each sits
         self.g_names, self.d_names = jax_order(g_names), jax_order(d_names)
@@ -159,19 +189,25 @@ class TrainStep:
         self._d_perm = [list(d_names).index(n) for n in self.d_names]
 
     def latents(self, step: int, batch: int, device) -> dict:
-        """The randomness of step ``step``: ``{"flip": bool [B] or None,
-        "d": [(z, labels)] per D update, "g": (z, labels)}``."""
+        """The randomness of step ``step`` for a rank's batch ``batch``:
+        ``{"flip": bool [B] or None, "d": [(z, labels)] per D update,
+        "g": (z, labels)}``, this rank's rows [r·B, (r+1)·B) of the draws
+        of the global batch."""
+        total = batch * self.ranks
+        rows = slice(self.rank * batch, (self.rank + 1) * batch)
+
         def draw(purpose):
             rng = seeded(device, self.seed, 1, step, purpose)
-            z = torch.randn(batch, self.z_dim, device=device, generator=rng)
-            labels = torch.randint(0, self.num_classes, (batch,),
+            z = torch.randn(total, self.z_dim, device=device, generator=rng)
+            labels = torch.randint(0, self.num_classes, (total,),
                                    device=device, generator=rng)
-            return z, labels
+            return z[rows], labels[rows]
 
         flip = None
         if self.random_flip:
             rng = seeded(device, self.seed, 1, step, _FLIP)
-            flip = torch.rand(batch, device=device, generator=rng) < 0.5
+            flip = (torch.rand(total, device=device, generator=rng)
+                    < 0.5)[rows]
         return {"flip": flip, "g": draw(_G),
                 "d": [draw(_D + i) for i in range(self.update_ratio)]}
 
@@ -265,6 +301,8 @@ class TrainStep:
 
             loss_d, grads_d, health = self._accumulated((gen, disc), d_micro,
                                                         micro)
+            grads_d, loss_d, health = _mean_over_ranks(grads_d, loss_d,
+                                                       health)
             _apply(state.opt_d, d_params, grads_d,
                    self.sched_d(state.step * self.update_ratio + i))
             self._mark("d_adam")
@@ -279,6 +317,7 @@ class TrainStep:
             return loss, torch.autograd.grad(loss, g_params), {}
 
         loss_g, grads_g, _ = self._accumulated((gen, disc), g_micro, micro)
+        grads_g, loss_g, _ = _mean_over_ranks(grads_g, loss_g, {})
         self._mark("g_fwd_bwd")
         _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
         self._mark("g_adam")
@@ -333,26 +372,27 @@ def build_train_step(config, sched_g, sched_d, gen, disc) -> TrainStep:
                      [n for n, _ in disc.named_parameters()])
 
 
-def build_device_cache(ds, device) -> tuple:
+def build_device_cache(ds, device, rows: int | None = None) -> tuple:
     """The dataset's decoded uint8 images [n, S, S, 3] and int32 labels
-    [n] (``ds.materialized()``) uploaded to ``device`` once."""
+    [n] (``ds.materialized()``, this rank's shard) uploaded to ``device``
+    once, zero-padded to ``rows`` records (JAX's per-host rule: every
+    rank holds the largest shard's size; the index batches never reach
+    the padding)."""
     imgs, labels = ds.materialized()
+    pad = (rows or len(labels)) - len(labels)
+    if pad:
+        imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]),
+                                              imgs.dtype)])
+        labels = np.concatenate([labels, np.zeros((pad,), labels.dtype)])
     return (torch.from_numpy(imgs).to(device),
             torch.from_numpy(labels).to(device))
 
 
 def _check_ported(config) -> None:
     """Raise for what the JAX trainer does and the port does not yet."""
-    unported = [
-        (config.get("num_devices", 1) > 1,
-         f"num_devices={config.get('num_devices')}: multi-GPU training, "
-         f"ROADMAP.md Queue 1 item 14"),
-        (config.get("model_parallel", 1) > 1,
-         "model_parallel > 1, ROADMAP.md Queue 1 item 14"),
-    ]
-    for failed, what in unported:
-        if failed:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if config.get("model_parallel", 1) > 1:
+        raise NotImplementedError(
+            "not ported yet: model_parallel > 1, ROADMAP.md Queue 1 item 21")
 
 
 class Trainer:
@@ -361,6 +401,7 @@ class Trainer:
 
     def __init__(self, config: dict, device: str | torch.device = "cuda"):
         _check_ported(config)
+        self.primary = mesh.process_index() == 0
         self.device = resolve_device(device)
         # fp32 products stay fp32, as the JAX layers ask for HIGHEST
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -411,7 +452,7 @@ class Trainer:
         self._gen_eval = None
 
         self.writer = (SummaryWriter(config["log_dir"])
-                       if config.get("log_dir") else None)
+                       if config.get("log_dir") and self.primary else None)
         self.ckpt_mgr = None
         if config.get("ckpt_dir"):
             self.ckpt_mgr = CheckpointManager(config["ckpt_dir"],
@@ -508,7 +549,9 @@ class Trainer:
                     "exact resume against it")
             return
         budget = config.get("device_cache_budget_mb", 2048) * (1 << 20)
-        est = len(ds.materialized()[1]) * ds.img_size * ds.img_size * 3
+        # every rank holds the largest shard's size (agreed by all)
+        rows = mesh.all_reduce_max(len(ds.materialized()[1]))
+        est = rows * ds.img_size * ds.img_size * 3
         if est > budget:
             if mode is True:
                 raise ValueError(
@@ -516,10 +559,12 @@ class Trainer:
                     f"~{est >> 20} MB"
                     f" > device_cache_budget_mb={budget >> 20}")
             return
-        self._device_data = build_device_cache(ds, self.device)
+        self._device_data = build_device_cache(ds, self.device, rows)
         imgs, labels = ds.materialized()
+        shard = (f" (this rank's shard, padded to {rows})"
+                 if mesh.distributed() else "")
         print(f"device cache: {imgs.nbytes >> 20} MB uploaded to "
-              f"{self.device} ({len(labels)} records); feeding index "
+              f"{self.device} ({len(labels)} records{shard}); feeding index "
               f"batches", flush=True)
 
     def feed(self) -> str:
@@ -624,7 +669,7 @@ class Trainer:
         fid_freq = config.get("fid_epoch_freq", 0)
         tracer = (TraceWindow(config["profile_dir"], start=10, stop=20,
                               device=self.device)
-                  if config.get("profile_dir") else None)
+                  if config.get("profile_dir") and self.primary else None)
         resume_skip = (self.global_step() % self.steps_per_epoch) // K
         if resume_skip:
             print(f"resuming mid-epoch: skipping {resume_skip} consumed "
@@ -642,7 +687,7 @@ class Trainer:
                     tracer.step(count)   # calls [10, 20) of the first epoch
                 metrics = self.train_step(self.state, images, labels)
                 count += 1
-                if self._preempted:
+                if self._stop_requested():
                     if tracer:
                         tracer.close()
                     self._save_on_preemption()
@@ -702,22 +747,23 @@ class Trainer:
                              p.detach().float().cpu().numpy().ravel()
                              for n, p in net.named_parameters()}, epoch)
                 self.writer.flush()
-            print(f"epoch {epoch}: G_loss={mean['G_loss']:.4f} "
-                  f"D_loss={mean['D_loss']:.4f} "
-                  f"D(real)={mean['D_real_mean']:+.2f} "
-                  f"D(fake)={mean['D_fake_mean']:+.2f} "
-                  f"in_margin={mean['D_real_in_margin']:.2f}/"
-                  f"{mean['D_fake_in_margin']:.2f} feed={self.feed()} "
-                  f"time={epoch_time:.1f}s "
-                  f"({imgs_per_sec:.1f} imgs/s, {step_ms:.2f} ms/step)",
-                  flush=True)
+            if self.primary:
+                print(f"epoch {epoch}: G_loss={mean['G_loss']:.4f} "
+                      f"D_loss={mean['D_loss']:.4f} "
+                      f"D(real)={mean['D_real_mean']:+.2f} "
+                      f"D(fake)={mean['D_fake_mean']:+.2f} "
+                      f"in_margin={mean['D_real_in_margin']:.2f}/"
+                      f"{mean['D_fake_in_margin']:.2f} feed={self.feed()} "
+                      f"time={epoch_time:.1f}s "
+                      f"({imgs_per_sec:.1f} imgs/s, {step_ms:.2f} ms/step)",
+                      flush=True)
             # checkpoints at epoch 5, then every 10th, and the last
             if self.ckpt_mgr and (epoch == 5 or (epoch and epoch % 10 == 0)
                                   or epoch == num_epochs - 1):
                 self.ckpt_mgr.save(step, self.checkpoint_payload())
             # sample grids in the first 5 epochs, every 5th, and the last
-            if img_dir and (epoch < 5 or epoch % 5 == 0
-                            or epoch == num_epochs - 1):
+            if img_dir and self.primary and (epoch < 5 or epoch % 5 == 0
+                                             or epoch == num_epochs - 1):
                 grid = self.sample_images()
                 save_image_grid(grid, os.path.join(
                     img_dir, f"epoch_{epoch:04d}.png"))
@@ -732,12 +778,14 @@ class Trainer:
         data and, with ``inception_score``, its IS, printed and written
         at ``step`` under tags that name the backend actually used (the
         proxy's are "proxy_FID" and "proxy_IS": its scale is not that of
-        published FIDs)."""
+        published FIDs).  Under a group every process computes its own
+        shard's FID (JAX's rule) and process 0 reports its own."""
         config = self.config
         extractor = get_extractor(config, self.device)
         fid_tag = "FID" if extractor.backend == "inception" else "proxy_FID"
         fid = compute_fid_for_trainer(self, extractor=extractor)
-        print(f"epoch {epoch}: {fid_tag} = {fid:.2f}", flush=True)
+        if self.primary:
+            print(f"epoch {epoch}: {fid_tag} = {fid:.2f}", flush=True)
         if self.writer:
             self.writer.scalar(fid_tag, fid, step)
             self.writer.flush()
@@ -746,8 +794,9 @@ class Trainer:
             is_tag = "IS" if classifier.backend == "inception" else "proxy_IS"
             is_mean, is_std = inception_score_for_trainer(
                 self, classifier=classifier)
-            print(f"epoch {epoch}: {is_tag} = {is_mean:.2f} ± {is_std:.2f}",
-                  flush=True)
+            if self.primary:
+                print(f"epoch {epoch}: {is_tag} = {is_mean:.2f} ± "
+                      f"{is_std:.2f}", flush=True)
             if self.writer:
                 self.writer.scalar(is_tag, is_mean, step)
                 self.writer.flush()
@@ -770,9 +819,18 @@ class Trainer:
                               step)
             self.writer.flush()
 
+    def _stop_requested(self) -> bool:
+        """Whether a signal asked this process, or under a group any rank,
+        to stop: the ranks agree on it after every call, so all stop after
+        the same call."""
+        if mesh.distributed():
+            self._preempted = bool(mesh.all_reduce_max(int(self._preempted)))
+        return self._preempted
+
     def _save_on_preemption(self) -> None:
         step = self.global_step()
         if self.ckpt_mgr:
+            mesh.barrier()
             self.ckpt_mgr.save(step, self.checkpoint_payload())
             print(f"preempted at step {step}: checkpoint saved, exiting",
                   flush=True)

@@ -1,8 +1,9 @@
 """Config loading: the ``--config_path example_configs/foo.py`` API, where
 the file defines a module-level dict named ``config``.
 
-Own copy of ``sagan_tpu/utils/config.py``; the device count comes from
-``torch.cuda.device_count()`` (the CPU counts as one device).
+Own copy of ``sagan_tpu/utils/config.py``; the data-parallel width is the
+number of processes of the ``torch.distributed`` group (one card a
+process), 1 without a group.
 """
 
 from __future__ import annotations
@@ -10,13 +11,13 @@ from __future__ import annotations
 import argparse
 import runpy
 
-import torch
+from ..parallel import mesh
 
 
 def get_parameters(argv=None):
     """The training CLI's flags: ``--config_path`` (required),
-    ``--debug`` and ``--device``; unknown flags are tolerated, as the JAX
-    CLI tolerates them."""
+    ``--debug``, ``--device`` and ``--dist_backend``; unknown flags are
+    tolerated, as the JAX CLI tolerates them."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config_path", type=str, required=True,
                     help="python file defining a `config` dict")
@@ -24,6 +25,11 @@ def get_parameters(argv=None):
                     help="at most 2000 records and 2 epochs, no checkpoints")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu to run there)")
+    ap.add_argument("--dist_backend", default=None,
+                    choices=("nccl", "gloo"),
+                    help="torch.distributed backend under a launcher "
+                         "(default nccl on the card, gloo with --device "
+                         "cpu)")
     args, _unknown = ap.parse_known_args(argv)
     return args
 
@@ -63,8 +69,11 @@ REQUIRED_KEYS = ("data_path", "batch_size", "z_dim", "gf_dim", "df_dim",
 def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
     """Fill defaults and derive global_batch_size / num_devices.
 
-    ``num_local_devices`` overrides the available-device count (tests);
-    by default it is the number of CUDA devices, or 1 without any.
+    The data-parallel width defaults to the group's world size (one card
+    a process; ``num_local_devices`` overrides the count, for tests), as
+    JAX's defaults to the global ``jax.device_count()``; a
+    ``num_devices`` that differs from it raises.  ``process_count`` and
+    ``process_index`` are the group's.
     """
     cfg = dict(DEFAULTS)
     cfg.update(config)
@@ -77,14 +86,19 @@ def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
         raise ValueError(
             f"sn_iters must be >= 1 (got {cfg['sn_iters']}): 0 iterations "
             f"would leave sigma=0 and blow up every SN kernel")
-    available = (num_local_devices if num_local_devices is not None
-                 else max(1, torch.cuda.device_count()))
-    width = cfg.get("num_devices")
-    if not width:
-        gpus = cfg.get("gpu")
-        width = len(gpus) if gpus else available
-        width = min(width, available)
+    world = (num_local_devices if num_local_devices is not None
+             else mesh.process_count())
+    width = cfg.get("num_devices") or world
+    if width != world:
+        raise ValueError(
+            f"num_devices={width} but the process group has {world} "
+            f"process(es): the port runs one card a process, so start "
+            f"{width} ranks (python -m torch.distributed.run "
+            f"--nproc_per_node {width} -m sagan_tpu_torch.main ...) "
+            f"or leave num_devices unset")
     cfg["num_devices"] = width
+    cfg["process_count"] = mesh.process_count()
+    cfg["process_index"] = mesh.process_index()
     mp = cfg.setdefault("model_parallel", 1)
     if mp < 1 or width % mp:
         raise ValueError(
@@ -93,3 +107,4 @@ def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
     # the batch, it doesn't multiply it
     cfg.setdefault("global_batch_size", cfg["batch_size"] * (width // mp))
     return cfg
+

@@ -32,7 +32,7 @@ print(" ".join(names), "|", leaked)
 # studies in tools.bench_attn_* and tools._study; the other feeds in
 # data.image_folder and the native reader's binding in data.native;
 # evaluation in evaluate, train.fid, train.inception and train.iscore, the
-# profiler window in utils.profiling)
+# profiler window in utils.profiling, data parallelism in parallel.mesh)
 MODULES = {
     "convert", "evaluate", "generate", "legacy_main", "main", "serve",
     "data", "data.image_folder", "data.loader", "data.native",
@@ -42,6 +42,7 @@ MODULES = {
     "ops", "ops._build", "ops.attention", "ops.attention_study",
     "ops.cuda_attention", "ops.cuda_attention_study",
     "ops.cuda_spectral", "ops.losses", "ops.spectral",
+    "parallel", "parallel.mesh",
     "tools", "tools._study", "tools.bench_attn_bwd256",
     "tools.bench_attn_floor", "tools.bench_attn_floor256",
     "tools.bench_attn_floor512", "tools.profiling", "tools.serve_breakdown",

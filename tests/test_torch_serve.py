@@ -309,9 +309,41 @@ def test_forwards_run_on_one_inference_thread():
 
 
 def test_multi_device_serving_raises():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """More devices than are visible raise, as JAX's ``make_mesh`` does
+    (the CPU counts as one)."""
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         GeneratorService(_tiny_gen(), z_dim=8, num_classes=4, batch=4,
                          num_devices=2)
+
+
+def test_multi_device_serving_runs():
+    """Two devices: the ladder in multiples of 2, the same images as one
+    device serving the same chunks, each device's slice on its own
+    inference thread, and the device count in /metrics."""
+    one = GeneratorService(_tiny_gen(), z_dim=8, num_classes=4, batch=4,
+                           seed=0, ladder=(2,))
+    two = GeneratorService(_tiny_gen(), z_dim=8, num_classes=4, batch=3,
+                           seed=0, num_devices=2, ladder=(1,),
+                           devices=["cpu", "cpu"])
+    try:
+        assert two.ladder == one.ladder == [2, 4]
+        assert two.num_devices == 2
+        assert "sagan_serving_devices 2" in two.metrics_text()
+        threads = set()
+        forward = two._replica_fns[0]
+
+        def recording(z, labels):
+            threads.add(threading.current_thread().name)
+            return forward(z, labels)
+
+        two._replica_fns[0] = recording
+        for n, seed in ((1, 0), (3, 1), (6, 2)):
+            np.testing.assert_array_equal(two.sample(n, seed, -1, 0.0),
+                                          one.sample(n, seed, -1, 0.0))
+        assert threads == {"sagan-inference-1_0"}
+    finally:
+        one.close()
+        two.close()
 
 
 def _write_config(tmp_path):

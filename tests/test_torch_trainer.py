@@ -1,7 +1,8 @@
 """The port's training CLI and loop on the CPU (``python -m
 sagan_tpu_torch.main --device cpu``), on a copy of example_configs/test.py
 pointed at a small synthetic dataset: it writes a TensorBoard event file,
-PNG grids and a checkpoint; a re-run restores; a SIGTERM mid-epoch and a
+PNG grids and a checkpoint; a re-run restores; two gloo ranks under
+``torch.distributed.run`` train it data-parallel; a SIGTERM mid-epoch and a
 resume give bit-for-bit the state of an unbroken run; ``generate``
 without ``--weights`` samples the checkpoint's EMA generator; an FID epoch
 prints and writes the proxy FID and IS; ``profile_dir`` traces calls
@@ -12,6 +13,8 @@ import os
 import re
 import signal
 import struct
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -193,16 +196,42 @@ def test_checkpoints_keep_the_newest_and_skip_unreadable(tmp_path):
 
 
 @pytest.mark.parametrize("update,match", [
-    ({"num_devices": 2}, "multi-GPU"),
-    ({"model_parallel": 2}, "model_parallel"),
+    ({"model_parallel": 2}, "model_parallel > 1, ROADMAP.md Queue 1 item 21"),
 ])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
                                                         update, match):
     config = resolve_config(load_config_file(_config_file(
-        tmp_path, data32)), num_local_devices=2)
+        tmp_path, data32)))
     config.update(update)
     with pytest.raises(NotImplementedError, match=match):
         Trainer(config, device="cpu")
+
+
+def test_two_ranks_train_through_the_cli(tmp_path, data32):
+    """``num_devices`` 2: two gloo ranks started by ``torch.distributed.run``
+    train test.py on the CPU, end at the same step with the same state
+    digest, and only rank 0 writes the event file, the grids and the
+    checkpoint."""
+    cfg = _config_file(tmp_path, data32, num_devices=2)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "sagan_tpu_torch.main",
+         "--config_path", cfg, "--device", "cpu", "--dist_backend", "gloo"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ends = re.findall(r"^rank (\d) of 2: step (\d+) state (\w+)$",
+                      out.stdout, re.MULTILINE)
+    assert sorted(r for r, _, _ in ends) == ["0", "1"]
+    # 64 records over 2 ranks at 8 a rank: 4 steps an epoch, 2 epochs
+    assert {(step, digest) for _, step, digest in ends} == {
+        ("8", ends[0][2])}
+    assert out.stdout.count("epoch 1: G_loss=") == 1
+    assert len([f for f in os.listdir(tmp_path / "logs")
+                if f.startswith("events.out.tfevents")]) == 1
+    assert sorted(os.listdir(tmp_path / "images")) == [
+        "epoch_0000.png", "epoch_0001.png"]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["ckpt-00000008.pt"]
 
 
 def _summaries(logdir) -> list:
