@@ -202,6 +202,26 @@ the build, and prints neither the kernels line nor the result line):
      (d) ``GeneratorService`` at ``num_devices`` 1 serving phase 4's
      bytes, two replicas on the card serving the one-device images, and
      ``serve --num_devices 2`` on one card raising.
+ 27. model parallelism (``model_parallel`` 2) on the one card, two gloo
+     ranks sharing ``cuda:0`` as a 1 x 2 grid, on example_configs/
+     biggan128_pod.py at full width (128 px, 1,000 classes, gf = df = 32,
+     attention at G's and D's 64 maps): (a) the ranks at a global batch of
+     8 against one process at 8 on the same seeded init and images: the
+     first fp32 step with D frozen at 1e-4 (BN stats and SN u 1e-5), four
+     steps at the config's learning rates, fp32 and bf16, at 26b's limits
+     or 4x the worst of three reordered-images controls' readings,
+     whichever is larger, the ranks' whole states bit for bit; (b) what each rank holds (parameter, Adam and
+     EMA bytes against one process), its peak memory and ms a step, and
+     its K1/K2 launches a step against one process's, K7 none; (c) an
+     ImageNet-layout folder of 1,000 class directories converted by
+     ``python -m sagan_tpu_torch.data.convert``, one epoch of 64 records
+     through ``sagan_tpu_torch.main`` on the two ranks in bf16 (JAX's SN
+     message printed; the ranks' digest of the whole state equal to the
+     checkpoint rank 0 wrote), a restart that resumes from it, and
+     ``generate`` sampling its EMA G in one process at model_parallel 1;
+     (d) two planted faults (the gradient mean over the world instead of
+     the data group; the gathered output's backward summing instead of
+     slicing), each of which the frozen step must catch.
 Then one JSON line on the kernels, the card's name and power limit, and
 last the result line.  Any failure raises and exits non-zero; without a
 CUDA device it exits 1 and prints no result.
@@ -225,6 +245,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 import warnings
 from pathlib import Path
@@ -258,7 +279,7 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.ops.spectral import spectral_normalize
-from sagan_tpu_torch.parallel import mesh
+from sagan_tpu_torch.parallel import mesh, sharding
 from sagan_tpu_torch.serve import GeneratorService, make_server
 from sagan_tpu_torch.serve import main as serve_main
 from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
@@ -266,7 +287,8 @@ from sagan_tpu_torch.tools import (bench_attn_bwd256, bench_attn_floor,
 from sagan_tpu_torch.train.checkpoint import CheckpointManager
 from sagan_tpu_torch.train.optim import make_gan_optimizers
 from sagan_tpu_torch.train.trainer import (TrainState, Trainer, TrainStep,
-                                           build_train_step)
+                                           build_train_step,
+                                           model_parallel_routing)
 from sagan_tpu_torch.tools._study import held, max_delta, sdpa_padded
 from sagan_tpu_torch.tools.profiling import (kernel_ms_per_call,
                                              ms_or_not_measured,
@@ -3460,51 +3482,80 @@ def _planted_bn_fault(on: bool):
     backward = mesh._MeanAllReduce.backward
     if on:
         mesh._MeanAllReduce.backward = staticmethod(
-            lambda ctx, grad: grad / mesh.process_count())
+            lambda ctx, grad: (grad / mesh.process_count(), None))
     try:
         yield
     finally:
         mesh._MeanAllReduce.backward = backward
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def dp_steps(job: dict, device) -> dict:
     """A training step of seeded nets (every attention sigma nonzero) on
     this process's rows of each of the job's global batches,
-    with the step's seeded latents (a rank takes its rows of the global
-    draws): the metrics, the state after (and which entries are BN
-    running stats and SN u), the launches and the seconds.  One process
-    without a group takes the whole batch."""
+    with the step's seeded latents (a rank takes its data index's rows of
+    the global draws): the metrics, the whole state after (model-parallel
+    shards gathered; and which entries are BN running stats and SN u),
+    the launches, the seconds, the bytes the rank holds and its peak
+    memory.  One process without a group takes the whole batch at
+    model_parallel 1; under a group the job's ``model_parallel`` m makes
+    a (W/m) x m grid."""
     device = torch.device(device)
-    world, rank = mesh.process_count(), mesh.process_index()
-    b = job["global_batch"] // world
-    cfg = resolve_config({**job["config"], "batch_size": b})
+    world = mesh.process_count()
+    m = job.get("model_parallel", 1) if mesh.distributed() else 1
+    cfg = resolve_config({**job["config"], "model_parallel": m,
+                          "batch_size": job["global_batch"] * m // world})
+    announced = io.StringIO()
+    with contextlib.redirect_stdout(announced):
+        model_parallel_routing(cfg, announce=mesh.process_index() == 0)
+    mesh.make_grid(m)
     gen, disc = _church64_nets(cfg, job["seed"])
     gen, disc = gen.to(device), disc.to(device)
+    axes_g, axes_d = sharding.shard_module(gen), sharding.shard_module(disc)
     (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
         cfg, gen.parameters(), disc.parameters(), steps_per_epoch=1)
     state = TrainState(gen, disc, opt_g, opt_d, 0,
                        {n: p.detach().clone()
                         for n, p in gen.named_parameters()})
     step = build_train_step(cfg, sched_g, sched_d, gen, disc)
-    rows = slice(rank * b, (rank + 1) * b)
+    rows = step.rows(cfg["batch_size"])
+    if torch.is_tensor(rows):
+        rows = rows.numpy()
     images = torch.from_numpy(job["images"][:, rows]).to(device)
     labels = torch.from_numpy(job["labels"][:, rows]).to(device)
     metrics = []
     _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     _zero_counts()
     t0 = time.perf_counter()
-    with _planted_bn_fault(job.get("fault", False)):
+    with _planted_bn_fault(job.get("fault", False)), \
+            _planted_mp_fault(job.get("mp_fault")):
         for k in range(len(images)):
-            m = step(state, images[k:k + 1], labels[k:k + 1])
-            metrics.append({key: m[key].double().cpu().numpy()
+            m_ = step(state, images[k:k + 1], labels[k:k + 1])
+            metrics.append({key: m_[key].double().cpu().numpy()
                             for key in (*DP_STEP_KEYS, "G_grad_norms",
                                         "D_grad_norms")})
         _sync(device)
     seconds = time.perf_counter() - t0
     counts = _counts()
-    after = {f"G/{k}": v.cpu() for k, v in gen.state_dict().items()}
-    after.update({f"D/{k}": v.cpu() for k, v in disc.state_dict().items()})
-    after.update({f"EMA/{k}": v.cpu() for k, v in state.ema.items()})
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    held = {"params": _nbytes([*gen.parameters(), *disc.parameters()]),
+            "adam": _nbytes([v for opt in (opt_g, opt_d)
+                             for st in opt.state.values()
+                             for v in st.values()
+                             if torch.is_tensor(v) and v.dim()]),
+            "ema": _nbytes(state.ema.values())}
+    after = {f"G/{k}": v.cpu() for k, v in
+             sharding.whole(gen.state_dict(), axes_g).items()}
+    after.update({f"D/{k}": v.cpu() for k, v in
+                  sharding.whole(disc.state_dict(), axes_d).items()})
+    after.update({f"EMA/{k}": v.cpu() for k, v in
+                  sharding.whole(state.ema, axes_g).items()})
     buffers = {f"{tag}/{n}": ("SN u" if n.endswith(".u") or n == "u"
                               else "BN stats")
                for tag, net in (("G", gen), ("D", disc))
@@ -3513,17 +3564,20 @@ def dp_steps(job: dict, device) -> dict:
             "counts": counts, "seconds": seconds, "lr": cfg["lr_d"],
             "reduced": (sum(p.numel() for p in gen.parameters()),
                         sum(p.numel() for p in disc.parameters()),
-                        cfg["update_ratio"])}
+                        cfg["update_ratio"]),
+            "held": held, "peak": peak, "announced": announced.getvalue(),
+            "sharded": len(axes_g) + len(axes_d),
+            "names": (step.g_names, step.d_names)}
 
 
 def rank_worker(jobs_path: str) -> int:
-    """One rank of 26b's ``torch.distributed.run`` group: joins the group
-    (the file's backend, on its device: ``cuda:0`` for every rank,
-    sharing the card under gloo), runs the pickled step jobs in it,
+    """One rank of 26b's or 27's ``torch.distributed.run`` group: joins
+    the group (the file's backend, on its device: ``cuda:0`` for every
+    rank, sharing the card under gloo), runs the pickled step jobs in it,
     pickles their results to ``<jobs_path>.<rank>`` and leaves the
     group."""
     with open(jobs_path, "rb") as f:
-        spec = pickle.load(f)   # written by phase 26 of this script
+        spec = pickle.load(f)   # written by phase 26 or 27 of this script
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(spec["device"])
@@ -3747,9 +3801,12 @@ def _rel_err(x, y) -> float:
     return float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30)))
 
 
-def _dp_errors(got: dict, want: dict, job: dict) -> tuple:
+def _dp_errors(got: dict, want: dict, job: dict,
+               per_variable: bool = True) -> tuple:
     """({reading: worst error}, [what is beyond its tolerance]) of a
-    run's metrics and state against another's, at ``job``'s limits."""
+    run's metrics and state against another's, at ``job``'s limits (the
+    per-variable norms of a frozen step held only with
+    ``per_variable``)."""
     fp32, frozen = job["dtype"] == "float32", job.get("frozen", False)
     rtol = (DP_FROZEN_RTOL if frozen else
             DP_FP32_RTOL if fp32 else DP_BF16_RTOL)
@@ -3767,7 +3824,7 @@ def _dp_errors(got: dict, want: dict, job: dict) -> tuple:
                                                + STEP_ATOL)
             worst[f"{key} err/limit"] = max(
                 worst.get(f"{key} err/limit", 0.0), float(share.max()))
-            if frozen and share.max() > 1:
+            if frozen and per_variable and share.max() > 1:
                 bad.append(f"step {i} {key}: {int((share > 1).sum())} "
                            f"beyond phase 6's limit")
     limits = ({"params": 3 * job["config"]["lr_g"],
@@ -3972,6 +4029,385 @@ def phase_dp_serve(gen32, card: str, served: dict | None) -> None:
             f"serve --num_devices 2 on one card: {refused}")
 
 
+MP_DIR = ROOT / "build" / "smoke" / "mp"
+POD = ROOT / "example_configs" / "biggan128_pod.py"
+MP_BATCH = 8              # the pod config's per-device batch: the global
+#                           batch of a 1 x 2 grid
+MP_STEPS = 4
+MP_CLASSES = 1000
+MP_RECORDS = 64           # 27c's data_size: 8 steps an epoch
+JAX_SN_MESSAGE = ("model_parallel > 1: SN stays on the XLA backend (the "
+                  "weight operand is model-sharded; a fused single-shard "
+                  "kernel would gather it)")
+# biggan128_pod's four steps at batch 8 and the config's learning rates:
+# one process against itself with its real images reordered (a control)
+# read beyond 26b's limits on an H100 80GB HBM3 at 700 W (reversed: G_loss
+# 3.65e-3 to 1.09e-2 over three calls, BN stats 8.4e-4 to 9.0e-4, SN u
+# 1.6e-3 to 2.1e-3, params 1.15e-3 to 1.17e-3 against 5e-3, 1.2e-4, 6e-4
+# and 3 lr_d): at batch 8 Adam's +-lr moves of noise-level gradients weigh
+# more than at 26b's 64, and G_loss (~0.2) moved 3x between calls.  So
+# three controls are run (the images reversed, rolled by half a batch and
+# in a seeded order) and each reading of those steps is held at 26b's
+# limit or at MP_CONTROL_FACTOR times the controls' worst reading,
+# whichever is larger: the factor 26b took over its control's worst.
+MP_CONTROL_FACTOR = 4
+MP_CONTROL_ORDERS = {
+    "reversed": np.arange(MP_BATCH)[::-1],
+    "rolled": np.roll(np.arange(MP_BATCH), MP_BATCH // 2),
+    "seeded": np.random.default_rng(SEED + 27).permutation(MP_BATCH)}
+
+
+@contextlib.contextmanager
+def _planted_mp_fault(kind: str | None):
+    """While open: ``"world_mean"`` takes the gradient mean (and BN's
+    moments) over the world instead of the data group, so a rank's
+    sharded gradient is averaged with its model peer's other shard;
+    ``"gather_sum"`` makes the gathered output's backward sum the
+    cotangent over the model group before taking this rank's slice."""
+    saved = mesh.data_group, mesh._GatherShards.backward
+    if kind == "world_mean":
+        mesh.data_group = lambda: None
+    elif kind == "gather_sum":
+        def summed(ctx, grad):
+            grad = mesh.all_reduce_(grad.clone(), group=mesh.model_group())
+            return (grad.narrow(ctx.dim, mesh.model_index() * ctx.size,
+                                ctx.size).contiguous(), None)
+        mesh._GatherShards.backward = staticmethod(summed)
+    elif kind is not None:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        mesh.data_group = saved[0]
+        mesh._GatherShards.backward = staticmethod(saved[1])
+
+
+def _mp_step_jobs() -> list:
+    """27a/27b/27d's step jobs on biggan128_pod at the global batch of 8:
+    fp32 four steps, the fp32 first step with D frozen, bf16 four steps,
+    and the frozen step again under each planted fault.  The ranks' config
+    asks for K7 (``use_pallas_sn``), which model parallelism drops with
+    JAX's message."""
+    pairs = list(synthetic_images(MP_STEPS * MP_BATCH, 128, MP_CLASSES,
+                                  SEED))
+    images = np.stack([p[0] for p in pairs]).reshape(
+        MP_STEPS, MP_BATCH, 128, 128, 3)
+    labels = np.asarray([p[1] for p in pairs], np.int32).reshape(
+        MP_STEPS, MP_BATCH)
+    jobs = []
+    for dtype in ("float32", "bfloat16"):
+        jobs.append({"kind": "steps", "name": "biggan128_pod",
+                     "dtype": dtype, "model_parallel": 2,
+                     "config": _dp_config(POD, dtype, img_size=128,
+                                          num_classes=MP_CLASSES,
+                                          use_pallas_sn=True),
+                     "global_batch": MP_BATCH, "seed": SEED + 27,
+                     "images": images, "labels": labels})
+    full = jobs[0]
+    frozen = {**full, "name": "biggan128_pod frozen D", "frozen": True,
+              "config": {**full["config"], "lr_d": 0.0},
+              "images": images[:1], "labels": labels[:1]}
+    jobs.insert(1, frozen)
+    jobs += [{**frozen, "mp_fault": fault}
+             for fault in ("world_mean", "gather_sum")]
+    return jobs
+
+
+def _one_process(job: dict) -> dict:
+    """The job's one-process reference: the config without the ranks'
+    K7 request, on the card."""
+    config = {k: v for k, v in job["config"].items() if k != "use_pallas_sn"}
+    return dp_steps({**job, "config": config, "mp_fault": None},
+                    torch.device("cuda"))
+
+
+def _mp_limit(reading: str, job: dict, one: dict) -> float | None:
+    """26b's limit of a reading of a run at the config's learning rates
+    (None: not held, as the per-variable norms, or a bf16 run's state)."""
+    fp32 = job["dtype"] == "float32"
+    if reading.endswith(" rel"):
+        return DP_FP32_RTOL if fp32 else DP_BF16_RTOL
+    if not fp32 or reading.endswith("err/limit"):
+        return None
+    return {"params max": 3 * one["lr"], "BN stats max": DP_FP32_BN_TOL,
+            "SN u max": DP_FP32_U_TOL}[reading]
+
+
+def _worst_variables(got: dict, want: dict, n: int = 3) -> str:
+    """The ``n`` per-variable gradient norms furthest over phase 6's
+    per-norm limit, by name, in the first step."""
+    rows = []
+    for key, names in (("G_grad_norms", want["names"][0]),
+                       ("D_grad_norms", want["names"][1])):
+        g, w = got["metrics"][0][key], want["metrics"][0][key]
+        share = np.abs(g - w) / (STEP_RTOL * np.abs(w) + STEP_ATOL)
+        rows += [(float(share[i]), f"{key[0]}/{names[i]} {float(g[i]):.4g} "
+                  f"vs {float(w[i]):.4g}") for i in range(len(names))]
+    return "; ".join(f"{text} ({share:.2f} of the limit)"
+                     for share, text in sorted(rows, reverse=True)[:n])
+
+
+def _check_mp_steps(job: dict, ranks: list, one: dict, card: str,
+                    controls: list | None) -> None:
+    """27a/27d: the two ranks of the 1 x 2 grid against one process at
+    the global batch, and against each other.  The frozen step is held at
+    26b's frozen limits on the losses, global norms, BN stats and SN u;
+    the runs at the config's learning rates at 26b's limits or
+    MP_CONTROL_FACTOR times the worst of their ``controls``' readings.  A
+    planted fault must fail the comparison."""
+    r0, r1 = ranks
+    fault = job.get("mp_fault")
+    steps = len(one["metrics"])
+    same = r0["state"].keys() == r1["state"].keys() and all(
+        torch.equal(r0["state"][k], r1["state"][k]) for k in r0["state"])
+    errs, bad = _dp_errors(r0, one, job, per_variable=False)
+    control_text = ""
+    if controls:
+        control_errs = {}
+        for control in controls:
+            for reading, err in _dp_errors(control, one, job)[0].items():
+                control_errs[reading] = max(control_errs.get(reading, 0.0),
+                                            err)
+        bad = [f"step {i} {key} not finite" for i, m in enumerate(
+            r0["metrics"]) for key in DP_STEP_KEYS
+            if not np.isfinite(m[key]).all()]
+        for reading, err in errs.items():
+            base = _mp_limit(reading, job, one)
+            if base is not None:
+                limit = max(base, MP_CONTROL_FACTOR
+                            * control_errs.get(reading, 0.0))
+                if not err <= limit:
+                    bad.append(f"{reading} {err:.3g} > {limit:.3g}")
+        control_text = (f"; the {len(controls)} controls, one process "
+                        f"with the real images reordered "
+                        f"({', '.join(MP_CONTROL_ORDERS)}), worst: "
+                        + _dp_summary(control_errs))
+    title = (f"{job['name']} {job['dtype']}"
+             f"{f' WITH THE PLANTED FAULT {fault}' if fault else ''}")
+    print(f"phase 27{'d' if fault else 'a'} {title} global batch "
+          f"{MP_BATCH}, {steps} steps: 2 gloo ranks on one card (a 1 x 2 "
+          f"grid, {r0['sharded']} weights sharded) vs one process: "
+          f"{_dp_summary(errs)} (beyond the limits: {len(bad)} "
+          f"{bad[:3]}){control_text}; the per-variable norms furthest "
+          f"over phase 6's limit: {_worst_variables(r0, one)}; ranks' "
+          f"whole states bit for bit {same} on {card}", flush=True)
+    if fault:
+        require(bad, f"27d {title}: the limits do not see the fault")
+    else:
+        require(same, f"27a {title}: the ranks' states differ")
+        require(not bad, f"27a {title}: {bad[:8]}")
+
+
+def _check_mp_holdings(job: dict, ranks: list, one: dict, card: str) -> None:
+    """27b: what each rank holds and runs against one process."""
+    steps = len(one["metrics"])
+    per_step = {k: v / steps for k, v in one["counts"].items() if v}
+    lines = []
+    for r, res in enumerate(ranks):
+        share = {k: res["held"][k] / one["held"][k] for k in res["held"]}
+        lines.append(
+            f"rank {r}: params {res['held']['params'] / 2**20:.1f} MiB, Adam "
+            f"{res['held']['adam'] / 2**20:.1f} MiB, EMA "
+            f"{res['held']['ema'] / 2**20:.1f} MiB (shares of one "
+            f"process's: {', '.join(f'{k} {v:.3f}' for k, v in share.items())}"
+            f"), peak {res['peak'] / 2**30:.2f} GiB, "
+            f"{1e3 * res['seconds'] / steps:.0f} ms a step, launches "
+            f"{_named(res['counts'])}")
+        require(all(0.4 < v < 0.75 for v in share.values()),
+                f"27b rank {r} holds {share} of one process's state")
+        require(res["counts"] == one["counts"],
+                f"27b rank {r} launches {res['counts']}, one process "
+                f"{one['counts']}")
+    print(f"phase 27b {job['dtype']} per rank: {'; '.join(lines)}; one "
+          f"process: params {one['held']['params'] / 2**20:.1f} MiB, Adam "
+          f"{one['held']['adam'] / 2**20:.1f} MiB, EMA "
+          f"{one['held']['ema'] / 2**20:.1f} MiB, peak "
+          f"{one['peak'] / 2**30:.2f} GiB, "
+          f"{1e3 * one['seconds'] / steps:.0f} ms a step; launches a step "
+          f"{_named(per_step)} (the ranks' equal one process's at the same "
+          f"batch; no K7); ms a step on the host clock, synchronised: two "
+          f"ranks share one card and gloo moves every gather through the "
+          f"host, so this is no scaling figure; rank 0 printed: "
+          f"{ranks[0]['announced'].strip()!r} on {card}", flush=True)
+    require(JAX_SN_MESSAGE in ranks[0]["announced"]
+            and not ranks[1]["announced"],
+            "27b: JAX's SN message was not printed once")
+    require(not any(v for k, v in ranks[0]["counts"].items()
+                    if k.startswith("K7"))
+            and ranks[0]["counts"].get(
+                "K1" if job["dtype"] == "float32" else "K1mma", 0) > 0,
+            f"27b: launches {ranks[0]['counts']}")
+
+
+def _imagenet_folder(root: Path) -> Path:
+    """An ImageNet-layout tree ``train/n<8 digits>/`` of MP_CLASSES class
+    directories, one seeded PNG each (landscape and portrait, some
+    grayscale), written once."""
+    from PIL import Image
+
+    done = root / "done"
+    if not done.exists():
+        shutil.rmtree(root, ignore_errors=True)
+        rng = np.random.default_rng(SEED)
+        for c in range(MP_CLASSES):
+            d = root / "train" / f"n{c:08d}"
+            d.mkdir(parents=True)
+            w, h = (160, 136) if c % 2 else (136, 160)
+            img = Image.fromarray(rng.integers(0, 256, (h, w, 3),
+                                               dtype=np.uint8))
+            if c % 7 == 0:
+                img = img.convert("L")
+            img.save(d / f"n{c:08d}_0.JPEG", format="PNG")
+        done.write_text("ok")
+    return root
+
+
+def _checkpoint_digest(path: Path) -> str:
+    """``main.state_digest`` of the whole state in a checkpoint file."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state = types.SimpleNamespace(gen=types.SimpleNamespace(
+        state_dict=lambda: ckpt["gen"]), disc=types.SimpleNamespace(
+        state_dict=lambda: ckpt["disc"]), ema=ckpt["ema"])
+    return train_cli.state_digest(types.SimpleNamespace(
+        state=state, g_axes={}, d_axes={}))
+
+
+def phase_mp_cli(card: str) -> None:
+    """27c: convert, train on the two ranks through the CLI, restart,
+    sample in one process."""
+    from sagan_tpu_torch.data.tfrecord import load_metadata
+
+    src = _imagenet_folder(MP_DIR / "imagenet_folder")
+    data = MP_DIR / "imagenet_labeled_128"
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "sagan_tpu_torch.data.convert", "--path",
+         str(src), "--dataset", "imagenet", "--img_size", "128",
+         "--out_dir", str(data)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=DP_TIMEOUT)
+    convert_s = time.perf_counter() - t0
+    require(out.returncode == 0, f"27c convert: {out.stderr[-2000:]}")
+    meta = load_metadata(str(data))
+    ds = ImageDataset(str(data), batch_size=MP_BATCH, num_workers=1)
+    imgs, labels = next(iter(ds.epoch(0)))
+    require(meta == {"img_size": 128, "num_classes": MP_CLASSES,
+                     "num_records": MP_CLASSES}
+            and imgs.shape == (MP_BATCH, 128, 128, 3)
+            and labels.max() < MP_CLASSES,
+            f"27c converted metadata {meta}, batch {imgs.shape}")
+    ckpt = MP_DIR / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    extra = {"data_path": str(data), "data_size": MP_RECORDS,
+             "model_parallel": 2, "use_pallas_sn": True,
+             "ckpt_dir": str(ckpt), "log_dir": str(MP_DIR / "logs"),
+             "img_dir": str(MP_DIR / "images"), "summary_step_freq": 4,
+             "fid_epoch_freq": 0, "print_variables": False,
+             "num_devices": None}
+    texts, seconds = {}, 0.0
+
+    def config_file(label: str, **more) -> Path:
+        path = MP_DIR / f"biggan128_pod_mp_{label}.py"
+        path.write_text(f"import runpy\n"
+                        f"config = dict(runpy.run_path({str(POD)!r})"
+                        f"['config'])\n"
+                        f"config.update({{**{extra!r}, **{more!r}}})\n")
+        return path
+
+    for label, epochs in (("run", 1), ("restart", 2)):
+        cfg = config_file(label, epoch=epochs)
+        got, secs = _launch(f"mp_c_{label}", 2, [
+            "-m", "sagan_tpu_torch.main", "--config_path", str(cfg),
+            "--device", "cuda:0", "--dist_backend", "gloo"])
+        seconds += secs
+        texts[label] = got
+    run, restart = ([_cli_rank(t) for t in texts[k]]
+                    for k in ("run", "restart"))
+    spe = MP_RECORDS // MP_BATCH
+    saved = sorted(os.listdir(ckpt))
+    digests = {step: _checkpoint_digest(ckpt / f"ckpt-{step:08d}.pt")
+               for step in (spe, 2 * spe)}
+    grids = sorted(os.listdir(MP_DIR / "images"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        written = generate.main([
+            "--config_path", str(config_file("one", model_parallel=1)),
+            "--device", "cuda", "--num", "16", "--batch", "8", "--format",
+            "npz", "--out", str(MP_DIR / "samples")])
+    samples = np.load(written[0])["images"]
+    print(f"phase 27c CLI: {MP_CLASSES} class directories converted by "
+          f"sagan_tpu_torch.data.convert in {convert_s:.1f} s ({meta}); "
+          f"biggan128_pod bf16 on 2 gloo ranks (1 x 2 grid) on one card, "
+          f"{MP_RECORDS} records: steps {[r['step'] for r in run]} then "
+          f"{[r['step'] for r in restart]} (restored at "
+          f"{[r['restored'] for r in restart]}), ms/step {run[0]['ms']} / "
+          f"{restart[0]['ms']}; the ranks' whole-state digests equal the "
+          f"checkpoints': {run[0]['digest'] == digests[spe]} / "
+          f"{restart[0]['digest'] == digests[2 * spe]}; checkpoints "
+          f"{saved}, sample grids {grids}; JAX's SN message on rank 0: "
+          f"{JAX_SN_MESSAGE in texts['run'][0]}; generate at "
+          f"model_parallel 1: {out.getvalue().strip()} {samples.shape} "
+          f"std {samples.std():.2f}; launchers {seconds:.1f} s on {card}",
+          flush=True)
+    require(all(r["step"] == spe and r["total"] == spe for r in run)
+            and all(r["step"] == 2 * spe and r["restored"] == spe
+                    for r in restart),
+            "27c: the ranks did not train and resume as asked")
+    require(run[0]["digest"] == run[1]["digest"] == digests[spe]
+            and restart[0]["digest"] == restart[1]["digest"]
+            == digests[2 * spe],
+            "27c: the ranks' gathered state is not the checkpoint")
+    require(saved == [f"ckpt-{spe:08d}.pt", f"ckpt-{2 * spe:08d}.pt"]
+            and grids and JAX_SN_MESSAGE in texts["run"][0]
+            and JAX_SN_MESSAGE not in texts["run"][1],
+            f"27c: checkpoints {saved}, grids {grids}")
+    require("(EMA generator)" in out.getvalue()
+            and samples.shape == (16, 128, 128, 3) and samples.std() > 0,
+            "27c: generate did not sample the EMA G")
+
+
+def phase_mp(card: str) -> None:
+    """Phase 27: model parallelism on the one card (see the module
+    docstring).  Every check runs and prints; the phase then fails on the
+    first that failed."""
+    MP_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    failed = []
+
+    def check(fn, *args):
+        try:
+            fn(*args)
+        except AssertionError as err:
+            print(f"phase 27 FAILED: {err}", flush=True)
+            failed.append(err)
+
+    jobs = _mp_step_jobs()
+    ranks, seconds = _launch_ranks(jobs, "mp_ab", 2, "gloo")
+    print(f"phase 27a: the two-rank launcher took {seconds:.1f} s",
+          flush=True)
+    refs = {}
+    for i, job in enumerate(jobs):
+        key = (job["name"], job["dtype"])
+        controls = None
+        if key not in refs:
+            refs[key] = _one_process(job)
+            if not job.get("frozen"):
+                controls = [_one_process({
+                    **job, "images": np.ascontiguousarray(
+                        job["images"][:, order]),
+                    "labels": np.ascontiguousarray(job["labels"][:, order])})
+                    for order in MP_CONTROL_ORDERS.values()]
+        got = [r[i] for r in ranks]
+        check(_check_mp_steps, job, got, refs[key], card, controls)
+        if not job.get("frozen"):
+            check(_check_mp_holdings, job, got, refs[key], card)
+    check(phase_mp_cli, card)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s", flush=True)
+    require(not failed, f"phase 27: {len(failed)} check(s) failed, the "
+                        f"first: {failed[0] if failed else ''}")
+
+
 def phase_dp(card: str, gen32, served: dict | None) -> None:
     """Phase 26: data parallelism on the one card (see the module
     docstring).  Every check runs and prints; the phase then fails on the
@@ -4016,9 +4452,9 @@ def main(argv=None) -> int:
                     help="run only these phases (1 always runs; 4 needs 3) "
                          "and print no kernels line and no result line")
     ap.add_argument("--rank-jobs", metavar="PICKLE",
-                    help="run as one rank of phase 26b's group (started "
-                         "by torch.distributed.run) on the jobs in this "
-                         "file")
+                    help="run as one rank of phase 26b's or 27's group "
+                         "(started by torch.distributed.run) on the jobs "
+                         "in this file")
     args = ap.parse_args(argv)
     if args.rank_jobs:
         return rank_worker(args.rank_jobs)
@@ -4031,7 +4467,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}", flush=True)
-    on = set(range(1, 27)) if args.only is None else set(args.only) | {1}
+    on = set(range(1, 28)) if args.only is None else set(args.only) | {1}
     r = {}
     phase_build()
     if 2 in on:
@@ -4088,6 +4524,8 @@ def main(argv=None) -> int:
     if 26 in on:
         phase_dp(card, gen32, served)
     del gen32
+    if 27 in on:
+        phase_mp(card)
     print(f"chip_smoke: phases {', '.join(map(str, sorted(on)))} passed in "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     if args.only is not None:

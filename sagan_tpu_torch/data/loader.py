@@ -387,10 +387,12 @@ def get_dataset_and_info(config: dict):
     and ``num_records`` merged in).  ``use_image_generator`` takes the
     augmenting image-folder loader (``data/image_folder.py``), else the
     TFRecord one; either serves process ``process_index``'s shard in
-    batches of ``global_batch_size // process_count``."""
+    batches of ``global_batch_size // process_count``, where under model
+    parallelism the process is the data index (``data_index`` of
+    ``data_count``): model peers read the same shard, batch for batch."""
     config = dict(config)
-    process_count = config.get("process_count", 1)
-    process_index = config.get("process_index", 0)
+    process_count = config.get("data_count", config.get("process_count", 1))
+    process_index = config.get("data_index", config.get("process_index", 0))
     batch = config.get("global_batch_size",
                        config["batch_size"]) // process_count
     if config.get("use_image_generator"):

@@ -16,8 +16,16 @@ Under the launcher (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) each process joins
 the group (``--dist_backend``: nccl on the card, gloo with ``--device
 cpu``), trains on ``cuda:<LOCAL_RANK>`` and prints its step and a digest
-of its state at the end (equal on every rank); the group is left at exit.
-Without those variables nothing changes.
+of the whole state at the end (equal on every rank); the group is left at
+exit.  Without those variables nothing changes.
+
+With ``model_parallel`` m in the config the W ranks run a (W/m) x m grid
+of tensor parallelism (``train/trainer.py``); two ranks may share one card
+under gloo:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m sagan_tpu_torch.main --config_path ... --dist_backend gloo \
+        --device cuda:0
 """
 
 from __future__ import annotations
@@ -30,13 +38,17 @@ import torch
 
 
 def state_digest(trainer) -> str:
-    """sha1 of every parameter and buffer of G and D and the EMA, in
-    state-dict order: equal on every rank while the replicas agree bit
-    for bit."""
+    """sha1 of every parameter and buffer of G and D and the EMA, whole
+    (model-parallel shards gathered: every rank calls it), in state-dict
+    order: equal on every rank while the replicas agree bit for bit."""
+    from .parallel.sharding import whole
+
     digest = hashlib.sha1()
     s = trainer.state
-    for tensors in (s.gen.state_dict(), s.disc.state_dict(), s.ema or {}):
-        for name, t in tensors.items():
+    for tensors, axes in ((s.gen.state_dict(), trainer.g_axes),
+                          (s.disc.state_dict(), trainer.d_axes),
+                          (s.ema or {}, trainer.g_axes)):
+        for name, t in whole(tensors, axes).items():
             digest.update(name.encode())
             digest.update(t.detach().cpu().contiguous().view(-1)
                           .view(torch.uint8).numpy())

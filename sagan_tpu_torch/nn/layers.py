@@ -32,10 +32,19 @@ between them each BN adds its batch (mean, E[x²]) into its buffers, and
 finalize applies the momentum once to the micro-batches' average.
 
 Under a ``torch.distributed`` group BN is cross-replica: E[x] and E[x²]
-are averaged over the ranks (``parallel.mesh.all_reduce_mean_grad``, one
-all-reduce a layer) before the variance, as JAX's ``_batch_moments``
-pmeans them, so the running stats move by the global batch's moments on
-every rank and the gradient is the global batch's.
+are averaged over the ranks of the data group (the world without model
+parallelism; ``parallel.mesh.all_reduce_mean_grad``, one all-reduce a
+layer) before the variance, as JAX's ``_batch_moments`` pmeans them, so
+the running stats move by the global batch's moments on every rank and
+the gradient is the global batch's.
+
+Model parallelism (``parallel/sharding.py`` marks a layer ``sharded``): a
+sharded layer holds this model rank's columns of its weight (and of
+conditional BN's tables), computes those output channels from its whole
+input and gathers them over the model group (``mesh.to_shards`` on the
+way in, ``mesh.gather_shards`` on the way out); its bias is whole and is
+added after the gather, and its SN is that of the whole weight
+(``ops/spectral.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cuda_spectral import spectral_norm_group
 from ..ops.spectral import spectral_normalize
-from ..parallel.mesh import all_reduce_mean_grad, distributed
+from ..parallel import mesh
 from . import initializers as init
 
 BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
@@ -105,6 +114,7 @@ class _SNLayer(nn.Module):
     out_dim = -1
     sn_backend = "xla"   # or "pallas" (K7), set by set_sn_backend
     _sn_w_bar = None     # W̄ handed over by its root's grouped K7 call
+    sharded = False      # w holds this model rank's output channels
 
     def __init__(self, w_shape, cout, use_bias, sn, sn_iters, dtype, rng,
                  w_init=init.glorot_uniform):
@@ -154,13 +164,23 @@ class _SNLayer(nn.Module):
             return w_bar
         w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
                                           out_dim=self.out_dim,
-                                          backend=self.sn_backend)
+                                          backend=self.sn_backend,
+                                          sharded=self.sharded)
         if self.training:
             with torch.no_grad():
                 self.u.copy_(u_new)
         return w_bar
 
-    def _bias(self, y: torch.Tensor) -> torch.Tensor:
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input, which a sharded layer's backward sums over its model
+        peers."""
+        return mesh.to_shards(x) if self.sharded else x
+
+    def _bias(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The output (a sharded layer's channels gathered along ``dim``)
+        plus the bias, in the layer's dtype."""
+        if self.sharded:
+            y = mesh.gather_shards(y, dim)
         # fp32 bias on a dtype product promotes to fp32, then back to dtype
         if self.b is not None:
             shape = (-1,) if y.dim() == 2 else (-1, 1, 1)
@@ -228,7 +248,8 @@ class Dense(_SNLayer):
         super().__init__((cin, cout), cout, use_bias, sn, sn_iters, dtype, rng)
 
     def forward(self, x):
-        return self._bias(x.to(self.dtype) @ self.weight().to(self.dtype))
+        x = self._in(x.to(self.dtype))
+        return self._bias(x @ self.weight().to(self.dtype), -1)
 
 
 def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -253,7 +274,7 @@ class Conv(_SNLayer):
     def forward(self, x):
         top, bottom = _same_padding(x.shape[2], self.kernel, self.stride)
         left, right = _same_padding(x.shape[3], self.kernel, self.stride)
-        x = F.pad(x.to(self.dtype), (left, right, top, bottom))
+        x = F.pad(self._in(x.to(self.dtype)), (left, right, top, bottom))
         return self._bias(F.conv2d(x, self.weight().to(self.dtype),
                                    stride=self.stride))
 
@@ -289,7 +310,7 @@ class ConvTranspose(_SNLayer):
 
     def forward(self, x):
         y = F.conv_transpose2d(
-            x.to(self.dtype), self.weight().to(self.dtype),
+            self._in(x.to(self.dtype)), self.weight().to(self.dtype),
             stride=self.stride, padding=self.padding,
             output_padding=max(self.extra, 0))
         if self.extra < 0:
@@ -308,7 +329,7 @@ class Embedding(_SNLayer):
                          dtype, rng, w_init=init.uniform)
 
     def forward(self, ids):
-        return self.weight()[ids.long()].to(self.dtype)
+        return self._bias(self.weight()[ids.long()], -1)
 
 
 class BatchNorm(nn.Module):
@@ -333,9 +354,11 @@ class BatchNorm(nn.Module):
 
 class ConditionalBatchNorm(nn.Module):
     """Class-conditional BN: per-class gamma/beta tables, shared
-    statistics."""
+    statistics; a ``sharded`` one holds its model rank's columns of the
+    tables and gathers the looked-up rows."""
 
     accumulating = False
+    sharded = False
 
     def __init__(self, c, num_classes, dtype=torch.float32):
         super().__init__()
@@ -347,8 +370,11 @@ class ConditionalBatchNorm(nn.Module):
 
     def forward(self, x, labels):
         labels = labels.long()
-        return _bn(self, x, self.gamma[labels][:, :, None, None],
-                   self.beta[labels][:, :, None, None])
+        gamma, beta = self.gamma[labels], self.beta[labels]
+        if self.sharded:
+            gamma, beta = mesh.gather_shards(torch.stack([gamma, beta]),
+                                             2).unbind(0)
+        return _bn(self, x, gamma[:, :, None, None], beta[:, :, None, None])
 
 
 def _bn(layer, x, gamma, beta):
@@ -359,15 +385,16 @@ def _bn(layer, x, gamma, beta):
     (while ``layer.accumulating``: E[x] and E[x²] added to them instead);
     gradients flow through the moments.  (``F.batch_norm``'s running
     update would store the unbiased variance.)  Under a group the moments
-    are the mean of the ranks' (cross-replica BN).  The recompute of a
-    :func:`remat` stage writes no buffer.  Eval: the running stats."""
+    are the mean of the data group's ranks' (cross-replica BN).  The
+    recompute of a :func:`remat` stage writes no buffer.  Eval: the running
+    stats."""
     x32 = x.float()
     if layer.training:
         mean = x32.mean(dim=(0, 2, 3))
         mean_sq = x32.square().mean(dim=(0, 2, 3))
-        if distributed():
-            mean, mean_sq = all_reduce_mean_grad(
-                torch.stack([mean, mean_sq])).unbind(0)
+        if mesh.distributed():
+            mean, mean_sq = mesh.all_reduce_mean_grad(
+                torch.stack([mean, mean_sq]), mesh.data_group()).unbind(0)
         var = torch.clamp(mean_sq - mean.square(), min=0.0)
         if not _REMAT.replay:
             with torch.no_grad():

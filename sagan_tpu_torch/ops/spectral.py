@@ -20,12 +20,23 @@ Pallas kernel), or ``"pallas"``, the kernel K7 as a group of one through
 :class:`~sagan_tpu_torch.ops.cuda_spectral.SpectralNormGroup` (a model
 routed to K7 normalizes all its SN weights in one grouped call a forward:
 ``nn/layers.py`` :func:`set_sn_backend`).
+
+A ``sharded`` weight (model parallelism, ``parallel/sharding.py``) holds
+this model rank's columns W_s [fan_in, c_out/m] of the matricized kernel;
+its SN is the whole weight's, as JAX's einsum SN on the model-sharded
+array is, with scalar- and vector-sized sums over the model group:
+v = l2n(Σ W_s u_s) (a [fan_in] sum), u_s = W_sᵀ v / ‖Wᵀ v‖ (the squared
+norm summed), sigma = Σ v·W_s u_s (``mesh.sum_shards``, differentiable in
+W_s, then ``mesh.to_shards``: W̄_s = W_s / sigma is sharded compute, so
+sigma's cotangent is summed over the peers).  The new u is gathered, so
+every model rank stores the whole u, equal to JAX's replicated one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh
 from .cuda_spectral import SpectralNormGroup
 
 
@@ -48,12 +59,42 @@ def power_iterate(w_mat: torch.Tensor, u: torch.Tensor, n_iter: int = 1):
     return sigma, u, v
 
 
+def _sharded_power_iterate(w_mat: torch.Tensor, u: torch.Tensor,
+                           n_iter: int):
+    """:func:`power_iterate` of the whole weight whose columns
+    ``w_mat`` [fan_in, c_out/m] this model rank holds, ``u`` [c_out]
+    whole.  Returns (sigma, whole u_new), sigma replicated and
+    differentiable in ``w_mat``."""
+    if n_iter < 1:
+        raise ValueError(f"power_iterate needs n_iter >= 1, got {n_iter}")
+    group = mesh.model_group()
+    c = w_mat.shape[1]
+    w = w_mat.detach()
+    u = u.detach().narrow(0, mesh.model_index() * c, c)
+    for _ in range(n_iter):
+        v = _l2_normalize(mesh.all_reduce_(w @ u, group=group))
+        t = v @ w
+        sq = mesh.all_reduce_((t * t).sum().reshape(1), group=group)
+        u = t / (torch.sqrt(sq[0]) + 1e-12)
+    sigma = mesh.to_shards(mesh.sum_shards((v @ w_mat) @ u))
+    return sigma, mesh.all_gather(u, 0, group)
+
+
 def spectral_normalize(w: torch.Tensor, u: torch.Tensor, n_iter: int = 1,
                        eps: float = 1e-12, out_dim: int = -1,
-                       backend: str = "xla"):
+                       backend: str = "xla", sharded: bool = False):
     """(w / (sigma + eps), u_new) for a kernel of any rank whose output
     channels lie on axis ``out_dim``; w_bar keeps w's shape and dtype.
-    ``backend``: ``"xla"`` or ``"pallas"`` (K7)."""
+    ``backend``: ``"xla"`` or ``"pallas"`` (K7).  ``sharded``: ``w`` is
+    this model rank's shard of the output channels, ``u`` whole (plain
+    SN only)."""
+    if sharded:
+        if backend != "xla":
+            raise ValueError("a sharded weight takes the plain SN")
+        w32 = w.float()
+        w_mat = w32.movedim(out_dim, -1).reshape(-1, w.shape[out_dim])
+        sigma, u_new = _sharded_power_iterate(w_mat, u.float(), n_iter)
+        return (w32 / (sigma + eps)).to(w.dtype), u_new
     if backend == "pallas":
         # Every weight, of any size, goes through K7 on the card.  The JAX
         # package sends weights above VMEM_LIMIT_BYTES to its XLA path

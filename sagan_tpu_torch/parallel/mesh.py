@@ -15,15 +15,29 @@ communicates: the counts are 1 and 0 and the reductions return their
 input.  A launcher's one-rank group does communicate (a one-rank
 all-reduce), so the group's own cost can be read on one card.
 
+Model parallelism (``model_parallel`` m > 1, JAX's ``make_mesh(n,
+model_parallel=m)``): :func:`make_grid` lays the W ranks out as a (data,
+model) grid of W/m x m, row-major as JAX's reshape of its devices, so
+rank r has data index r // m and model index r % m.  The m ranks of one
+data index (a model group) hold the column shards of the wide weights
+(``parallel/sharding.py``) and run the same rows; the W/m ranks of one
+model index (a data group) hold the same shard and run their own rows.
+The gradient mean, BN's moments, the loss and the health reduce over the
+data group (:func:`data_group`); a sharded layer gathers its output
+channels over the model group (:func:`model_group`) with the three
+autograd rules below.  Without a grid (or at m = 1) the data group is
+the world and nothing changes.
+
 How the backends reduce:
 
 * NCCL reduces on the card.
 * gloo is a host backend: a CUDA tensor is copied to the host, reduced
-  there and copied back (:func:`_all_reduce_`).  The backend is the
+  there and copied back (:func:`all_reduce_`).  The backend is the
   caller's choice and is never switched on a failure.
 
-The tensors of a step only ever meet ``all_reduce`` (gloo takes nothing
-but ``all_reduce`` and ``broadcast`` on CUDA tensors).  Host values
+The tensors of a step meet ``all_reduce`` and, under model parallelism,
+``all_gather`` (gloo takes nothing but ``all_reduce`` and ``broadcast``
+on CUDA tensors, so both go through host copies there).  Host values
 (:func:`all_reduce_max`, :func:`barrier`) go through a gloo group on the
 host, the default group under gloo and a second one under NCCL, so they
 never wait for the card.
@@ -42,6 +56,8 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=60)
 
 _host_twin = None   # the gloo twin of NCCL's default group, for host values
+_grids: dict = {}   # the (data, model) grids made in this group, by m
+_grid = None        # the grid in use (None: 1 x 1, or W x 1 data-parallel)
 
 
 def initialize_distributed(backend: str, coordinator: str | None = None,
@@ -62,7 +78,9 @@ def initialize_distributed(backend: str, coordinator: str | None = None,
 
 def shutdown_distributed() -> None:
     """Leave the group (and its host twin); no-op without one."""
-    global _host_twin
+    global _host_twin, _grid
+    _grids.clear()
+    _grid = None
     if not distributed():
         return
     if _host_twin is not None:
@@ -87,6 +105,94 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if distributed() else 0
+
+
+def host_count() -> int:
+    """The hosts of the group: the world over the launcher's
+    ``LOCAL_WORLD_SIZE`` (1 without a launcher)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", process_count()))
+    return max(1, process_count() // max(1, local))
+
+
+class _Grid:
+    """The (data, model) grid of this rank: its indices and the groups of
+    its model peers and of its data peers."""
+
+    def __init__(self, m: int):
+        world, rank = process_count(), process_index()
+        if m < 1 or world % m:
+            raise ValueError(
+                f"model_parallel={m} must divide the group's {world} "
+                f"ranks")
+        self.m, self.count = m, world // m
+        self.data_index, self.model_index = divmod(rank, m)
+        self.model, self.data = None, None
+        if m == 1:
+            return   # W x 1: the data group is the world
+        # every rank makes every group, in the same order (new_group is a
+        # collective of the world), and keeps the two that hold it
+        for d in range(self.count):
+            group = dist.new_group([d * m + j for j in range(m)],
+                                   timeout=TIMEOUT)
+            if d == self.data_index:
+                self.model = group
+        for j in range(m):
+            group = dist.new_group([d * m + j for d in range(self.count)],
+                                   timeout=TIMEOUT)
+            if j == self.model_index:
+                self.data = group
+
+
+def make_grid(model_parallel: int) -> None:
+    """Lay the group's ranks out as a (data, model) grid of W/m x m
+    (``model_parallel`` m) and use it.  Every rank calls it with the same
+    m at the same point: a new m makes its groups, which every rank of
+    the world must join; a grid made before is taken again.  Without a
+    group, m must be 1."""
+    global _grid
+    if not distributed():
+        if model_parallel != 1:
+            raise ValueError(
+                f"model_parallel={model_parallel} needs a group of ranks "
+                f"(python -m torch.distributed.run --nproc_per_node W ...)"
+                f"; one process runs model_parallel 1")
+        _grid = None
+        return
+    if model_parallel not in _grids:
+        _grids[model_parallel] = _Grid(model_parallel)
+    _grid = _grids[model_parallel]
+
+
+def model_size() -> int:
+    """m, the ranks a sharded weight is cut over (1 without a grid)."""
+    return _grid.m if _grid is not None else 1
+
+
+def model_index() -> int:
+    """This rank's place in its model group: which shard it holds."""
+    return _grid.model_index if _grid is not None else 0
+
+
+def data_count() -> int:
+    """The data-parallel width, W/m: the number of distinct batches."""
+    return _grid.count if _grid is not None else process_count()
+
+
+def data_index() -> int:
+    """Which of the ``data_count()`` batches (and data shards) this rank
+    runs; its model peers run the same."""
+    return _grid.data_index if _grid is not None else process_index()
+
+
+def data_group():
+    """The group the gradient mean, BN's moments, the loss and the health
+    reduce over: this rank's data peers (None, the world, at m = 1)."""
+    return _grid.data if _grid is not None else None
+
+
+def model_group():
+    """This rank's model peers (None when nothing is sharded)."""
+    return _grid.model if _grid is not None else None
 
 
 def local_rank() -> int:
@@ -122,27 +228,34 @@ def rank_device(name: str, backend: str | None = None) -> torch.device:
     return device
 
 
-def _all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``dist.all_reduce`` in place; under gloo a CUDA tensor is reduced
-    through a host copy."""
+def _group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                 group=None) -> torch.Tensor:
+    """``dist.all_reduce`` over ``group`` (None: the world) in place;
+    under gloo a CUDA tensor is reduced through a host copy."""
     if t.is_cuda and dist.get_backend() == "gloo":
         host = t.cpu()
-        dist.all_reduce(host, op=op)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def all_reduce_mean(tensors) -> list:
-    """``lax.pmean`` of ``tensors`` (one dtype): flattened into one buffer,
-    summed over the ranks in one all-reduce, divided by the world size and
-    cut back into views of their shapes.  Without a group, the input."""
+def all_reduce_mean(tensors, group=None) -> list:
+    """``lax.pmean`` of ``tensors`` (one dtype) over ``group`` (None: the
+    world): flattened into one buffer, summed over the ranks in one
+    all-reduce, divided by the group's size and cut back into views of
+    their shapes.  Without a group, the input."""
     tensors = list(tensors)
     if not distributed():
         return tensors
-    flat = _all_reduce_(torch.cat([t.reshape(-1) for t in tensors]))
-    flat = flat.div_(process_count())
+    flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]),
+                        group=group)
+    flat = flat.div_(_group_size(group))
     out, begin = [], 0
     for t in tensors:
         out.append(flat[begin:begin + t.numel()].view_as(t))
@@ -151,26 +264,100 @@ def all_reduce_mean(tensors) -> list:
 
 
 class _MeanAllReduce(torch.autograd.Function):
-    """The mean over the ranks, whose backward takes the mean of the
-    cotangents over the ranks (``torch.distributed.nn.functional
-    .all_reduce``'s rule, through :func:`_all_reduce_`)."""
+    """The mean over the group's ranks, whose backward takes the mean of
+    the cotangents over them (``torch.distributed.nn.functional
+    .all_reduce``'s rule, through :func:`all_reduce_`)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce_(x.clone()).div_(process_count())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group=group).div_(_group_size(group))
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce_(grad.clone()).div_(process_count())
+        return (all_reduce_(grad.clone(), group=ctx.group)
+                .div_(_group_size(ctx.group)), None)
 
 
-def all_reduce_mean_grad(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks, differentiable: each rank's
-    gradient then holds every rank's terms, so BN's moments of the global
-    batch give the global batch's gradient.  Without a group, ``x``."""
+def all_reduce_mean_grad(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` over ``group``'s ranks (None: the world),
+    differentiable: each rank's gradient then holds every rank's terms, so
+    BN's moments of the global batch give the global batch's gradient.
+    Without a group, ``x``."""
     if not distributed():
         return x
-    return _MeanAllReduce.apply(x)
+    return _MeanAllReduce.apply(x, group)
+
+
+def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``t`` over ``group`` concatenated along ``dim`` in rank
+    order (``dist.all_gather``; under gloo a CUDA tensor goes through a
+    host copy)."""
+    n = _group_size(group)
+    t = t.contiguous()
+    host = t.is_cuda and dist.get_backend() == "gloo"
+    src = t.cpu() if host else t
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device, non_blocking=True) if host else out
+
+
+# The three rules of a column-parallel layer on the model group, whose
+# compute after the gather is replicated over the model peers (each
+# rank's autograd gives the gradient of the one global loss; a replicated
+# tensor's cotangent is the whole one on every peer):
+class _ToShards(torch.autograd.Function):
+    """(a) A replicated tensor entering a sharded computation: identity
+    forward; backward the sum of the peers' partial cotangents."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), group=model_group())
+
+
+class _GatherShards(torch.autograd.Function):
+    """(b) A sharded output gathered along ``dim``: all-gather forward;
+    backward this rank's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        return all_gather(x, dim, model_group())
+
+    @staticmethod
+    def backward(ctx, grad):
+        begin = model_index() * ctx.size
+        return grad.narrow(ctx.dim, begin, ctx.size).contiguous(), None
+
+
+class _SumShards(torch.autograd.Function):
+    """(c) The sum of the peers' partials, used replicated: sum
+    all-reduce forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce_(x.clone(), group=model_group())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def to_shards(x: torch.Tensor) -> torch.Tensor:
+    return _ToShards.apply(x)
+
+
+def gather_shards(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return _GatherShards.apply(x, dim % x.dim())
+
+
+def sum_shards(x: torch.Tensor) -> torch.Tensor:
+    return _SumShards.apply(x)
 
 
 def _host_group():

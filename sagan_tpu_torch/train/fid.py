@@ -231,9 +231,11 @@ def cache_path(config: dict, num_images: int, cache_tag: str) -> str:
     """``.cache/{name}_{img_size}_{n}_d{data_size}s{data_seed}_{tag}.pkl``,
     JAX's key: the dataset's name (a sha1 of its path when unset), the
     data view (truncation and shuffle seed pick the first ``n`` records)
-    and the extractor; under a group of several processes also
-    ``_p{process_index}``, as JAX's: each process reads its own shard, so
-    their real statistics must not share a file."""
+    and the extractor; with several data shards also ``_p{index}``, as
+    JAX's ``_p{process_index}``: each process reads its own shard, so
+    their real statistics must not share a file.  The index is the data
+    index (the process index without model parallelism): model peers read
+    the same shard and write the same file, each atomically."""
     name = config.get("dataset")
     if not name:
         # two datasets evaluated from one working directory must not
@@ -241,8 +243,8 @@ def cache_path(config: dict, num_images: int, cache_tag: str) -> str:
         path = os.path.abspath(str(config.get("data_path", "data")))
         name = "data_" + hashlib.sha1(path.encode()).hexdigest()[:10]
     view = f"d{config.get('data_size', -1)}s{config.get('data_seed', 0)}"
-    if mesh.process_count() > 1:
-        view += f"_p{mesh.process_index()}"
+    if mesh.data_count() > 1:
+        view += f"_p{mesh.data_index()}"
     return os.path.join(".cache", f"{name}_{config['img_size']}_"
                                   f"{num_images}_{view}_{cache_tag}.pkl")
 

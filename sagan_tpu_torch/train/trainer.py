@@ -32,6 +32,23 @@ as JAX pmeans them, and BN's moments are the ranks' mean (cross-replica
 BN).  No ``DistributedDataParallel``: its reducer hooks never fire under
 ``torch.autograd.grad``.
 
+Model parallelism (``model_parallel`` m > 1, JAX's GSPMD step on a
+(data, model) mesh): the W ranks form a W/m x m grid (``parallel/mesh.py``
+``make_grid``); each rank holds its model index's column shards of the
+wide weights and of their Adam moments and EMA (``parallel/sharding.py``,
+JAX's ``param_shardings`` rule), and runs its data index's rows, as its
+model peers do.  Every reduction above is over the data group; a sharded
+layer gathers its output channels over the model group, and its SN is the
+whole weight's (``nn/layers.py``, ``ops/spectral.py``), so the step is the
+one-process step at the global batch.  The gradients of the parameters
+every peer holds whole are averaged over the model group first, which
+keeps the peers' replicas bit-identical where a kernel sums in no fixed
+order.  The gradient norms and variable
+means in the metrics are of whole variables.  As in the JAX trainer,
+``use_pallas_sn`` is dropped (SN keeps the weight sharded); each rank's
+attention runs K1/K2 (or the flash kernels) on its own rows, with every
+channel gathered, as JAX's ``pallas_partitioned`` kernels do.
+
 The port keeps the state in its modules and optimizers and updates them in
 place (:class:`TrainState`); gradients are taken with
 ``torch.autograd.grad`` of each net's loss with respect to that net's
@@ -54,8 +71,11 @@ FID (and IS) epochs every ``fid_epoch_freq`` epochs (``train/fid.py``,
 mid-epoch resume, at the JAX trainer's cadences.  Under a group each rank
 trains on its own card (the CLI's ``cuda:<LOCAL_RANK>``, ``main.py``),
 feeds its own shard of the data (the device cache holds the rank's shard,
-padded to the largest), and only process 0 writes summaries, sample
-grids, checkpoints, the profiler trace and the epoch and FID lines.
+padded to the largest; under model parallelism the shard of its data
+index), and only process 0 writes summaries, sample grids, checkpoints,
+the profiler trace and the epoch and FID lines; its model peers join the
+gathers of its sample grids, histograms and checkpoints, which leave the
+run whole, in the format of m = 1, and restore at any m.
 """
 
 from __future__ import annotations
@@ -73,7 +93,7 @@ from ..data.loader import get_dataset_and_info
 from ..models import get_discriminator, get_generator
 from ..nn.layers import bn_accum_begin, bn_accum_finalize, bn_moment_paths
 from ..ops.losses import get_loss
-from ..parallel import mesh
+from ..parallel import mesh, sharding
 from ..utils.device import resolve_device
 from ..utils.images import make_grid, save_image_grid
 from ..utils.profiling import TraceWindow
@@ -123,18 +143,46 @@ class TrainState:
     ema: dict | None = None
 
 
-def _global_norm(grads) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def _whole(values: torch.Tensor, sharded, square: bool) -> torch.Tensor:
+    """Per-variable ``values`` [n] of the shards this rank holds made the
+    whole variables': at the indices ``sharded`` (a tensor, or None when
+    nothing is sharded) the norms' squares summed (``square``), or the
+    means averaged, over the model group."""
+    if sharded is None:
+        return values
+    part = values[sharded.to(values.device)]
+    part = part.square() if square else part / mesh.model_size()
+    part = mesh.all_reduce_(part, group=mesh.model_group())
+    return values.index_copy(0, sharded.to(values.device),
+                             part.sqrt() if square else part)
+
+
+def _mean_over_peers(grads, replicated) -> list:
+    """Under model parallelism, the gradients at the indices
+    ``replicated`` (the parameters every model peer holds whole) averaged
+    over the model group: the peers compute them redundantly, equal but
+    for the rounding of kernels that sum in no fixed order (cuDNN's fp32
+    weight gradients), and the mean keeps their replicas equal bit for
+    bit.  As given when ``replicated`` is None."""
+    if replicated is None:
+        return grads
+    grads = list(grads)
+    means = mesh.all_reduce_mean([grads[i] for i in replicated],
+                                 mesh.model_group())
+    for i, g in zip(replicated, means):
+        grads[i] = g
+    return grads
 
 
 def _mean_over_ranks(grads, loss, health: dict) -> tuple:
-    """``lax.pmean`` of an update's fp32 gradients, loss and health, in one
-    all-reduce; as given without a group."""
+    """``lax.pmean`` over the data group of an update's fp32 gradients,
+    loss and health, in one all-reduce; as given without a group."""
     if not mesh.distributed():
         return grads, loss, health
     keys = list(health)
     out = mesh.all_reduce_mean([*grads, loss.float(),
-                                *(health[k].float() for k in keys)])
+                                *(health[k].float() for k in keys)],
+                               mesh.data_group())
     n = len(grads)
     return out[:n], out[n], dict(zip(keys, out[n + 1:]))
 
@@ -160,9 +208,11 @@ class TrainStep:
     SPANS = ("fakes", "d_fwd_bwd", "d_adam", "g_fwd_bwd", "g_adam", "ema",
              "metrics")
 
-    def __init__(self, config, sched_g, sched_d, g_names, d_names):
+    def __init__(self, config, sched_g, sched_d, g_names, d_names,
+                 sharded=()):
         """``g_names`` / ``d_names``: the nets' parameter names in
-        ``named_parameters`` order."""
+        ``named_parameters`` order; ``sharded``: the names (of either
+        net) this rank holds as model-parallel shards."""
         self.mark = None
         self.z_dim = config["z_dim"]
         self.num_classes = max(1, config.get("num_classes", 1))
@@ -179,22 +229,52 @@ class TrainStep:
         self.exact_accum_bn = self.accum > 1 and config.get("exact_accum_bn",
                                                             True)
         self.seed = config.get("seed", 0)
-        # this rank's rows of each step's global draws
-        self.rank = config.get("process_index", 0)
-        self.ranks = config.get("process_count", 1)
+        # this rank's rows of each step's global draws: its data index's
+        # (model peers draw the same)
+        self.rank = config.get("data_index", config.get("process_index", 0))
+        self.ranks = config.get("data_count", config.get("process_count", 1))
+        # JAX's step under model parallelism is one GSPMD program, whose
+        # micro-batches are the global batch's
+        self.gspmd = config.get("model_parallel", 1) > 1
         self.sched_g, self.sched_d = sched_g, sched_d
         # per-variable metrics in the JAX order, and where each sits
         self.g_names, self.d_names = jax_order(g_names), jax_order(d_names)
         self._g_perm = [list(g_names).index(n) for n in self.g_names]
         self._d_perm = [list(d_names).index(n) for n in self.d_names]
+        # where the shards sit among each net's parameters, and (under
+        # model parallelism) the parameters every model peer holds whole
+        self._g_sharded, self._d_sharded = (
+            torch.tensor([i for i, n in enumerate(names) if n in sharded])
+            if any(n in sharded for n in names) else None
+            for names in (g_names, d_names))
+        self._g_replicated, self._d_replicated = (
+            [i for i, n in enumerate(names) if n not in sharded]
+            if self.gspmd else None for names in (g_names, d_names))
+
+    def rows(self, batch: int):
+        """This rank's rows of a global batch whose ranks take ``batch``
+        rows each: [r·B, (r+1)·B), r its data index, whose micro-batches
+        are the rank's own (JAX's ``shard_map`` step); under model
+        parallelism with accumulation, its share of each of the global
+        batch's micro-batches, so the accumulated step is the one process
+        step at the global batch, as JAX's GSPMD step is."""
+        r, a = self.rank, self.accum
+        if not (self.gspmd and a > 1):
+            return slice(r * batch, (r + 1) * batch)
+        total, micro = batch * self.ranks, batch // a
+        return torch.cat([torch.arange(k * total // a + r * micro,
+                                       k * total // a + (r + 1) * micro)
+                          for k in range(a)])
 
     def latents(self, step: int, batch: int, device) -> dict:
         """The randomness of step ``step`` for a rank's batch ``batch``:
         ``{"flip": bool [B] or None, "d": [(z, labels)] per D update,
-        "g": (z, labels)}``, this rank's rows [r·B, (r+1)·B) of the draws
-        of the global batch."""
+        "g": (z, labels)}``, this rank's :meth:`rows` of the draws of the
+        global batch."""
         total = batch * self.ranks
-        rows = slice(self.rank * batch, (self.rank + 1) * batch)
+        rows = self.rows(batch)
+        if torch.is_tensor(rows):
+            rows = rows.to(device)
 
         def draw(purpose):
             rng = seeded(device, self.seed, 1, step, purpose)
@@ -301,6 +381,7 @@ class TrainStep:
 
             loss_d, grads_d, health = self._accumulated((gen, disc), d_micro,
                                                         micro)
+            grads_d = _mean_over_peers(grads_d, self._d_replicated)
             grads_d, loss_d, health = _mean_over_ranks(grads_d, loss_d,
                                                        health)
             _apply(state.opt_d, d_params, grads_d,
@@ -317,6 +398,7 @@ class TrainStep:
             return loss, torch.autograd.grad(loss, g_params), {}
 
         loss_g, grads_g, _ = self._accumulated((gen, disc), g_micro, micro)
+        grads_g = _mean_over_peers(grads_g, self._g_replicated)
         grads_g, loss_g, _ = _mean_over_ranks(grads_g, loss_g, {})
         self._mark("g_fwd_bwd")
         _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
@@ -334,17 +416,21 @@ class TrainStep:
         self._mark("ema")
 
         ratio = self.update_ratio
+        # per-variable norms of the whole variables
+        g_norms = _whole(torch.stack(torch._foreach_norm(grads_g)),
+                         self._g_sharded, True)
+        d_norms = _whole(torch.stack(torch._foreach_norm(grads_d)),
+                         self._d_sharded, True)
         metrics = {"G_loss": loss_g, "D_loss": d_loss_acc / ratio,
-                   "G_grad_norm": _global_norm(grads_g),
-                   "D_grad_norm": _global_norm(grads_d)}
+                   "G_grad_norm": torch.linalg.vector_norm(g_norms),
+                   "D_grad_norm": torch.linalg.vector_norm(d_norms)}
         metrics.update({k: v / ratio for k, v in health_acc.items()})
         if self.summary_var:
-            metrics["G_var_means"] = torch.stack(
-                [g_params[i].detach().mean() for i in self._g_perm])
-            metrics["G_grad_norms"] = torch.stack(torch._foreach_norm(
-                [grads_g[i] for i in self._g_perm]))
-            metrics["D_grad_norms"] = torch.stack(torch._foreach_norm(
-                [grads_d[i] for i in self._d_perm]))
+            means = _whole(torch.stack([p.detach().mean() for p in g_params]),
+                           self._g_sharded, False)
+            metrics["G_var_means"] = means[self._g_perm]
+            metrics["G_grad_norms"] = g_norms[self._g_perm]
+            metrics["D_grad_norms"] = d_norms[self._d_perm]
         self._mark("metrics")
         state.step += 1
         return metrics
@@ -366,10 +452,13 @@ class TrainStep:
 
 
 def build_train_step(config, sched_g, sched_d, gen, disc) -> TrainStep:
-    """The train step of ``config`` for these nets and LR schedules."""
+    """The train step of ``config`` for these nets (whole, or sharded by
+    ``parallel.sharding.shard_module``) and LR schedules."""
     return TrainStep(config, sched_g, sched_d,
                      [n for n, _ in gen.named_parameters()],
-                     [n for n, _ in disc.named_parameters()])
+                     [n for n, _ in disc.named_parameters()],
+                     {*sharding.sharded_axes(gen),
+                      *sharding.sharded_axes(disc)})
 
 
 def build_device_cache(ds, device, rows: int | None = None) -> tuple:
@@ -377,7 +466,11 @@ def build_device_cache(ds, device, rows: int | None = None) -> tuple:
     [n] (``ds.materialized()``, this rank's shard) uploaded to ``device``
     once, zero-padded to ``rows`` records (JAX's per-host rule: every
     rank holds the largest shard's size; the index batches never reach
-    the padding)."""
+    the padding).  Under model parallelism across hosts it raises, as the
+    JAX package's does."""
+    if mesh.host_count() > 1 and mesh.model_size() > 1:
+        raise ValueError("device_cache: multi-process + model_parallel"
+                         " is not supported (use the host feed)")
     imgs, labels = ds.materialized()
     pad = (rows or len(labels)) - len(labels)
     if pad:
@@ -388,11 +481,19 @@ def build_device_cache(ds, device, rows: int | None = None) -> tuple:
             torch.from_numpy(labels).to(device))
 
 
-def _check_ported(config) -> None:
-    """Raise for what the JAX trainer does and the port does not yet."""
+def model_parallel_routing(config: dict, announce: bool = True) -> None:
+    """The JAX trainer's routing under model_parallel > 1 (its GSPMD
+    step), in ``config`` in place: ``use_pallas_sn`` dropped, with JAX's
+    message when it was on (and ``announce``): the weight is model-sharded,
+    and the plain SN keeps it so.  JAX's ``pallas_partitioned`` needs
+    nothing here (each rank's attention takes its own rows), and the key
+    is accepted as every config key is."""
     if config.get("model_parallel", 1) > 1:
-        raise NotImplementedError(
-            "not ported yet: model_parallel > 1, ROADMAP.md Queue 1 item 21")
+        if config.get("use_pallas_sn") and announce:
+            print("model_parallel > 1: SN stays on the XLA backend "
+                  "(the weight operand is model-sharded; a fused "
+                  "single-shard kernel would gather it)", flush=True)
+        config.pop("use_pallas_sn", None)
 
 
 class Trainer:
@@ -400,14 +501,25 @@ class Trainer:
     ``device`` (``cuda`` by default; raises without a card)."""
 
     def __init__(self, config: dict, device: str | torch.device = "cuda"):
-        _check_ported(config)
         self.primary = mesh.process_index() == 0
         self.device = resolve_device(device)
         # fp32 products stay fp32, as the JAX layers ask for HIGHEST
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.ds_train, self.config = get_dataset_and_info(config)
+        mesh.make_grid(config.get("model_parallel", 1))   # every rank
+        # the grid decides the shard and the rows a rank takes
+        self.ds_train, self.config = get_dataset_and_info(
+            {**config, "data_index": mesh.data_index(),
+             "data_count": mesh.data_count()})
         config = self.config
+        # the ranks of rank 0's model group join its sample grids' gathers
+        self.grid_rank = mesh.data_index() == 0
+        model_parallel_routing(config, announce=self.primary)
+        n = mesh.data_count()
+        if config["global_batch_size"] % n:
+            raise ValueError(
+                f"global_batch_size {config['global_batch_size']} not "
+                f"divisible by the {n}-wide data axis")
         self.steps_per_call = max(1, config.get("steps_per_call", 1))
         self.steps_per_epoch = (self.ds_train.steps_per_epoch //
                                 self.steps_per_call) * self.steps_per_call
@@ -425,6 +537,9 @@ class Trainer:
         disc = get_discriminator(config, rng=seeded("cpu", seed, 0, _INIT_D))
         gen.to(self.device).train()
         disc.to(self.device).train()
+        # this rank's shards of the wide weights (none at m = 1)
+        self.g_axes = sharding.shard_module(gen)
+        self.d_axes = sharding.shard_module(disc)
         (opt_g, self.sched_g), (opt_d, self.sched_d) = make_gan_optimizers(
             config, gen.parameters(), disc.parameters(),
             self.steps_per_epoch)
@@ -471,22 +586,41 @@ class Trainer:
     def global_step(self) -> int:
         return self.state.step
 
+    def _names(self) -> tuple:
+        return tuple([n for n, _ in net.named_parameters()]
+                     for net in (self.state.gen, self.state.disc))
+
     def checkpoint_payload(self) -> dict:
+        """The whole training state (shards gathered over the model group:
+        every model peer calls it), in the format of m = 1."""
         s = self.state
-        return {"step": s.step, "gen": s.gen.state_dict(),
-                "disc": s.disc.state_dict(), "opt_g": s.opt_g.state_dict(),
-                "opt_d": s.opt_d.state_dict(), "ema": s.ema,
+        ga, da = self.g_axes, self.d_axes
+        g_names, d_names = self._names()
+        return {"step": s.step, "gen": sharding.whole(s.gen.state_dict(), ga),
+                "disc": sharding.whole(s.disc.state_dict(), da),
+                "opt_g": sharding.whole_optimizer(s.opt_g.state_dict(),
+                                                  g_names, ga),
+                "opt_d": sharding.whole_optimizer(s.opt_d.state_dict(),
+                                                  d_names, da),
+                "ema": None if s.ema is None else sharding.whole(s.ema, ga),
                 "meta": {k: self.config[k] for k in META_KEYS}}
 
     def _load(self, ckpt: dict) -> None:
+        """Restore a whole checkpoint (written at any m), each rank taking
+        its slices."""
         s = self.state
-        s.gen.load_state_dict(ckpt["gen"])
-        s.disc.load_state_dict(ckpt["disc"])
-        s.opt_g.load_state_dict(ckpt["opt_g"])
-        s.opt_d.load_state_dict(ckpt["opt_d"])
+        ga, da = self.g_axes, self.d_axes
+        g_names, d_names = self._names()
+        s.gen.load_state_dict(sharding.local(ckpt["gen"], ga))
+        s.disc.load_state_dict(sharding.local(ckpt["disc"], da))
+        s.opt_g.load_state_dict(sharding.local_optimizer(ckpt["opt_g"],
+                                                         g_names, ga))
+        s.opt_d.load_state_dict(sharding.local_optimizer(ckpt["opt_d"],
+                                                         d_names, da))
         s.step = int(ckpt["step"])
         if s.ema is not None:
-            s.ema = {n: t.to(self.device) for n, t in ckpt["ema"].items()}
+            s.ema = {n: t.to(self.device)
+                     for n, t in sharding.local(ckpt["ema"], ga).items()}
 
     def eval_generator(self):
         """G for evaluation, in eval mode: the EMA parameters when tracked
@@ -503,11 +637,25 @@ class Trainer:
 
     def sample_images(self) -> np.ndarray:
         """The fixed-latent sample grid's images, float [n, S, S, 3] in
-        [-1, 1]."""
+        [-1, 1] (under model parallelism every model peer calls it)."""
         gen = self.eval_generator()
         with torch.inference_mode():
             x = gen(self.fixed_z, self.fixed_labels).float()
         return x.permute(0, 2, 3, 1).cpu().numpy()
+
+    def _histograms(self) -> dict:
+        """Each variable's values, whole, for the histograms (every model
+        peer calls it)."""
+        out = {}
+        for tag, net, axes in (("G", self.state.gen, self.g_axes),
+                               ("D", self.state.disc, self.d_axes)):
+            params = sharding.whole({n: p.detach()
+                                     for n, p in net.named_parameters()},
+                                    axes)
+            out.update({f"hist/{tag}/{n.replace('.', '/')}":
+                        p.float().cpu().numpy().ravel()
+                        for n, p in params.items()})
+        return out
 
     def _var_summaries(self, prefix: str, values) -> dict:
         return {f"{prefix}/G/{n.replace('.', '/')}": float(v)
@@ -547,6 +695,12 @@ class Trainer:
                     "host feed uses the streaming-buffer shuffle, a "
                     "different schedule, so enabling both would break "
                     "exact resume against it")
+            return
+        if mesh.host_count() > 1 and mesh.model_size() > 1:
+            if mode is True:
+                raise ValueError("device_cache with model_parallel is "
+                                 "single-process only (use the host feed "
+                                 "for multi-host GSPMD runs)")
             return
         budget = config.get("device_cache_budget_mb", 2048) * (1 << 20)
         # every rank holds the largest shard's size (agreed by all)
@@ -721,6 +875,9 @@ class Trainer:
             step_ms = 1000.0 * epoch_time / (count * K)
             imgs_per_sec = count * K * config["global_batch_size"] / \
                 epoch_time
+            histograms = (self._histograms() if self.grid_rank
+                          and config.get("log_dir")
+                          and config.get("summary_histograms") else None)
             if self.writer:
                 scalars = {
                     "generator_loss": mean["G_loss"],
@@ -738,14 +895,9 @@ class Trainer:
                     scalars.update(self._var_summaries("grads_norm",
                                                        grad_norms))
                 self.writer.scalars(scalars, epoch)
-                if config.get("summary_histograms"):
+                if histograms:
                     # each variable's distribution of values
-                    for tag, net in (("G", self.state.gen),
-                                     ("D", self.state.disc)):
-                        self.writer.histograms(
-                            {f"hist/{tag}/{n.replace('.', '/')}":
-                             p.detach().float().cpu().numpy().ravel()
-                             for n, p in net.named_parameters()}, epoch)
+                    self.writer.histograms(histograms, epoch)
                 self.writer.flush()
             if self.primary:
                 print(f"epoch {epoch}: G_loss={mean['G_loss']:.4f} "
@@ -762,11 +914,12 @@ class Trainer:
                                   or epoch == num_epochs - 1):
                 self.ckpt_mgr.save(step, self.checkpoint_payload())
             # sample grids in the first 5 epochs, every 5th, and the last
-            if img_dir and self.primary and (epoch < 5 or epoch % 5 == 0
-                                             or epoch == num_epochs - 1):
+            if img_dir and self.grid_rank and (epoch < 5 or epoch % 5 == 0
+                                               or epoch == num_epochs - 1):
                 grid = self.sample_images()
-                save_image_grid(grid, os.path.join(
-                    img_dir, f"epoch_{epoch:04d}.png"))
+                if self.primary:
+                    save_image_grid(grid, os.path.join(
+                        img_dir, f"epoch_{epoch:04d}.png"))
                 if self.writer:
                     self.writer.image("sample", make_grid(grid), step)
                     self.writer.flush()
@@ -808,6 +961,8 @@ class Trainer:
         scalars = {k: float(v) for k, v in fetched.items() if v.ndim == 0}
         for k, v in scalars.items():
             acc[k] = acc.get(k, 0.0) + v
+        grid = (self.sample_images() if self.grid_rank
+                and self.config.get("log_dir") else None)
         if self.writer:
             step = self.global_step()
             self.writer.scalars({f"step/{k}": v for k, v in scalars.items()},
@@ -815,8 +970,7 @@ class Trainer:
             if var_means is not None:
                 self.writer.scalars(self._var_summaries("vars", var_means),
                                     step)
-            self.writer.image("sample", make_grid(self.sample_images()),
-                              step)
+            self.writer.image("sample", make_grid(grid), step)
             self.writer.flush()
 
     def _stop_requested(self) -> bool:

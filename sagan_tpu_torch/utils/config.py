@@ -1,9 +1,10 @@
 """Config loading: the ``--config_path example_configs/foo.py`` API, where
 the file defines a module-level dict named ``config``.
 
-Own copy of ``sagan_tpu/utils/config.py``; the data-parallel width is the
+Own copy of ``sagan_tpu/utils/config.py``; the device count is the
 number of processes of the ``torch.distributed`` group (one card a
-process), 1 without a group.
+process), 1 without a group, and the data-parallel width that over
+``model_parallel``.
 """
 
 from __future__ import annotations
@@ -73,7 +74,10 @@ def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
     a process; ``num_local_devices`` overrides the count, for tests), as
     JAX's defaults to the global ``jax.device_count()``; a
     ``num_devices`` that differs from it raises.  ``process_count`` and
-    ``process_index`` are the group's.
+    ``process_index`` are the group's; ``data_count`` and ``data_index``
+    the (data, model) grid's (``parallel/mesh.py``): the batches a step
+    runs and which of them (and which data shard) this process takes, the
+    same for the ``model_parallel`` ranks of one data index.
     """
     cfg = dict(DEFAULTS)
     cfg.update(config)
@@ -106,5 +110,7 @@ def resolve_config(config: dict, num_local_devices: int | None = None) -> dict:
     # per-device batch x data-parallel width; the model axis replicates
     # the batch, it doesn't multiply it
     cfg.setdefault("global_batch_size", cfg["batch_size"] * (width // mp))
+    cfg["data_count"] = max(1, cfg["process_count"] // mp)
+    cfg["data_index"] = cfg["process_index"] // mp
     return cfg
 

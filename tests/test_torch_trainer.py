@@ -195,18 +195,6 @@ def test_checkpoints_keep_the_newest_and_skip_unreadable(tmp_path):
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
 
 
-@pytest.mark.parametrize("update,match", [
-    ({"model_parallel": 2}, "model_parallel > 1, ROADMAP.md Queue 1 item 21"),
-])
-def test_unported_options_raise_with_their_roadmap_item(tmp_path, data32,
-                                                        update, match):
-    config = resolve_config(load_config_file(_config_file(
-        tmp_path, data32)))
-    config.update(update)
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(config, device="cpu")
-
-
 def test_two_ranks_train_through_the_cli(tmp_path, data32):
     """``num_devices`` 2: two gloo ranks started by ``torch.distributed.run``
     train test.py on the CPU, end at the same step with the same state
