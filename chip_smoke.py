@@ -128,14 +128,19 @@ the build, and prints neither the kernels line nor the result line):
      each, all together); every variant of the study forward (S1) against
      its plain version at church64's 64 map, a 4,096-row chunk of the 256
      and 512 maps and a ragged shape, bf16 and (fma engine) fp32, its fma
-     default against the CUDA-core K1 bit for bit; both forms of the
-     folded forward (S2) against theirs; the CUDA-core K1 and K3 at every
-     forward tile point against the plain forward, K4-K6 at every
+     default against the CUDA-core K1 bit for bit and its ``mma_exp2``
+     (its tensor-core variants are builds of the shipped K1/K3 body)
+     against the shipped tensor-core K1 or K3 bit for bit; S1's
+     tensor-core variants timed at the 64, 256 and 512 maps whole beside
+     ``sdpa_padded``; both forms of the folded forward (S2, bf16 on the
+     tensor cores) against theirs, and S2 timed at the 64 and 256 maps
+     beside the shipped kernel on projected q, k; the CUDA-core K1 and K3
+     at every forward tile point against the plain forward, K4-K6 at every
      backward tile point against K4 + K5 at the shipped tiles (B=2 at the
      256 map); the tensor-core K1 and K2 at every design flip of the
      64-map study against the plain versions, and K4 + K5 at every flip
      of the 512-map study against the plain backward (B=2 at the 256 map
-     and a ragged shape); S1 and S2 timed at the 64 map;
+     and a ragged shape);
  21. the four attention studies (``sagan_tpu_torch.tools.bench_attn_*``)
      with ``--quick`` in process: every section present, every time > 0,
      every max|Δ| within its limit (each kernel a study times, at the full
@@ -275,9 +280,10 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_reference,
                                            flash_bwd_fused,
                                            fused_keys_per_block, k2_key_blocks,
-                                           plain_chunk)
+                                           plain_chunk, single_pass)
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
+from sagan_tpu_torch.ops.cuda_attention_study import mma_entry
 from sagan_tpu_torch.ops.spectral import spectral_normalize
 from sagan_tpu_torch.parallel import mesh, sharding
 from sagan_tpu_torch.serve import GeneratorService, make_server
@@ -2415,10 +2421,21 @@ STUDY_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 STUDY_SITES = (("64 map", 64, 4096, 1024), ("256 map chunk", 1, 4096, 16384),
                ("512 map chunk", 1, 4096, 65536), ("ragged", 3, 100, 37))
 STUDY_BWD_SITE = (2, 256 * 256, 128 * 128, 2, 8)  # K4-K6 tiles: B=2, 256 map
+# the study maps whole, as the studies time them: (B, N, M), d = 2, c = 8
+STUDY_MAPS = {"64 map": (64, 4096, 1024), "256 map": (16, 65536, 16384),
+              "512 map": (4, 262144, 65536)}
+# the H100 SXM's exponentials: 16 a clock on each of its SMs at its
+# 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def _study_tol(dtype, variant: str = "") -> float:
     return STUDY_TOL[torch.bfloat16 if variant.endswith("e16") else dtype]
+
+
+def sfu_floor_ms(b, n, m) -> float:
+    """Least time of one exponential a (query, key) pair on the SFUs."""
+    return b * n * m / SFU_EXP_PER_S * 1e3
 
 
 def folded_bound_ms(b, n, m, dtype) -> tuple[float, str]:
@@ -2440,8 +2457,12 @@ def phase_study_kernels(card: str) -> dict:
     every S1 variant, both S2 forms, every tile variant of K1 and K3-K6 and
     every design flip of the tensor-core K1, K2, K4 and K5 against the
     plain versions (``STUDY_TOL``, the flips ``TOL`` and ``BWD_TOL``), the
-    S1 fma default against K1 bit for bit; time S1 (mma) and S2 at the 64
-    map.  Returns their rows of the kernels line."""
+    S1 fma default against the CUDA-core K1 bit for bit and S1 mma_exp2
+    against the shipped tensor-core K1 or K3 (the route's pick) bit for
+    bit; time S1's tensor-core variants at the three study maps beside
+    ``sdpa_padded``, and S2 in bf16 at the 64 and 256 maps beside the
+    shipped kernel on projected q, k.  Returns their rows of the kernels
+    line."""
     t0 = time.perf_counter()
     paths = _build.build(cuda_attention_study.build_specs())
     print(f"phase 20 build: {len(paths)} study libraries in "
@@ -2475,13 +2496,50 @@ def phase_study_kernels(card: str) -> dict:
                 print(f"phase 20 attention_study fma vs K1 at church64's 64 "
                       f"map B={b} {dtype}: bit-identical {same}", flush=True)
                 require(same, f"attention_study fma is not K1's bits {dtype}")
+            if dtype == torch.bfloat16:
+                # mma_exp2 is the shipped body: the route's K1 or K3 bits
+                kind = "K1" if single_pass(m, 2, 8) else "K3"
+                shipped = (cuda_attention.attention_fused(q, k, v)
+                           if kind == "K1" else
+                           cuda_attention.attention_flash_fwd(q, k, v)[0])
+                same = torch.equal(cas.attention_study(q, k, v, "mma_exp2"),
+                                   shipped)
+                print(f"phase 20 attention_study mma_exp2 vs the shipped "
+                      f"tensor-core {kind} at {site} B={b} N={n} M={m}: "
+                      f"bit-identical {same}", flush=True)
+                require(same, f"attention_study mma_exp2 is not {kind}'s "
+                              f"bits at {site}")
     for variant, (share, err, where) in worst.items():
         print(f"phase 20 kernel attention_study {variant}: worst "
               f"{share:.3f} of its tolerance (max_abs_err {err:.3g} at "
               f"{where}) over {', '.join(s[0] for s in STUDY_SITES)}",
               flush=True)
 
-    # S1's row of the kernels line: the mma engine at the 64 map, bf16
+    # S1's tensor-core variants (builds of the shipped K1/K3 body) at the
+    # study maps whole, sdpa_padded beside them; mma_exp2, the shipped
+    # kernel, timed first and again last for the run's drift
+    order = ["mma_exp2"] + [name for name, (engine, _, _) in VARIANTS.items()
+                            if engine == "mma" and name != "mma_exp2"]
+    for site, (b, n, m) in STUDY_MAPS.items():
+        q, k, v, _ = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
+        row = {}
+        for variant in order:
+            row[variant] = cuda_time_ms(cas.attention_study, q, k, v, variant,
+                                        iters=10, reps=3, warmup=2)[0]
+        row["sdpa_padded"] = cuda_time_ms(sdpa_padded, q, k, v, iters=10,
+                                          reps=3, warmup=2)[0]
+        row["mma_exp2 again"] = cuda_time_ms(
+            cas.attention_study, q, k, v, "mma_exp2", iters=10, reps=3,
+            warmup=2)[0]
+        print(f"phase 20 attention_study tensor-core variants at the {site} "
+              f"B={b} N={n} M={m} bf16 ({mma_entry(m)} builds), ms: "
+              + ", ".join(f"{key} {ms:.4f}" for key, ms in row.items())
+              + f"; SFU floor {sfu_floor_ms(b, n, m):.4f}; bound "
+              f"{attention_bound_ms(b, n, m, 2, 8, torch.bfloat16)[0]:.5f} "
+              f"on {card}", flush=True)
+        del q, k, v
+
+    # S1's row of the kernels line: the mma variant at the 64 map, bf16
     _, b, n, m = STUDY_SITES[0]
     q, k, v, _ = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
     err = _grad_errors((cas.attention_study(q, k, v, "mma"),),
@@ -2537,6 +2595,36 @@ def phase_study_kernels(card: str) -> dict:
           f"{', '.join(s[0] for s in STUDY_SITES[:2] + STUDY_SITES[3:])}, "
           f"bf16 and fp32: worst {share_f:.3f} of its tolerance; timed: "
           f"{heads['folded']} on {card}", flush=True)
+    # S2 in bf16 (v given) at the 64 and 256 maps whole, beside the shipped
+    # kernel (K1 or K3) on q = x W_theta, k = xb W_phi, with and without
+    # those two projections: does the fold pay on the tensor cores?
+    for site in ("64 map", "256 map"):
+        b, n, m = STUDY_MAPS[site]
+        x = torch.randn(b, n, cin, device="cuda", generator=gen)
+        xb = torch.randn(b, m, cin, device="cuda", generator=gen)
+        wth = torch.randn(cin, 2, device="cuda", generator=gen) / 4
+        wph = torch.randn(cin, 2, device="cuda", generator=gen) / 4
+        v = torch.randn(b, m, 8, device="cuda", generator=gen)
+        x, xb, wth, wph, v = (t.to(torch.bfloat16)
+                              for t in (x, xb, wth, wph, v))
+        w = (wth.float() @ wph.float().T).to(torch.bfloat16)
+        qp, kp = torch.matmul(x, wth), torch.matmul(xb, wph)
+        timing = {"iters": 10, "reps": 3, "warmup": 2}
+        row = {"folded": cuda_time_ms(lambda: cas.attention_folded(
+            x, xb, w, v=v), **timing)[0],
+               "shipped_projected_qk": cuda_time_ms(
+                   attention, qp, kp, v, **timing)[0],
+               "shipped_with_projections": cuda_time_ms(
+                   lambda: attention(torch.matmul(x, wth),
+                                     torch.matmul(xb, wph), v),
+                   **timing)[0]}
+        bound = folded_bound_ms(b, n, m, torch.bfloat16)
+        print(f"phase 20 attention_folded bf16 (v given) at the {site} "
+              f"B={b} N={n} M={m} Cin={cin} c=8, ms: "
+              + ", ".join(f"{key} {ms:.4f}" for key, ms in row.items())
+              + f"; bound {bound[0]:.5f} ({bound[1]}); SFU floor "
+              f"{sfu_floor_ms(b, n, m):.4f} on {card}", flush=True)
+        del x, xb, v, qp, kp
 
     # K1 and K3 at every forward tile point, vs the plain forward whose
     # arithmetic they share (fp32 P: the study's "fma"); K3's lse vs the
@@ -4601,12 +4689,16 @@ def main(argv=None) -> int:
                 "replaces": "sagan_tpu/ops/pallas_spectral.py:96",
                 "launches": r["train128"]["K7bwd"], **r["sn"]["bwd"]},
                {"name": "attention_study", "route": "cuda",
-                "source": src + "attention_study.cu",
+                "source": src + "attention_flash_mma.cu",
+                "sources": [src + "attention_flash_mma.cu",
+                            src + "mma_bf16.cuh", src + "attention_study.cu"],
                 "replaces": "tools/bench_attn_floor.py:82",
                 "launches": r["study_launches"]["attention_study"],
                 **r["study_heads"]["study"]},
                {"name": "attention_folded", "route": "cuda",
                 "source": src + "attention_folded.cu",
+                "sources": [src + "attention_folded.cu",
+                            src + "mma_bf16.cuh"],
                 "replaces": "tools/bench_attn_floor.py:173",
                 "launches": r["study_launches"]["attention_folded"],
                 **r["study_heads"]["folded"]}]

@@ -177,44 +177,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 16-byte units of a staged row of w bf16: at least one (narrow rows are
-// zero-padded to 8 values), and an odd count, so that the 8 rows an
-// ldmatrix reads fall in distinct banks
-__host__ __device__ constexpr int row_units(int w) {
-  return w < 8 ? 1 : (w / 8) % 2 ? w / 8 : w / 8 + 1;
-}
-
-// cp.async rows [r0, r0 + rows) of a row-major [total, W] bf16 matrix to
-// dst, whose rows are row_units(W) * 16 bytes; rows past `total` are
-// zero-filled. A chunk is one row of up to 16 bytes, or 16 bytes of one.
-template <int W, int kThreads>
-__device__ __forceinline__ void stage_rows(char* dst, const bf16* src,
-                                           int r0, int rows, int total) {
-  constexpr int kChunk = 2 * W < 16 ? 2 * W : 16;
-  constexpr int kPer = 2 * W / kChunk;
-  constexpr int kStride = row_units(W) * 16;
-  for (int i = threadIdx.x; i < rows * kPer; i += kThreads) {
-    const int r = i / kPer, part = i % kPer;
-    const bool in = r0 + r < total;
-    const char* s = reinterpret_cast<const char*>(
-                        src + (size_t)(in ? r0 + r : 0) * W) + part * kChunk;
-    cp_async<kChunk>(dst + r * kStride + part * kChunk, s, in ? kChunk : 0);
-  }
-}
-
-__device__ __forceinline__ void zero_smem(char* p, int bytes, int threads) {
-  for (int i = threadIdx.x; i < bytes / 16; i += threads)
-    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 // ---- K3 and K1: the forward; K2's stats pass ------------------------------
 
 // Each of K3's design choices can be flipped at build time, for the study
@@ -222,8 +184,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 // -DSAGAN_MMA_STAGES=3 stages the tiles by cp.async in a ring of 3 (the
 // next two load while one is used), -DSAGAN_MMA_ROW_TILES=2 gives a warp
 // two m16 row tiles,
-// -DSAGAN_MMA_MASK_ALL=1 masks every tile, -DSAGAN_MMA_EXPF=1 takes S1's
-// exponent (__expf(s - m), a rescale __expf(m_old - m_new)) and
+// -DSAGAN_MMA_MASK_ALL=1 masks every tile and
 // -DSAGAN_MMA_VOTE=1 skips the rescale in a tile where no row's max moved
 // (a warp vote). The defaults are the shipped kernel. They leave K1 and
 // K2 as they are.
@@ -237,17 +198,48 @@ constexpr bool kMaskAll = SAGAN_MMA_MASK_ALL;
 #else
 constexpr bool kMaskAll = false;
 #endif
-#ifdef SAGAN_MMA_EXPF
-constexpr bool kExpf = SAGAN_MMA_EXPF;
-#else
-constexpr bool kExpf = false;
-#endif
 #ifdef SAGAN_MMA_VOTE
 constexpr bool kVote = SAGAN_MMA_VOTE;
 #else
 constexpr bool kVote = false;
 #endif
 static_assert(kFwdStages >= 1, "SAGAN_MMA_STAGES: at least one stage");
+
+// The math of K1 and K3, switched at build time: the tensor-core variants
+// of the study forward S1 are these builds (ops/cuda_attention_study.py
+// MMA_VARIANT_DEFINES), each removing or moving one part of the shipped
+// forward, so that its time beside the default's says what that part
+// costs. -DSAGAN_MMA_MATH= takes
+//  exp    e = __expf(s - m), the rescale __expf(m_old - m_new) (in place
+//         of the exponent's one FFMA into ex2.approx);
+//  nomax  e = __expf(s): no max and no rescale;
+//  noexp  NOT attention: e = s - M with M the row's max over all keys,
+//         o = sum e v / sum e. e is linear in s, so the pass keeps sum s v,
+//         sum s, sum v and the running max, and forms o = (sum s v -
+//         M sum v) / (sum s - M count) at the end: no transcendental, no
+//         rescale. s is not in [0, 1], so s v takes two bf16 mmas (s and
+//         its rounding residue, s to ~2^-16); sum v is one more mma of
+//         ones by V's fragments, so each warp sums each key once, however
+//         the keys were staged. Its lse is not a log-sum-exp;
+//  e16    the exp math with P rounded to bf16 before the row sum too.
+// -DSAGAN_MMA_FMA_SCORES=1 computes S = Q K^T with fmaf in the C
+// fragment's layout (row g and g + 8, keys 2t and 2t + 1 of each n8
+// group) in place of the m16n8k8 mma (d <= 8; wider d keeps the mma).
+// The default, exp2 with one FFMA, is the shipped kernel. They leave K2's
+// stats pass and K4 as they are.
+enum Math { kMath_exp2, kMath_exp, kMath_nomax, kMath_noexp, kMath_e16 };
+#define SAGAN_PASTE(a, b) a##b
+#define SAGAN_MATH(name) SAGAN_PASTE(kMath_, name)
+#ifdef SAGAN_MMA_MATH
+constexpr Math kMath = SAGAN_MATH(SAGAN_MMA_MATH);
+#else
+constexpr Math kMath = kMath_exp2;
+#endif
+#ifdef SAGAN_MMA_FMA_SCORES
+constexpr bool kFmaScores = SAGAN_MMA_FMA_SCORES;
+#else
+constexpr bool kFmaScores = false;
+#endif
 
 // K1's and K2's choices, flipped at build time for the 64-map study
 // (sagan_tpu_torch/tools/bench_attn_floor.py, k1_mma and k2_mma):
@@ -385,8 +377,15 @@ __device__ __forceinline__ void fwd_mma_body(
   constexpr int DT = (D + 7) / 8;    // n8 dim tiles of dQ
   constexpr int OT = kDq ? DT : NT;  // n8 tiles of the accumulated product
   constexpr bool kMask = kFlash && kMaskAll;
-  constexpr bool kEx = kFlash && kExpf;
   constexpr bool kVt = kFlash && kVote;
+  // the math switches act on K1 and K3 alone
+  constexpr bool kFwd = kFlash || kOut == kOutFwd;
+  constexpr Math kM = kFwd ? kMath : kMath_exp2;
+  constexpr bool kEx = kM == kMath_exp || kM == kMath_e16;  // __expf(s - m)
+  constexpr bool kE16 = kM == kMath_e16;
+  constexpr bool kNoMax = kM == kMath_nomax;
+  constexpr bool kNoExp = kM == kMath_noexp;
+  constexpr bool kFmaS = kFwd && kFmaScores && kK8;  // scores by fmaf
   static_assert(kST == 1 || (!kWhole && kStages == 1),
                 "several tiles a stage: synchronous staging only");
   using S = FwdSmem<D, C>;
@@ -439,6 +438,8 @@ __device__ __forceinline__ void fwd_mma_body(
   };
   uint32_t qa[RT][KS][4];
   uint32_t ga[RT][kDp ? CS : 1][4];
+  // the fma scores: rows g and g + 8 of each row tile, all d values, fp32
+  float qv[RT][2][kFmaS ? D : 1];
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
     const int lo = row0 + 16 * rt + g;
@@ -448,6 +449,16 @@ __device__ __forceinline__ void fwd_mma_body(
       qa[rt][ks][1] = aword(q, D, lo + 8, 8 * ks + t);
       qa[rt][ks][2] = aword(q, D, lo, 8 * ks + 4 + t);
       qa[rt][ks][3] = aword(q, D, lo + 8, 8 * ks + 4 + t);
+    }
+    if constexpr (kFmaS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int w = 0; w < D / 2; ++w) {
+          const float2 x = unpack_bf16(aword(q, D, lo + 8 * r, w));
+          qv[rt][r][2 * w] = x.x;
+          qv[rt][r][2 * w + 1] = x.y;
+        }
     }
     if constexpr (kDp) {
 #pragma unroll
@@ -464,6 +475,7 @@ __device__ __forceinline__ void fwd_mma_body(
   float acc[RT][kStats ? 1 : OT][4], tot[RT][kDq ? DT : 1][4];
   float mx[RT][2], nm[RT][2], l[RT][2];  // running max, -max log2e, sum
   float asum[RT][2];                     // the stats' sum of e dp
+  float sv[kNoExp ? NT : 1][4] = {};     // noexp: sum v (1 V, every row)
   float2 lq[RT][2];  // dq: the row's (-lse log2e, delta); padded (-inf, 0)
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
@@ -511,7 +523,9 @@ __device__ __forceinline__ void fwd_mma_body(
 
     // B fragments of K^T: key group h's rows, d values as the mma's k
     uint32_t kf[kFwdGroups][KS][2];
-    if constexpr (kK8) {
+    if constexpr (kFmaS) {
+      // no B fragments: each lane reads its keys' rows below
+    } else if constexpr (kK8) {
 #pragma unroll
       for (int h0 = 0; h0 < kFwdGroups; h0 += 4)
         ldsm_x4(kf[h0][0][0], kf[h0 + 1][0][0], kf[h0 + 2][0][0],
@@ -536,7 +550,20 @@ __device__ __forceinline__ void fwd_mma_body(
 #pragma unroll
       for (int h = 0; h < kFwdGroups; ++h) {
         s[rt][h][0] = s[rt][h][1] = s[rt][h][2] = s[rt][h][3] = 0.f;
-        if constexpr (kK8) {
+        if constexpr (kFmaS) {
+          // keys 8h + 2t and 8h + 2t + 1, d values in order
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t* kr = reinterpret_cast<const uint32_t*>(
+                ks_ + (8 * h + 2 * t + (e & 1)) * S::kKRow);
+#pragma unroll
+            for (int w = 0; w < D / 2; ++w) {
+              const float2 x = unpack_bf16(kr[w]);
+              s[rt][h][e] = fmaf(qv[rt][e >> 1][2 * w], x.x, s[rt][h][e]);
+              s[rt][h][e] = fmaf(qv[rt][e >> 1][2 * w + 1], x.y, s[rt][h][e]);
+            }
+          }
+        } else if constexpr (kK8) {
           mma_bf16_k8(s[rt][h], qa[rt][0][0], qa[rt][0][1], kf[h][0][0]);
         } else {
 #pragma unroll
@@ -588,8 +615,9 @@ __device__ __forceinline__ void fwd_mma_body(
       }
     }
     const int tm = m - it * kFwdTile;
+    const bool ragged = kMask || tm < kFwdTile;
     // keys past M weigh 0: only the ragged last tile has them
-    if (kMask || tm < kFwdTile) {
+    if (ragged) {
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -620,6 +648,27 @@ __device__ __forceinline__ void fwd_mma_body(
       for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          if constexpr (kNoMax || kNoExp) {
+            // nomax: e = exp(s); noexp: e stays s (the max is taken over
+            // keys within M, then a key past M adds 0); no rescale
+            float tmax = -INFINITY, sum = 0.f;
+#pragma unroll
+            for (int h = 0; h < kFwdGroups; ++h) {
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                if constexpr (kNoMax) {
+                  s[rt][h][e] = __expf(s[rt][h][e]);
+                } else {
+                  tmax = fmaxf(tmax, s[rt][h][e]);
+                  if (ragged && s[rt][h][e] == -INFINITY) s[rt][h][e] = 0.f;
+                }
+                sum += s[rt][h][e];
+              }
+            }
+            if constexpr (kNoExp) mx[rt][r] = fmaxf(mx[rt][r], quad_max(tmax));
+            tl[rt][r] = sum;
+            continue;
+          }
           float tmax = -INFINITY;
 #pragma unroll
           for (int h = 0; h < kFwdGroups; ++h)
@@ -642,6 +691,7 @@ __device__ __forceinline__ void fwd_mma_body(
             for (int e = 2 * r; e < 2 * r + 2; ++e) {
               s[rt][h][e] = kEx ? __expf(s[rt][h][e] - m_new)
                                 : ex2(fmaf(s[rt][h][e], kLog2e, nm_new));
+              if constexpr (kE16) s[rt][h][e] = round_bf16(s[rt][h][e]);
               sum += s[rt][h][e];
               if constexpr (kStats)
                 asm_ = fmaf(s[rt][h][e], dp[rt][h][e], asm_);
@@ -661,7 +711,12 @@ __device__ __forceinline__ void fwd_mma_body(
           }
         continue;
       }
-      if (!kVt || __any_sync(kFull, moved)) {
+      if constexpr (kNoMax || kNoExp) {
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l[rt][r] += tl[rt][r];
+      } else if (!kVt || __any_sync(kFull, moved)) {
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
@@ -718,6 +773,31 @@ __device__ __forceinline__ void fwd_mma_body(
           for (int w = 0; w < 2; ++w)
             mma_bf16(acc[rt][j], pa[rt][w][0], pa[rt][w][1], pa[rt][w][2],
                      pa[rt][w][3], vf[2 * w], vf[2 * w + 1]);
+        }
+        if constexpr (kNoExp) {
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+#pragma unroll
+            for (int rt = 0; rt < RT; ++rt) {
+              // s's rounding residue, a second bf16 term of s v
+              const float* lo = s[rt][2 * (u + w)];
+              const float* hi = s[rt][2 * (u + w) + 1];
+              mma_bf16(acc[rt][j],
+                       pack_bf16(lo[0] - round_bf16(lo[0]),
+                                 lo[1] - round_bf16(lo[1])),
+                       pack_bf16(lo[2] - round_bf16(lo[2]),
+                                 lo[3] - round_bf16(lo[3])),
+                       pack_bf16(hi[0] - round_bf16(hi[0]),
+                                 hi[1] - round_bf16(hi[1])),
+                       pack_bf16(hi[2] - round_bf16(hi[2]),
+                                 hi[3] - round_bf16(hi[3])),
+                       vf[2 * w], vf[2 * w + 1]);
+            }
+            // sum v: ones (bf16 1.0 in both halves) by V's fragments
+            constexpr uint32_t kOnes = 0x3f803f80u;
+            mma_bf16(sv[j], kOnes, kOnes, kOnes, kOnes, vf[2 * w],
+                     vf[2 * w + 1]);
+          }
         }
       }
     }
@@ -776,12 +856,24 @@ __device__ __forceinline__ void fwd_mma_body(
         const float lsum = quad_sum(l[rt][r]);
         const int row = row0 + 16 * rt + g + 8 * r;
         if (row >= n) continue;
+        if constexpr (kNoExp) {
+          // o = (sum s v - M sum v) / (sum s - M count)
+          const float den = lsum - mx[rt][r] * (float)m;
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-          ow[(size_t)row * (C / 2) + 4 * j + t] = pack_bf16(
-              acc[rt][j][2 * r] / lsum, acc[rt][j][2 * r + 1] / lsum);
+          for (int j = 0; j < NT; ++j)
+            ow[(size_t)row * (C / 2) + 4 * j + t] = pack_bf16(
+                (acc[rt][j][2 * r] - mx[rt][r] * sv[j][0]) / den,
+                (acc[rt][j][2 * r + 1] - mx[rt][r] * sv[j][1]) / den);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            ow[(size_t)row * (C / 2) + 4 * j + t] = pack_bf16(
+                acc[rt][j][2 * r] / lsum, acc[rt][j][2 * r + 1] / lsum);
+        }
+        // nomax: no max taken, so the lse is log l alone
         if constexpr (kFlash)
-          if (t == 0) lse[(size_t)b * n + row] = mx[rt][r] + logf(lsum);
+          if (t == 0)
+            lse[(size_t)b * n + row] = (kNoMax ? 0.f : mx[rt][r]) + logf(lsum);
       }
     }
   }

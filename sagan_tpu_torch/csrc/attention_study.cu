@@ -1,33 +1,27 @@
-// SAGAN attention study forward for Hopper (sm_90a): the variants of the
-// attention floor studies, O = softmax(Q K^T) V with unscaled logits, at
-// the widths of every study shape, d = 2 and c = 8:
+// SAGAN attention study forward for Hopper (sm_90a), its CUDA-core engine:
+// the variants of the attention floor studies, O = softmax(Q K^T) V with
+// unscaled logits, at the widths of every study shape, d = 2 and c = 8:
 //
 //   q [B, N, 2]   k [B, M, 2]   v [B, M, 8]   ->   o [B, N, 8], row-major,
-//   all in the input type (bf16, or fp32 for the fma engine).
+//   all in the input type (bf16 or fp32).
 //
-// Replaces the TPU study kernels of tools/bench_attn_floor.py (_call :82
-// with the bodies k_current :98, k_vpu_scores :110, k_exp2 :124, k_nomax
-// :136, k_noexp :147, k_e16 :159, k_ev_vpu :216) and the stripped-math
-// flash floors of tools/bench_attn_floor256.py (_floor_kernel :132, also
-// run by tools/bench_attn_floor512.py :137). Each variant removes or moves
-// one candidate bottleneck of the shipped forward (K1/K3), so that its time
+// Replaces, with the tensor-core variants, the TPU study kernels of
+// tools/bench_attn_floor.py (_call :82 with the bodies k_current :98,
+// k_vpu_scores :110, k_exp2 :124, k_nomax :136, k_noexp :147, k_e16 :159,
+// k_ev_vpu :216) and the stripped-math flash floors of
+// tools/bench_attn_floor256.py (_floor_kernel :132, also run by
+// tools/bench_attn_floor512.py :137). Each variant removes or moves one
+// candidate bottleneck of the shipped forward (K1/K3), so that its time
 // beside K1's says what that part costs on this card.
 //
-// Two engines:
-//  * fma: K1's key-tiled online-softmax loop (attention_fwd.cu), one thread
-//    a query row on the CUDA cores, fp32 P in E.V. With the default math
-//    it issues K1's operations in K1's order and computes K1's bits.
-//  * mma: both contractions on the tensor cores, mma.sync.m16n8k16 bf16 ->
-//    fp32. A warp owns 16 query rows; Q is the A operand with d = 2
-//    zero-padded to k = 16 in registers (as the TPU's k_current padded d
-//    to 128 lanes on its MXU); each 8 keys of a 64-key tile staged in
-//    shared memory are a B operand; the scores land in the C fragment (row
-//    lane/4 and lane/4 + 8, keys 2(lane%4) and +1), the row max and sum go
-//    by shuffles within the quad that shares a row, and P, rounded to
-//    bf16, is reused from registers as the A operand of P.V
-//    (FlashAttention-2's layout: two n8 C fragments of scores are one k16
-//    A fragment); V^T staged in shared memory is the B operand, c = 8 is
-//    exactly n8. The row sum l is taken from fp32 P. bf16 only.
+// The variants have two engines (ops/cuda_attention_study.py):
+//  * fma, here: K1's key-tiled online-softmax loop (attention_fwd.cu), one
+//    thread a query row on the CUDA cores, fp32 P in E.V. With the default
+//    math it issues K1's operations in K1's order and computes K1's bits.
+//  * mma, not here: the tensor-core variants are builds of the shipped
+//    bf16 K1/K3 body (attention_flash_mma.cu fwd_mma_body) with the
+//    variant's math switched at build time (-DSAGAN_MMA_MATH=,
+//    -DSAGAN_MMA_FMA_SCORES=1); mma_exp2 is the shipped kernel itself.
 //
 // The math of each variant (the plain versions in ops/attention_study.py
 // compute the same):
@@ -42,24 +36,16 @@
 //         transcendental and no second pass (the TPU's flash "noexp" floor
 //         was NaN: its 0 * -inf correction);
 //  e16    P rounded to bf16 before both the row sum and E.V.
-// "mma_fma_scores" computes the scores with fmaf in the C-fragment layout
-// instead of the first mma (T1's k_vpu_scores).
 //
 // What bounds it: at d = 2 and c = 8 each (query, key) pair costs one
 // exponential on the SFUs (16 a clock an SM) and ~14 fp32 instructions on
-// the CUDA cores; the bytes are a few MB. The mma engine moves the 10
-// multiply-adds of the two contractions to the tensor cores at 1/8 of
-// their width (k = 16 for d = 2), leaving the exponential and the row
-// bookkeeping on the CUDA cores.
+// the CUDA cores; the bytes are a few MB.
 //
-// The fma engine's tiles take K1's defines (-DSAGAN_FWD_ROWS=,
-// -DSAGAN_FWD_TILE=), so the floors run at any of K1's tile points.
+// The tiles take K1's defines (-DSAGAN_FWD_ROWS=, -DSAGAN_FWD_TILE=), so
+// the floors run at any of K1's tile points.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-
-#include "mma_bf16.cuh"  // mma_bf16, pack/unpack_bf16, quad_max/sum
 
 namespace {
 
@@ -69,13 +55,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 enum Math { kExp = 0, kExp2 = 1, kNoMax = 2, kNoExp = 3, kE16 = 4 };
 
-// the variants in the order of ops/cuda_attention_study.py VARIANTS
-enum Variant {
-  kFma = 0, kFmaExp2, kFmaNoMax, kFmaNoExp, kFmaE16,
-  kMma, kMmaFmaScores, kMmaExp2, kMmaNoMax, kMmaNoExp, kMmaE16, kVariants
-};
-
-// ---- the fma engine: K1's loop ------------------------------------------
+// the fma variants, first in ops/attention_study.py VARIANTS
+enum Variant { kFma = 0, kFmaExp2, kFmaNoMax, kFmaNoExp, kFmaE16, kVariants };
 
 #ifdef SAGAN_FWD_ROWS
 constexpr int kRows = SAGAN_FWD_ROWS;
@@ -249,221 +230,6 @@ __global__ void __launch_bounds__(kRows)
   }
 }
 
-// ---- the mma engine: tensor cores -----------------------------------------
-
-constexpr int kMmaWarps = 4;              // warps a block, 16 rows each
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a block
-constexpr int kMmaTile = 64;              // keys staged a step
-constexpr int kGroups = kMmaTile / 8;     // n8 key groups a tile
-// 32-bit words a row of the staged V^T: keys 2j and 2j+1 of channel c in
-// word j; 4 words of padding put the 8 channels' rows in distinct banks
-constexpr int kVtWords = kMmaTile / 2 + 4;
-
-template <int kMath, bool kFmaScores>
-__global__ void __launch_bounds__(32 * kMmaWarps)
-    study_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int n, int m) {
-  __shared__ uint32_t kw[kMmaTile];      // a key's (k0, k1) as bf16x2
-  __shared__ uint32_t vt[C][kVtWords];   // V^T as bf16x2 pairs of keys
-  __shared__ float vred[kMath == kNoExp ? kMmaWarps : 1][C];  // noexp
-
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // this lane's rows g and g + 8 of the warp's 16
-  const int t = lane & 3;   // and its keys (and channels) 2t and 2t + 1
-  const int r0 = blockIdx.x * kMmaRows + warp * 16 + g;
-  const int r1 = r0 + 8;
-  // a row of q (k, o) is one 32-bit word (16 bytes): bf16 x 2 (x 8)
-  const uint32_t* qw = reinterpret_cast<const uint32_t*>(q) + (size_t)b * n;
-  const uint32_t* kbw = reinterpret_cast<const uint32_t*>(k) + (size_t)b * m;
-  const uint4* vb = reinterpret_cast<const uint4*>(v) + (size_t)b * m;
-  __nv_bfloat16* vth = reinterpret_cast<__nv_bfloat16*>(&vt[0][0]);
-
-  const uint32_t q0 = r0 < n ? qw[r0] : 0u;
-  const uint32_t q1 = r1 < n ? qw[r1] : 0u;
-  // A fragment of Q: columns 2t, 2t + 1 of rows g, g + 8 (and 2t + 8, +9
-  // in the two upper registers, always 0); only t = 0 holds d = 2
-  const uint32_t qa0 = t == 0 ? q0 : 0u;
-  const uint32_t qa1 = t == 0 ? q1 : 0u;
-  const float2 qf0 = unpack_bf16(q0), qf1 = unpack_bf16(q1);
-
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // o[r0][2t, 2t+1], o[r1][2t, 2t+1]
-  float mx[2] = {-INFINITY, -INFINITY};  // running max of rows r0, r1
-  float nmx[2] = {INFINITY, INFINITY};   // exp2: -mx * log2e as rounded
-  float l[2] = {0.f, 0.f};   // this lane's share of the row sums of e
-                             // (noexp: of s)
-  float vpart[C] = {};  // noexp: sum v over the keys this thread stages
-
-  for (int t0 = 0; t0 < m; t0 += kMmaTile) {
-    const int tm = min(kMmaTile, m - t0);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < kMmaTile; i += 32 * kMmaWarps) {
-      const bool in = i < tm;  // keys past M are staged as 0
-      kw[i] = in ? kbw[t0 + i] : 0u;
-      const uint4 row = in ? vb[t0 + i] : make_uint4(0u, 0u, 0u, 0u);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&row);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        vth[c * 2 * kVtWords + i] = h[c];
-        if constexpr (kMath == kNoExp) vpart[c] += __bfloat162float(h[c]);
-      }
-    }
-    __syncthreads();
-
-    // scores: s[h][0..1] row r0, s[h][2..3] row r1, keys 8h + 2t, + 1
-    float s[kGroups][4];
-#pragma unroll
-    for (int h = 0; h < kGroups; ++h) {
-      if constexpr (kFmaScores) {
-        const float2 ka = unpack_bf16(kw[8 * h + 2 * t]);
-        const float2 kb = unpack_bf16(kw[8 * h + 2 * t + 1]);
-        s[h][0] = fmaf(qf0.y, ka.y, qf0.x * ka.x);
-        s[h][1] = fmaf(qf0.y, kb.y, qf0.x * kb.x);
-        s[h][2] = fmaf(qf1.y, ka.y, qf1.x * ka.x);
-        s[h][3] = fmaf(qf1.y, kb.y, qf1.x * kb.x);
-      } else {
-        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
-        // B fragment of K^T: rows (k) 2t, 2t + 1 of column (key) g; only
-        // t = 0 holds d = 2
-        mma_bf16(s[h], qa0, qa1, 0u, 0u, t == 0 ? kw[8 * h + g] : 0u, 0u);
-      }
-    }
-
-    // keys past M: weight 0 (noexp: s = 0, left out of the max)
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int h = 0; h < kGroups; ++h) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = 8 * h + 2 * t + (e & 1) < tm;
-        if (in) tmax[e >> 1] = fmaxf(tmax[e >> 1], s[h][e]);
-        if (!in) s[h][e] = kMath == kNoExp ? 0.f : -INFINITY;
-      }
-    }
-    if constexpr (kMath != kNoMax) {
-      tmax[0] = quad_max(tmax[0]);
-      tmax[1] = quad_max(tmax[1]);
-    }
-
-    // e in place of s, and the rescale of the running sums
-    float scale[2] = {1.f, 1.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if constexpr (kMath == kNoExp || kMath == kNoMax) {
-        if constexpr (kMath == kNoExp) mx[r] = fmaxf(mx[r], tmax[r]);
-#pragma unroll
-        for (int h = 0; h < kGroups; ++h) {
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            if constexpr (kMath == kNoMax) s[h][e] = __expf(s[h][e]);
-            l[r] += s[h][e];
-          }
-        }
-      } else {
-        const float m_new = fmaxf(mx[r], tmax[r]);
-        float tl = 0.f;
-        if constexpr (kMath == kExp2) {
-          const float nm = -m_new * kLog2e;
-          scale[r] = exp2f(nm - nmx[r]);  // 1 while the max holds
-          nmx[r] = nm;
-#pragma unroll
-          for (int h = 0; h < kGroups; ++h) {
-#pragma unroll
-            for (int e = 2 * r; e < 2 * r + 2; ++e) {
-              s[h][e] = exp2f(fmaf(s[h][e], kLog2e, nm));
-              tl += s[h][e];
-            }
-          }
-        } else {  // kExp, kE16
-          scale[r] = __expf(mx[r] - m_new);
-#pragma unroll
-          for (int h = 0; h < kGroups; ++h) {
-#pragma unroll
-            for (int e = 2 * r; e < 2 * r + 2; ++e) {
-              s[h][e] = __expf(s[h][e] - m_new);
-              if constexpr (kMath == kE16) s[h][e] = round_bf16(s[h][e]);
-              tl += s[h][e];
-            }
-          }
-        }
-        l[r] = fmaf(l[r], scale[r], tl);
-        mx[r] = m_new;
-      }
-    }
-    acc[0] *= scale[0];
-    acc[1] *= scale[0];
-    acc[2] *= scale[1];
-    acc[3] *= scale[1];
-
-    // acc += P V, 16 keys an mma: the C fragments of key groups 2u and
-    // 2u + 1 are the A fragment of keys 16u..16u+15; B is V^T's keys
-    // 16u + 2t, +1 (and + 8, + 9) of channel g
-#pragma unroll
-    for (int u = 0; u < kGroups / 2; ++u) {
-      mma_bf16(acc, pack_bf16(s[2 * u][0], s[2 * u][1]),
-               pack_bf16(s[2 * u][2], s[2 * u][3]),
-               pack_bf16(s[2 * u + 1][0], s[2 * u + 1][1]),
-               pack_bf16(s[2 * u + 1][2], s[2 * u + 1][3]),
-               vt[g][8 * u + t], vt[g][8 * u + 4 + t]);
-      if constexpr (kMath == kNoExp) {
-        // s is not in [0, 1] and sum s v - M sum v cancels: add s's
-        // rounding residue as a second bf16 term (s to ~2^-16)
-        float* lo0 = s[2 * u];
-        float* lo1 = s[2 * u + 1];
-        mma_bf16(acc, pack_bf16(lo0[0] - round_bf16(lo0[0]),
-                                lo0[1] - round_bf16(lo0[1])),
-                 pack_bf16(lo0[2] - round_bf16(lo0[2]),
-                           lo0[3] - round_bf16(lo0[3])),
-                 pack_bf16(lo1[0] - round_bf16(lo1[0]),
-                           lo1[1] - round_bf16(lo1[1])),
-                 pack_bf16(lo1[2] - round_bf16(lo1[2]),
-                           lo1[3] - round_bf16(lo1[3])),
-                 vt[g][8 * u + t], vt[g][8 * u + 4 + t]);
-      }
-    }
-  }
-
-  // noexp: sum v over all keys (channels 2t, 2t + 1), once a block
-  float sv[2] = {0.f, 0.f};
-  if constexpr (kMath == kNoExp) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float x = vpart[c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        x += __shfl_xor_sync(kFull, x, off);
-      if (lane == 0) vred[warp][c] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w) {
-      sv[0] += vred[w][2 * t];
-      sv[1] += vred[w][2 * t + 1];
-    }
-  }
-
-  const float lr[2] = {quad_sum(l[0]), quad_sum(l[1])};
-  uint32_t* ow = reinterpret_cast<uint32_t*>(o) + (size_t)b * n * (C / 2);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? r1 : r0;
-    if (row >= n) continue;
-    float a = acc[2 * r], c = acc[2 * r + 1];
-    if constexpr (kMath == kNoExp) {
-      const float den = lr[r] - mx[r] * (float)m;
-      a = (a - mx[r] * sv[0]) / den;
-      c = (c - mx[r] * sv[1]) / den;
-    } else {
-      a /= lr[r];
-      c /= lr[r];
-    }
-    ow[(size_t)row * (C / 2) + t] = pack_bf16(a, c);
-  }
-}
-
 template <typename T, int kMath>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        int b, int n, int m, cudaStream_t stream) {
@@ -471,17 +237,6 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                                stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n, m);
-  return cudaGetLastError();
-}
-
-template <int kMath, bool kFmaScores>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int b, int n, int m, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  study_mma_kernel<kMath, kFmaScores>
-      <<<dim3((n + kMmaRows - 1) / kMmaRows, b), 32 * kMmaWarps, 0,
-         stream>>>(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                   static_cast<const bf*>(v), static_cast<bf*>(o), n, m);
   return cudaGetLastError();
 }
 
@@ -501,10 +256,11 @@ cudaError_t launch_fma_variant(int variant, const void* q, const void* k,
 
 }  // namespace
 
-// Launches `variant` (the order of ops/cuda_attention_study.py VARIANTS)
-// on `stream`; returns cudaGetLastError() (0 on success). `is_bf16`
-// selects bf16 operands, else fp32 (fma engine only); d must be 2 and c 8.
-// The caller checks shapes, contiguity and alignment before calling.
+// Launches fma `variant` (its index in ops/attention_study.py VARIANTS,
+// whose fma variants come first) on `stream`; returns cudaGetLastError()
+// (0 on success). `is_bf16` selects bf16 operands, else fp32; d must be 2
+// and c 8. The caller checks shapes, contiguity and alignment before
+// calling.
 extern "C" int sagan_attention_study(const void* q, const void* k,
                                      const void* v, void* o, int b, int n,
                                      int m, int d, int c, int variant,
@@ -512,19 +268,8 @@ extern "C" int sagan_attention_study(const void* q, const void* k,
   if (d != D || c != C || variant < 0 || variant >= kVariants)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant < kMma)
-    return is_bf16 ? launch_fma_variant<__nv_bfloat16>(variant, q, k, v, o,
-                                                        b, n, m, st)
-                   : launch_fma_variant<float>(variant, q, k, v, o, b, n, m,
-                                               st);
-  if (!is_bf16) return cudaErrorInvalidValue;
-  switch (variant) {
-    case kMma: return launch_mma<kExp, false>(q, k, v, o, b, n, m, st);
-    case kMmaFmaScores: return launch_mma<kExp, true>(q, k, v, o, b, n, m, st);
-    case kMmaExp2: return launch_mma<kExp2, false>(q, k, v, o, b, n, m, st);
-    case kMmaNoMax: return launch_mma<kNoMax, false>(q, k, v, o, b, n, m, st);
-    case kMmaNoExp: return launch_mma<kNoExp, false>(q, k, v, o, b, n, m, st);
-    case kMmaE16: return launch_mma<kE16, false>(q, k, v, o, b, n, m, st);
-  }
-  return cudaErrorInvalidValue;
+  return is_bf16 ? launch_fma_variant<__nv_bfloat16>(variant, q, k, v, o, b,
+                                                      n, m, st)
+                 : launch_fma_variant<float>(variant, q, k, v, o, b, n, m,
+                                             st);
 }

@@ -1,8 +1,10 @@
-// Warp-level tensor-core helpers for Hopper (sm_90a), shared by the study
-// forward S1 (attention_study.cu) and the bf16 flash kernels
-// (attention_flash_mma.cu): mma.sync bf16 -> fp32 in the PTX ISA's
-// fragment layouts, ldmatrix / movmatrix, cp.async, bf16x2 packing and the
-// quad reductions of a C fragment's row.
+// Warp-level tensor-core helpers for Hopper (sm_90a), shared by the bf16
+// attention kernels (attention_flash_mma.cu, whose builds are also the
+// tensor-core variants of the study forward S1) and the bf16 folded
+// forward S2 (attention_folded.cu): mma.sync bf16 -> fp32 in the PTX ISA's
+// fragment layouts, ldmatrix / movmatrix, cp.async and the staging of
+// row-major tiles by it, bf16x2 packing and the quad reductions of a C
+// fragment's row.
 //
 // Fragment layouts (g = lane / 4, t = lane % 4):
 //   A 16x16 (row): a0 row g, cols 2t, 2t+1; a1 row g+8; a2 row g, cols
@@ -14,6 +16,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -51,6 +54,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&w);
   return __bfloat1622float2(h);
+}
+// x rounded to bf16 and back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -133,6 +140,47 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+}
+
+// 16-byte units of a staged row of w bf16: at least one (narrow rows are
+// zero-padded to 8 values), and an odd count, so that the 8 rows an
+// ldmatrix reads fall in distinct banks
+__host__ __device__ constexpr int row_units(int w) {
+  return w < 8 ? 1 : (w / 8) % 2 ? w / 8 : w / 8 + 1;
+}
+
+// cp.async rows [r0, r0 + rows) of a row-major [total, W] bf16 matrix to
+// dst, whose rows are row_units(W) * 16 bytes; rows past `total` are
+// zero-filled. A chunk is one row of up to 16 bytes, or 16 bytes of one.
+template <int W, int kThreads>
+__device__ __forceinline__ void stage_rows(char* dst,
+                                           const __nv_bfloat16* src, int r0,
+                                           int rows, int total) {
+  constexpr int kChunk = 2 * W < 16 ? 2 * W : 16;
+  constexpr int kPer = 2 * W / kChunk;
+  constexpr int kStride = row_units(W) * 16;
+  for (int i = threadIdx.x; i < rows * kPer; i += kThreads) {
+    const int r = i / kPer, part = i % kPer;
+    const bool in = r0 + r < total;
+    const char* s = reinterpret_cast<const char*>(
+                        src + (size_t)(in ? r0 + r : 0) * W) + part * kChunk;
+    cp_async<kChunk>(dst + r * kStride + part * kChunk, s, in ? kChunk : 0);
+  }
+}
+
+__device__ __forceinline__ void zero_smem(char* p, int bytes, int threads) {
+  for (int i = threadIdx.x; i < bytes / 16; i += threads)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// let `kernel` take `bytes` of dynamic shared memory (past the 48 KB a
+// launch gets without asking)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the attention study kernels: the test oracles
-of ``csrc/attention_study.cu`` (S1, the study forward) and
+of the study forward S1 (its CUDA-core engine ``csrc/attention_study.cu``,
+its tensor-core variants the builds of ``csrc/attention_flash_mma.cu``
+that :mod:`~sagan_tpu_torch.ops.cuda_attention_study` names) and of
 ``csrc/attention_folded.cu`` (S2, the folded-projection forward), and what
-their wrappers (:mod:`~sagan_tpu_torch.ops.cuda_attention_study`) run for
-tensors on the CPU.
+their wrappers run for tensors on the CPU.
 
 Each study variant is a forward ``softmax(q kᵀ) v`` (unscaled logits)
 with one part changed, the math of a TPU study body of
@@ -11,8 +12,9 @@ one of two engines, which round P differently for E·V:
 
 * ``fma``, the CUDA cores (K1's loop): P stays fp32 in E·V
   (``k_ev_vpu``);
-* ``mma``, the tensor cores: P is cast to v's type for E·V, the row sum
-  taken from fp32 P (``k_current``).
+* ``mma``, the tensor cores (the shipped K1/K3 body, built with the
+  variant's math): P is cast to v's type for E·V, the row sum taken from
+  fp32 P (``k_current``); ``mma_exp2`` is the shipped kernel.
 
 The maths: ``exp`` (e = exp(s − max)); ``exp2`` (e = exp2(s·log2e −
 max·log2e)); ``nomax`` (e = exp(s), no max: T1's ``k_nomax`` and the

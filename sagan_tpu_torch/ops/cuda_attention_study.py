@@ -1,20 +1,29 @@
 """Wrappers of the attention study kernels, for the studies of
 ``sagan_tpu_torch/tools/bench_attn_*.py``:
 
-* :func:`attention_study`, the study forward (``csrc/attention_study.cu``,
-  S1), the port of the TPU study kernels of ``tools/bench_attn_floor.py``
-  (``_call`` and its bodies) and of the flash floors of
-  ``tools/bench_attn_floor256.py`` (``_floor_kernel``), one ``variant`` of
-  :data:`~sagan_tpu_torch.ops.attention_study.VARIANTS` a call;
+* :func:`attention_study`, the study forward (S1), the port of the TPU
+  study kernels of ``tools/bench_attn_floor.py`` (``_call`` and its
+  bodies) and of the flash floors of ``tools/bench_attn_floor256.py``
+  (``_floor_kernel``), one ``variant`` of
+  :data:`~sagan_tpu_torch.ops.attention_study.VARIANTS` a call.  Its
+  ``fma`` variants run ``csrc/attention_study.cu`` on the CUDA cores; its
+  ``mma`` variants are builds of the shipped bf16 K1/K3 body
+  (``csrc/attention_flash_mma.cu``) with the variant's math switched at
+  build time (:data:`MMA_VARIANT_DEFINES`), launched through K1's entry
+  where :func:`~sagan_tpu_torch.ops.attention.single_pass` takes the
+  shape and K3's otherwise (its lse discarded), so that
+  ``"mma_exp2"`` is the shipped kernel itself;
 * :func:`attention_folded`, the folded-projection forward
   (``csrc/attention_folded.cu``, S2), the port of ``k_folded``
   (``tools/bench_attn_floor.py``) and ``_folded_kernel``
-  (``tools/bench_attn_floor256.py``).
+  (``tools/bench_attn_floor256.py``): bf16 on the tensor cores, fp32 on
+  the CUDA cores.
 
 Each launches its kernel for tensors on the card and raises on anything
 the kernel does not take; it runs the plain version
 (:mod:`~sagan_tpu_torch.ops.attention_study`) only for tensors on the CPU.
-``STUDY_LAUNCHES`` and ``FOLDED_LAUNCHES`` count the launches.
+``STUDY_LAUNCHES`` and ``FOLDED_LAUNCHES`` count the launches (an ``mma``
+variant's counts here, not with K1's or K3's).
 
 The tile points of the studies' sweeps of the shipped kernels are here
 too (``FWD_POINTS``, ``BWD_POINTS``, and the design flips of the
@@ -31,11 +40,10 @@ import functools
 import torch
 
 from . import _build
-from .attention import plain_chunk
+from . import cuda_attention as ca
+from .attention import plain_chunk, single_pass
 from .attention_study import (VARIANTS, folded_reference,
                               study_attention_reference)
-from .cuda_attention import _IS_BF16, _check, _on_cpu
-from .cuda_attention import build_specs as attention_specs
 
 SOURCE = "attention_study"
 FOLDED_SOURCE = "attention_folded"
@@ -52,14 +60,25 @@ FWD_POINTS = ((64, 32), (128, 32), (32, 32), (64, 16), (64, 64))
 # the shipped point
 BWD_POINTS = ((64, 32, 256, 4), (128, 32, 128, 4), (32, 32, 512, 2),
               (64, 64, 256, 1))
+# S1's tensor-core variants: the shipped K1/K3 body
+# (csrc/attention_flash_mma.cu fwd_mma_body) built with the variant's math
+# switches, one library each; mma_exp2 is the shipped library
+MMA_VARIANT_DEFINES = {
+    "mma": ("-DSAGAN_MMA_MATH=exp",),
+    "mma_fma_scores": ("-DSAGAN_MMA_MATH=exp", "-DSAGAN_MMA_FMA_SCORES=1"),
+    "mma_exp2": (),
+    "mma_nomax": ("-DSAGAN_MMA_MATH=nomax",),
+    "mma_noexp": ("-DSAGAN_MMA_MATH=noexp",),
+    "mma_e16": ("-DSAGAN_MMA_MATH=e16",),
+}
 # the tensor-core K3 (csrc/attention_flash_mma.cu) with one design choice
 # flipped a point, each its own library; the first is the shipped kernel
+# (its __expf exponent is S1's mma variant, timed beside it as a floor)
 MMA_DEFINES = {
     ("shipped",): (),
     ("ring_staging",): ("-DSAGAN_MMA_STAGES=3",),
     ("two_row_tiles",): ("-DSAGAN_MMA_ROW_TILES=2",),
     ("mask_every_tile",): ("-DSAGAN_MMA_MASK_ALL=1",),
-    ("expf",): ("-DSAGAN_MMA_EXPF=1",),
     ("vote_skip",): ("-DSAGAN_MMA_VOTE=1",),
 }
 MMA_POINTS = tuple(MMA_DEFINES)
@@ -117,23 +136,42 @@ def bwd_tiles(point) -> tuple:
             f"-DSAGAN_BWD_THREADS={threads}", f"-DSAGAN_BWD_KPT={kpt}")
 
 
+def variant_build(variant: str) -> tuple:
+    """(engine, defines) of study ``variant``: ``("fma", ())``, the
+    CUDA-core S1 (``csrc/attention_study.cu``, whose tile defines the call
+    names), or ``("mma", defines)``, the build of
+    ``csrc/attention_flash_mma.cu`` that runs it."""
+    if VARIANTS[variant][0] == "fma":
+        return "fma", ()
+    return "mma", MMA_VARIANT_DEFINES[variant]
+
+
+def mma_entry(m: int) -> str:
+    """The entry point an ``mma`` variant launches at M keys: K1's where
+    :func:`~sagan_tpu_torch.ops.attention.single_pass` takes the study's
+    shape, as the route does, else K3's."""
+    return ("sagan_attention_fwd_mma" if single_pass(m, D, C)
+            else "sagan_attention_flash_fwd_mma")
+
+
 def build_specs() -> list:
-    """``_build.build`` specs of every library the studies load: S1 at
-    every forward tile point (its fma engine takes K1's tile defines), S2,
+    """``_build.build`` specs of every library the studies load: S1's fma
+    engine at every forward tile point (it takes K1's tile defines), S2,
     K1/K3 and K4-K6 at value width 8 at every tile point, and the
-    tensor-core K1-K6 at every ``MMA_POINTS``, ``K1_MMA_POINTS``,
-    ``K2_MMA_POINTS`` and ``K45_MMA_POINTS`` point (one library a set of
-    defines)."""
+    tensor-core K1-K6 at every ``MMA_VARIANT_DEFINES``, ``MMA_POINTS``,
+    ``K1_MMA_POINTS``, ``K2_MMA_POINTS`` and ``K45_MMA_POINTS`` point (one
+    library a set of defines)."""
     specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
     specs.append((FOLDED_SOURCE, ()))
     for p in FWD_POINTS:
-        specs += attention_specs((C,), ("attention_fwd",), fwd_tiles(p))
+        specs += ca.build_specs((C,), ("attention_fwd",), fwd_tiles(p))
     for p in BWD_POINTS:
-        specs += attention_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
-    mma = {**MMA_DEFINES, **K1_MMA_DEFINES, **K2_MMA_DEFINES,
-           **K45_MMA_DEFINES}
-    for defines in dict.fromkeys(mma.values()):
-        specs += attention_specs((C,), ("attention_flash_mma",), defines)
+        specs += ca.build_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
+    mma = [*MMA_VARIANT_DEFINES.values(), *MMA_DEFINES.values(),
+           *K1_MMA_DEFINES.values(), *K2_MMA_DEFINES.values(),
+           *K45_MMA_DEFINES.values()]
+    for defines in dict.fromkeys(mma):
+        specs += ca.build_specs((C,), ("attention_flash_mma",), defines)
     return specs
 
 
@@ -160,33 +198,47 @@ def attention_study(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     variant: str, tiles: tuple = ()) -> torch.Tensor:
     """The study forward ``variant`` of q [B,N,2], k [B,M,2], v [B,M,8]
     -> [B,N,8] in q.dtype; ``tiles`` are K1's tile defines for the fma
-    engine (:func:`fwd_tiles`)."""
+    engine (:func:`fwd_tiles`; the mma variants take their own,
+    :func:`variant_build`)."""
     global STUDY_LAUNCHES
     if variant not in VARIANTS:
         raise ValueError(f"unknown study variant {variant!r}; one of "
                          f"{', '.join(VARIANTS)}")
-    if _on_cpu(q, k, v):
+    if ca._on_cpu(q, k, v):
         return study_attention_reference(
             q, k, v, variant, plain_chunk(q.shape[0], q.shape[1],
                                           k.shape[1]))
-    _check(q, k, v)
+    ca._check(q, k, v)
     b, n, d = q.shape
     m, c = v.shape[1], v.shape[2]
     if (d, c) != (D, C):
         raise ValueError(f"the study kernel is built for d={D}, c={C}, got "
                          f"d={d} c={c}")
-    if VARIANTS[variant][0] == "mma" and q.dtype != torch.bfloat16:
-        raise TypeError(f"study variant {variant} runs on the tensor cores "
-                        f"in bf16, got {q.dtype}")
+    engine, defines = variant_build(variant)
+    o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    if engine == "mma":
+        if tiles:
+            raise ValueError(f"study variant {variant} is a build of the "
+                             f"tensor-core K1/K3; it takes no tile defines")
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"study variant {variant} runs on the tensor "
+                            f"cores in bf16, got {q.dtype}")
+        ca._check_mma_alignment(q, k, v)
+        entry = mma_entry(m)
+        tensors = (q, k, v, o) if entry == "sagan_attention_fwd_mma" else (
+            q, k, v, o, torch.empty((b, n, 1), dtype=torch.float32,
+                                    device=q.device))
+        ca._launch(entry, tensors, q, c, defines)
+        STUDY_LAUNCHES += 1
+        return o
     if any(t.data_ptr() % (16 if t is v else 4) for t in (q, k, v)):
         raise ValueError("the study kernel reads rows of q, k as 4-byte and "
                          "of v as 16-byte words: their storage must be "
                          "aligned so")
-    o = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _study_entry(tuple(tiles))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, m,
-            d, c, list(VARIANTS).index(variant), _IS_BF16[q.dtype],
+            d, c, list(VARIANTS).index(variant), ca._IS_BF16[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attention_study {variant} launch failed: CUDA "
@@ -205,7 +257,7 @@ def attention_folded(x: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
     if (v is None) == (wg is None):
         raise ValueError("attention_folded takes exactly one of v and wg")
     vw = v if wg is None else wg
-    if _on_cpu(x, xb, w, vw):
+    if ca._on_cpu(x, xb, w, vw):
         return folded_reference(x, xb, w, v, wg, plain_chunk(
             x.shape[0], x.shape[1], xb.shape[1]))
     named = {"x": x, "xb": xb, "w": w, "v" if wg is None else "wg": vw}
@@ -213,8 +265,8 @@ def attention_folded(x: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
                                       for t in named.values()):
         raise ValueError("attention_folded needs x, xb, w and v (or wg) on "
                          "one CUDA device")
-    if x.dtype not in _IS_BF16 or any(t.dtype != x.dtype
-                                      for t in named.values()):
+    if x.dtype not in ca._IS_BF16 or any(t.dtype != x.dtype
+                                         for t in named.values()):
         raise TypeError("attention_folded takes float32 or bfloat16 "
                         "tensors of one dtype")
     if x.dim() != 3 or xb.dim() != 3:
@@ -233,12 +285,18 @@ def attention_folded(x: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
                          f"N, M >= 1, got B={b} N={n} M={m}")
     if not all(t.is_contiguous() for t in named.values()):
         raise ValueError("attention_folded needs contiguous tensors")
+    if x.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for name, t in named.items()
+            if name in ("x", "xb", "v")):
+        raise ValueError("the bf16 attention_folded reads rows of x, xb and "
+                         "v as 16-byte chunks: their storage must be 16-byte "
+                         "aligned")
     o = torch.empty((b, n, C), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _folded_entry()(
             x.data_ptr(), xb.data_ptr(), w.data_ptr(), vw.data_ptr(),
             o.data_ptr(), b, n, m, cin, C, int(wg is None),
-            _IS_BF16[x.dtype], torch.cuda.current_stream().cuda_stream)
+            ca._IS_BF16[x.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"attention_folded launch failed: CUDA error "
                            f"{err}")

@@ -49,8 +49,10 @@ BF16_TOL = 8e-3
 # bf16 on the way, as the TPU kernels do (chip_smoke's BWD_TOL)
 BWD_TOL = 2e-2
 # the flash studies' floors: the study forward's default, no max, no
-# transcendental, on both engines
-FLOORS = ("fma", "fma_nomax", "fma_noexp", "mma", "mma_nomax", "mma_noexp")
+# transcendental, on both engines, and the shipped K3 (mma_exp2: the
+# tensor-core floors are its builds)
+FLOORS = ("fma", "fma_nomax", "fma_noexp", "mma", "mma_nomax", "mma_noexp",
+          "mma_exp2")
 # the query rows at which every study holds what it timed against the
 # plain version (``held``): the first CHECK_ROWS of batch 0 and the last
 # LAST_ROWS (a query block of every kernel) of the last batch element
@@ -277,14 +279,14 @@ def held_variant(out, q, k, v, variant: str) -> dict:
 
 def floors(st: Study, q, k, v, best: tuple) -> None:
     """The ``FLOORS`` variants of the study forward on q, k, v, the fma
-    engine at forward tile point ``best`` (the mma engine has its own
-    tiles: 64 rows a block, 64 keys a step), each held against its plain
+    engine at forward tile point ``best`` (the mma engine is the shipped
+    K1/K3 body with its own tiles), each held against its plain
     version."""
     for variant in FLOORS:
         fma = variant.startswith("fma")
         args = (q, k, v, variant, fwd_tiles(best) if fma else ())
         st.record("floors", variant, {
-            "point": list(best) if fma else "mma 64x64",
+            "point": list(best) if fma else "K1/K3 build",
             **st.time(attention_study, *args),
             **held_variant(attention_study(*args), q, k, v, variant)})
 

@@ -5,10 +5,12 @@ GPU: what bounds it on this card.
     python -m sagan_tpu_torch.tools.bench_attn_floor [--quick]
 
 The port of the JAX package's TPU study ``tools/bench_attn_floor.py`` (T1,
-T2): every variant of the study forward (``csrc/attention_study.cu``) on
-both engines, each removing or moving one candidate bottleneck of K1 (the
-exponential, the online max, the CUDA cores' contractions, P's type); the
-folded-projection forward (``csrc/attention_folded.cu``). Sections:
+T2): every variant of the study forward on both engines (the CUDA cores,
+``csrc/attention_study.cu``; the tensor cores, builds of the shipped K1
+body, ``mma_exp2`` being K1 itself), each removing or moving one candidate
+bottleneck of K1 (the exponential, the online max, the contractions, P's
+type); the folded-projection forward (``csrc/attention_folded.cu``, bf16
+on the tensor cores). Sections:
 
   variants  every study variant (``ops.attention_study.VARIANTS``) beside
             K1 on the CUDA cores ("k1", ``engine="fma"``), each held

@@ -12,12 +12,15 @@ The port of the JAX package's TPU study ``tools/bench_attn_floor256.py``
   floors    at the fastest point: the study forward's ``nomax`` (no max,
             no rescale: the JAX study's ``nomaxcorr``) and ``noexp`` (no
             transcendental; NOT attention) beside its default, on both
-            engines (``csrc/attention_study.cu``), each held against its
-            plain version. The JAX study's own
+            engines (``csrc/attention_study.cu`` on the CUDA cores; on the
+            tensor cores builds of the shipped K3, beside ``mma_exp2``, K3
+            itself), each held against its plain version. The JAX study's
+            own
             ``noexp`` floor was NaN everywhere (its first key block's
             correction is -inf, and 0 x -inf); this one takes T1's math
   folded    the projection mega-kernel (``csrc/attention_folded.cu``, V =
-            X̄ Wg in the kernel), held against its plain version, against
+            X̄ Wg in the kernel, bf16 on the tensor cores), held against
+            its plain version, against
             three ``torch.matmul`` projections + K3, and their correlation
   bwd       the two-kernel backward K4 + K5 on K3's (o, lse), then each
             alone

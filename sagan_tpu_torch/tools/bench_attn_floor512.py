@@ -10,15 +10,16 @@ bf16); their tile sweeps time the first, CUDA-core design
 
   k3_mma      the shipped K3, then K3 with one design choice flipped a
               point (``MMA_POINTS``: a cp.async ring of 3 stages, two row
-              tiles a warp, a mask on every tile, S1's __expf exponent, a
-              warp vote that skips the rescale), each held against the
-              plain forward on the check rows (``held``)
+              tiles a warp, a mask on every tile, a warp vote that skips
+              the rescale; the __expf exponent is the floors' ``mma``),
+              each held against the plain forward on the check rows
+              (``held``)
   k3_tiles    the CUDA-core K3 at each tile point (``FWD_POINTS``), each
               held against the plain forward
   floors      the study forward's ``nomax`` and ``noexp`` floors beside
               its default, on both engines, the fma engine at the fastest
-              K3 point, each held against its plain version (as
-              ``bench_attn_floor256``)
+              K3 point, and ``mma_exp2``, the shipped K3 itself, each held
+              against its plain version (as ``bench_attn_floor256``)
   k6_mma      the shipped K6 with the size of its fp32 dq partials and
               its max|Δ| against the CUDA-core K4 + K5 (within
               ``BWD_TOL``, as ``bench_attn_bwd256``)

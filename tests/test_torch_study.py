@@ -2,9 +2,11 @@
 (``sagan_tpu_torch/ops/attention_study.py``) against the JAX package's TPU
 study bodies (``tools/bench_attn_floor.py``, ``tools/bench_attn_floor256.py``)
 run in interpret-mode ``pallas_call``s, on the same numpy inputs at a tiny
-shape (B = 2, N = 64, M = 48, d = 2, c = 8, Cin = 16); the tile-define
-plumbing of the shipped kernels' libraries; and the four studies' wiring on
-the CPU.
+shape (B = 2, N = 64, M = 48, d = 2, c = 8, Cin = 16; the folded forward at
+one more); the tile-define plumbing of the shipped kernels' libraries; S1's
+tensor-core variants as builds of the shipped K1/K3 library and the entry
+each launches (the card's checks and launch stubbed out); and the four
+studies' wiring on the CPU.
 
 Tolerances, as a share of max|JAX|: fp32 1e-5 (the same function, summed
 in another order; the JAX flash bodies rescale per key block); bf16 8e-3,
@@ -22,7 +24,9 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from sagan_tpu_torch.ops import _build, cuda_attention, cuda_attention_study
+from sagan_tpu_torch.ops import _build
+from sagan_tpu_torch.ops import attention as attention_ops
+from sagan_tpu_torch.ops import cuda_attention, cuda_attention_study
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.tools import (_study, bench_attn_bwd256, bench_attn_floor,
@@ -68,10 +72,12 @@ def _t1_call(body, dtype):
         interpret=True)
 
 
-def _flash_call(body, dtype, cin=None):
+def _flash_call(body, dtype, cin=None, shape=(B, N, M)):
     """T3's flash wiring (``bench_floors`` :169, ``bench_folded`` :246) at
-    the tiny shape: q (or x) blocks of BN rows, k (or xb) and v blocks of
-    BM keys, the running (acc, max, sum) in scratch."""
+    ``shape`` (B, N, M), by default the tiny one: q (or x) blocks of BN
+    rows, k (or xb) and v blocks of BM keys, the running (acc, max, sum) in
+    scratch."""
+    B, N, M = shape
     spec = functools.partial(pl.BlockSpec, memory_space=VMEM)
     if cin is None:
         ins = [spec((1, BN, D), lambda i, j, kk: (i, j, 0)),
@@ -144,10 +150,11 @@ def test_noexp_linear_sums_give_the_plain_noexp():
     assert (linear.float() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("form", ["v", "wg"])
-def test_folded_matches_its_jax_body(form, dtype):
-    """v given: T2's ``k_folded``; V = xb Wg: T3's ``_folded_kernel``."""
+def _folded_case(form, dtype, shape=(B, N, M)):
+    """``folded_reference`` against T2's ``k_folded`` (v given) or T3's
+    ``_folded_kernel`` (V = xb Wg) at ``shape`` (B, N, M): max|Δ| as a
+    share of max|JAX|."""
+    B, N, M = shape
     x, xb, wt, wp, v, wg = _arrays((B, N, CIN), (B, M, CIN), (CIN, D),
                                    (CIN, D), (B, M, C), (CIN, C), seed=4)
     w = (wt / 4) @ (wp / 4).T
@@ -168,11 +175,28 @@ def test_folded_matches_its_jax_body(form, dtype):
         got = folded_reference(tx, txb, tw, v=tv)
     else:
         body = functools.partial(_folded_kernel, nk=M // BM)
-        want = _flash_call(body, dtype, cin=CIN)(*_jax([x, xb, w, wg], dtype))
+        want = _flash_call(body, dtype, cin=CIN, shape=shape)(
+            *_jax([x, xb, w, wg], dtype))
         tx, txb, tw, twg = _port([x, xb, w, wg], dtype)
         got = folded_reference(tx, txb, tw, wg=twg)
     assert got.dtype == getattr(torch, dtype) and got.shape == (B, N, C)
-    assert _share(got, want) <= TOL[dtype]
+    return _share(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["v", "wg"])
+def test_folded_matches_its_jax_body(form, dtype):
+    """v given: T2's ``k_folded``; V = xb Wg: T3's ``_folded_kernel``."""
+    assert _folded_case(form, dtype) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["v", "wg"])
+def test_folded_matches_its_jax_body_at_another_shape(form, dtype):
+    """The same at B = 1, N = 96, M = 80 (three query blocks, five key
+    blocks): the oracle that the bf16 tensor-core S2 is held to on the
+    card."""
+    assert _folded_case(form, dtype, (1, 96, 80)) <= TOL[dtype]
 
 
 def test_study_wrappers_take_the_plain_versions_on_the_cpu():
@@ -217,6 +241,103 @@ def test_tile_defines_build_their_own_libraries():
     assert ("attention_flash_bwd", ("-DSAGAN_ATTN_C=8", *bwd[1])) in specs
     assert ("attention_study", fwd[2]) in specs
     assert ("attention_folded", ()) in specs
+
+
+MMA_VARIANTS = [name for name, (engine, _, _) in VARIANTS.items()
+                if engine == "mma"]
+# chip_smoke's STUDY_SITES: (B, N, M) of the 64 map, a 4,096-row chunk of
+# the 256 and 512 maps, and the ragged shape
+STUDY_SITES = {"64 map": (64, 4096, 1024), "256 map chunk": (1, 4096, 16384),
+               "512 map chunk": (1, 4096, 65536), "ragged": (3, 100, 37)}
+
+
+@pytest.mark.parametrize("variant", MMA_VARIANTS)
+def test_each_mma_variant_is_one_build_of_the_shipped_k1_k3_library(variant):
+    """``build_specs()`` holds one ``attention_flash_mma`` library for each
+    tensor-core variant, built with that variant's defines (mma_exp2's
+    none: the shipped library itself), each a library of its own, and S1
+    has no tensor-core kernel of its own."""
+    cas = cuda_attention_study
+    defines = cas.MMA_VARIANT_DEFINES[variant]
+    spec = ("attention_flash_mma", ("-DSAGAN_ATTN_C=8", *defines))
+    assert spec in cas.build_specs()
+    assert (defines == ()) == (variant == "mma_exp2")
+    paths = {_build.library_path(*cuda_attention.build_specs(
+        (8,), ("attention_flash_mma",), cas.MMA_VARIANT_DEFINES[name])[0])
+        for name in MMA_VARIANTS}
+    assert len(paths) == len(MMA_VARIANTS)
+    source = (_build.CSRC / "attention_study.cu").read_text()
+    assert "mma.sync" not in source and "mma_bf16" not in source
+    assert all(name == "attention_study" or "study" not in name
+               for name, _ in cas.build_specs())
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_each_variant_maps_to_the_fma_engine_or_its_define_set(variant):
+    """``fma`` variants run ``csrc/attention_study.cu``; each ``mma``
+    variant is the build whose defines switch the shipped body to its math
+    (``-DSAGAN_MMA_MATH=<math>``, none for exp2) and, for T1's
+    ``k_vpu_scores``, its scores to fmaf."""
+    engine, math, body = VARIANTS[variant]
+    got_engine, defines = cuda_attention_study.variant_build(variant)
+    assert got_engine == engine
+    if engine == "fma":
+        assert defines == ()
+        return
+    assert defines in cuda_attention_study.MMA_VARIANT_DEFINES.values()
+    want = () if math == "exp2" else (f"-DSAGAN_MMA_MATH={math}",)
+    if body == "k_vpu_scores":
+        want += ("-DSAGAN_MMA_FMA_SCORES=1",)
+    assert defines == want
+
+
+@pytest.mark.parametrize("variant", MMA_VARIANTS)
+@pytest.mark.parametrize("site", list(STUDY_SITES))
+def test_mma_variant_launches_k1_or_k3_by_single_pass(site, variant,
+                                                      monkeypatch):
+    """On the card (its checks and launch stubbed out: CPU tensors stand
+    in for CUDA ones) a tensor-core variant launches K1's entry where
+    ``single_pass`` takes the shape and K3's otherwise (with an fp32 lse it
+    discards), from its own build, once, counted as a study launch and not
+    as K1's or K3's; fp32 and tile defines raise."""
+    b, _, m = STUDY_SITES[site]
+    n = 8  # the entry depends on M alone
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16)
+               for s in ((b, n, D), (b, m, D), (b, m, C)))
+    calls = []
+    monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_attention, "_check_mma_alignment",
+                        lambda *t: None)
+    monkeypatch.setattr(cuda_attention, "_launch",
+                        lambda name, ts, q, c, tiles=(): calls.append(
+                            (name, ts, c, tiles)))
+    counts = (cuda_attention.FWD_MMA_LAUNCHES,
+              cuda_attention.FLASH_FWD_MMA_LAUNCHES)
+    before = cuda_attention_study.STUDY_LAUNCHES
+    out = cuda_attention_study.attention_study(q, k, v, variant)
+    assert out.shape == (b, n, C) and out.dtype == torch.bfloat16
+    (name, tensors, c, tiles), = calls
+    k1 = attention_ops.single_pass(m, D, C)
+    assert k1 == (m <= 1024)  # the 64 map and the ragged site take K1
+    assert name == ("sagan_attention_fwd_mma" if k1
+                    else "sagan_attention_flash_fwd_mma")
+    assert name == cuda_attention_study.mma_entry(m)
+    assert tensors[:4] == (q, k, v, out) and c == C
+    assert len(tensors) == (4 if k1 else 5)
+    if not k1:
+        assert tensors[4].shape == (b, n, 1)
+        assert tensors[4].dtype == torch.float32
+    assert tiles == cuda_attention_study.MMA_VARIANT_DEFINES[variant]
+    assert cuda_attention_study.STUDY_LAUNCHES == before + 1
+    assert counts == (cuda_attention.FWD_MMA_LAUNCHES,
+                      cuda_attention.FLASH_FWD_MMA_LAUNCHES)
+    with pytest.raises(TypeError, match="bf16"):
+        cuda_attention_study.attention_study(q.float(), k.float(), v.float(),
+                                             variant)
+    with pytest.raises(ValueError, match="tile defines"):
+        cuda_attention_study.attention_study(q, k, v, variant, ("-DX=1",))
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("study", [bench_attn_floor, bench_attn_floor256,
