@@ -138,9 +138,12 @@ the build, and prints neither the kernels line nor the result line):
      at every forward tile point against the plain forward, K4-K6 at every
      backward tile point against K4 + K5 at the shipped tiles (B=2 at the
      256 map); the tensor-core K1 and K2 at every design flip of the
-     64-map study against the plain versions, and K4 + K5 at every flip
-     of the 512-map study against the plain backward (B=2 at the 256 map
-     and a ragged shape);
+     64-map study against the plain versions, K4 + K5 at every flip of
+     the backward studies against the plain backward, and K6 at every
+     (query tile, key block) point of theirs against the plain backward
+     and the shipped K4 + K5, its partials sized by its own library and
+     the K2, K4 and K5 of its library equal to the shipped ones bit for
+     bit (B=2 at the 256 map and two ragged shapes);
  21. the four attention studies (``sagan_tpu_torch.tools.bench_attn_*``)
      with ``--quick`` in process: every section present, every time > 0,
      every max|Δ| within its limit (each kernel a study times, at the full
@@ -2454,15 +2457,17 @@ def folded_bound_ms(b, n, m, dtype) -> tuple[float, str]:
 
 def phase_study_kernels(card: str) -> dict:
     """Build every study library (one nvcc each, all together), then hold
-    every S1 variant, both S2 forms, every tile variant of K1 and K3-K6 and
-    every design flip of the tensor-core K1, K2, K4 and K5 against the
-    plain versions (``STUDY_TOL``, the flips ``TOL`` and ``BWD_TOL``), the
-    S1 fma default against the CUDA-core K1 bit for bit and S1 mma_exp2
-    against the shipped tensor-core K1 or K3 (the route's pick) bit for
-    bit; time S1's tensor-core variants at the three study maps beside
-    ``sdpa_padded``, and S2 in bf16 at the 64 and 256 maps beside the
-    shipped kernel on projected q, k.  Returns their rows of the kernels
-    line."""
+    every S1 variant, both S2 forms, every tile variant of K1 and K3-K6,
+    every design flip of the tensor-core K1, K2, K4 and K5 and every
+    (query tile, key block) point of the tensor-core K6 against the plain
+    versions (``STUDY_TOL``, the flips and points ``TOL`` and
+    ``BWD_TOL``), the S1 fma default against the CUDA-core K1 bit for bit
+    and S1 mma_exp2 against the shipped tensor-core K1 or K3 (the route's
+    pick) bit for bit, and the K2, K4 and K5 of each K6 point's library
+    against the shipped ones bit for bit; time S1's tensor-core variants
+    at the three study maps beside ``sdpa_padded``, and S2 in bf16 at the
+    64 and 256 maps beside the shipped kernel on projected q, k.  Returns
+    their rows of the kernels line and the K6 points' worst shares."""
     t0 = time.perf_counter()
     paths = _build.build(cuda_attention_study.build_specs())
     print(f"phase 20 build: {len(paths)} study libraries in "
@@ -2683,11 +2688,17 @@ def phase_study_kernels(card: str) -> dict:
           f"{', '.join(f'{key} {x:.3f}' for key, x in flips.items())}",
           flush=True)
 
-    # the tensor-core K4 + K5 with each design choice flipped (the 512-map
-    # study's k45_mma points), bf16, against the plain backward at K4-K6's
-    # tile site and at a ragged shape
-    flips = {}
-    for b, n, m in (STUDY_BWD_SITE[:3], FLASH_RAGGED[2]):
+    # the tensor-core K4 + K5 with each design choice flipped (the
+    # backward studies' k45_mma points), and the tensor-core K6 at each
+    # (query tile, key block) point (their k6_mma points), bf16, against
+    # the plain backward at K4-K6's tile site and at two ragged shapes (N
+    # and M off every tile; M under one key block, and M past two); each
+    # K6 point also against the shipped K4 + K5, its partials sized by
+    # its own library, and the K2, K4 and K5 of its library equal to the
+    # shipped ones bit for bit (the K6 defines leave them as they are)
+    flips, k6_points = {}, {}
+    bf16_tol = BWD_TOL[torch.bfloat16]
+    for b, n, m in (STUDY_BWD_SITE[:3], FLASH_RAGGED[0], FLASH_RAGGED[2]):
         q, k, v, g = _bwd_inputs(gen, b, n, m, 2, 8, torch.bfloat16)
         o, lse = cuda_attention.attention_flash_fwd(q, k, v)
         args = (q, k, v, o, lse, g)
@@ -2696,16 +2707,53 @@ def phase_study_kernels(card: str) -> dict:
         for point in cas.K45_MMA_POINTS:
             got = cuda_attention.attention_flash_dq_dkv(
                 *args, cas.K45_MMA_DEFINES[point], "mma")
-            share = _grad_errors(got, want, BWD_TOL[torch.bfloat16])[0]
+            share = _grad_errors(got, want, bf16_tol)[0]
             same = all(torch.equal(x, y) for x, y in zip(got, shipped))
             flips[f"{point[0]} B={b} N={n} M={m}"] = (share, same)
             require(share <= 1, f"K4 + K5 (mma) {point[0]} at B={b} N={n} "
                                 f"M={m}: {share:.3f} of its tolerance")
-    del q, k, v, g, o, lse, args, want, shipped, got
+        k2 = cuda_attention.attention_bwd_fused(q, k, v, g, engine="mma")
+        default = cuda_attention.attention_flash_dqkv(*args)
+        for point, tiles in cas.K6_MMA_DEFINES.items():
+            got = cuda_attention.attention_flash_dqkv(*args, tiles, "mma")
+            share = max(_grad_errors(got, want, bf16_tol)[0],
+                        _grad_errors(got, shipped, bf16_tol)[0])
+            keys = cuda_attention.keys_per_block(2, 8, tiles)
+            part = cuda_attention.dq_partial_shape(b, n, m, 2, 8, tiles,
+                                                   "mma")
+            same = all(torch.equal(x, y) for x, y in zip(
+                cuda_attention.attention_flash_dq_dkv(*args, tiles, "mma"),
+                shipped)) and all(torch.equal(x, y) for x, y in zip(
+                    cuda_attention.attention_bwd_fused(q, k, v, g, tiles,
+                                                       "mma"), k2))
+            if not tiles:
+                same = same and all(torch.equal(x, y)
+                                    for x, y in zip(got, default))
+            k6_points[point[0]] = (
+                max(share, k6_points.get(point[0], (0.0,))[0]), keys)
+            require(share <= 1, f"K6 (mma) {point[0]} at B={b} N={n} M={m}: "
+                                f"{share:.3f} of its tolerance")
+            require(keys in (512, 1024, 2048)
+                    and part == (b, -(-m // keys), n, 2),
+                    f"K6 (mma) {point[0]}: {keys} keys a block, partials "
+                    f"{part}")
+            require(same, f"K6 (mma) {point[0]}'s library: K2, K4 or K5 "
+                          f"not the shipped bits at B={b} N={n} M={m}")
+    del q, k, v, g, o, lse, args, want, shipped, got, k2, default
     print(f"phase 20 the tensor-core K4 + K5 at each design flip, bf16, "
           f"share of the tolerance (bitwise equal to the shipped pair): "
           + ", ".join(f"{key} {x:.3f} ({same})"
                       for key, (x, same) in flips.items()), flush=True)
+    print(f"phase 20 the tensor-core K6 at each (query tile, key block) "
+          f"point vs the plain backward and K4 + K5 at B, N, M "
+          f"{STUDY_BWD_SITE[:3]}, {FLASH_RAGGED[0]}, {FLASH_RAGGED[2]}, "
+          f"bf16, worst share of the tolerance (keys a block): " + ", ".join(
+              f"{name} {x:.3f} ({keys})"
+              for name, (x, keys) in k6_points.items())
+          + "; the K2, K4 and K5 of every point's library and the shipped "
+            "point's K6 bit for bit the shipped ones", flush=True)
+    heads["k6_points"] = {name: {"worst_share": x, "keys_per_block": keys}
+                          for name, (x, keys) in k6_points.items()}
 
     # the CUDA-core K4, K5 and K6 at every backward tile point vs K4 + K5
     # at the shipped tiles, each output
@@ -4675,7 +4723,8 @@ def main(argv=None) -> int:
                {"name": "attention_flash_dqkv_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "665", "launches": train512["K6mma"],
-                **flash["dqkv"]},
+                **flash["dqkv"],
+                "study_points": r["study_heads"]["k6_points"]},
                {"name": "attention_flash_dqkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
                 "replaces": ref + "665", "launches": r["autograd"]["K6"],

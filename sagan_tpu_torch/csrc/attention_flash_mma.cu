@@ -119,6 +119,10 @@
 //    accumulate in fp32 C fragments;
 //  * the block walks the query rows in 64-row tiles (Q, dO and the
 //    (-lse log2e, delta) pairs) staged by cp.async in a ring of 3;
+//  * the query tile, the warps, the key tiles a warp and the ring are
+//    switches at build time (SAGAN_K6_*, below), for the backward
+//    studies' sweep of K6's (query tile, key block) (bench_attn_bwd256
+//    and bench_attn_floor512, k6_mma; PERF.md §6);
 //  * S^T = K Q^T and dP^T = V dO^T on the mma with keys as its M rows, so
 //    P^T and dS^T, packed to bf16, are the A fragments of dV += P^T dO and
 //    dK += dS^T Q; dS itself, for dQ = dS K, is dS^T transposed in
@@ -914,11 +918,51 @@ __global__ void __launch_bounds__(32 * kStatsWarps)
 
 // ---- K6 and K2's gradient pass: the key-major backward ----------------------
 
+// the shipped key-major pass: K6's, K2's gradient pass's and K5's
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdQTile = 64;  // query rows a stage
 constexpr int kBwdStages = 3;
 constexpr int kDeltaThreads = 256;
+
+// K6's choices, flipped at build time for the backward studies
+// (sagan_tpu_torch/tools/bench_attn_bwd256.py and bench_attn_floor512.py,
+// k6_mma: the TPU study's (BN, BM) sweep of its fused backward):
+// -DSAGAN_K6_Q_TILE=128 walks the query rows in tiles of that many (BN;
+// else 64; 32 builds, but spills at 128 registers a thread, and the
+// studies leave it out), -DSAGAN_K6_WARPS=4 or 16 makes K6's block that
+// many warps (else 8), -DSAGAN_K6_KEY_TILES=4 or 16 gives each warp that
+// many m16 key tiles at d = 2, c = 8 (else 8; other widths scale their
+// count alike, down to 1), so that a block owns warps x 16 x key tiles
+// keys (BM), and -DSAGAN_K6_STAGES=2 or 4 makes the cp.async ring of
+// query tiles that deep (else 3). The defaults are the shipped kernel. They
+// leave K2's gradient pass, K5 and the delta rows of K2, K4 and K5 as
+// they are; K6's delta pass pads the rows to K6's own query tile.
+#ifdef SAGAN_K6_Q_TILE
+constexpr int kK6QTile = SAGAN_K6_Q_TILE;
+#else
+constexpr int kK6QTile = kBwdQTile;
+#endif
+#ifdef SAGAN_K6_WARPS
+constexpr int kK6Warps = SAGAN_K6_WARPS;
+#else
+constexpr int kK6Warps = kBwdWarps;
+#endif
+#ifdef SAGAN_K6_KEY_TILES
+constexpr int kK6KeyTiles = SAGAN_K6_KEY_TILES;
+#else
+constexpr int kK6KeyTiles = 8;
+#endif
+#ifdef SAGAN_K6_STAGES
+constexpr int kK6Stages = SAGAN_K6_STAGES;
+#else
+constexpr int kK6Stages = kBwdStages;
+#endif
+static_assert(kK6QTile % 16 == 0 && kK6QTile > 0,
+              "SAGAN_K6_Q_TILE: a multiple of 16 query rows");
+static_assert(kK6Warps >= 1 && kK6Warps <= 32, "SAGAN_K6_WARPS: 1 to 32");
+static_assert(kK6KeyTiles >= 1, "SAGAN_K6_KEY_TILES: at least 1");
+static_assert(kK6Stages >= 2, "SAGAN_K6_STAGES: a ring of at least 2");
 
 // m16 key tiles a warp owns: as many as keep its dK and dV accumulators
 // (4 floats a lane per n8 tile) within 64 registers
@@ -929,31 +973,43 @@ __host__ __device__ constexpr int bwd_key_tiles() {
          : 4 * ((D + 7) / 8 + C / 8) <= 32 ? 2
                                            : 1;
 }
+// K6's: the shipped count scaled by kK6KeyTiles / 8, at least 1
 template <int D, int C>
-__host__ __device__ constexpr int bwd_keys_per_block() {
-  return kBwdWarps * 16 * bwd_key_tiles<D, C>();
+__host__ __device__ constexpr int k6_key_tiles() {
+  return bwd_key_tiles<D, C>() * kK6KeyTiles / 8 > 0
+             ? bwd_key_tiles<D, C>() * kK6KeyTiles / 8
+             : 1;
 }
-// K5's: K6's, times kK5KtScale
+template <int D, int C>
+__host__ __device__ constexpr int k6_keys_per_block() {
+  return kK6Warps * 16 * k6_key_tiles<D, C>();
+}
+// K5's: the shipped count, times kK5KtScale
 template <int D, int C>
 __host__ __device__ constexpr int k5_key_tiles() {
   return kK5KtScale * bwd_key_tiles<D, C>();
 }
 
-// shared memory of the key-major pass; without dQ (K5) no dq sums
-template <int D, int C, int KT, bool kDq = true>
+// shared memory of the key-major pass of W warps of KT key tiles, QT query
+// rows a stage in a ring of ST; without dQ (K5) no dq sums
+template <int D, int C, int KT, bool kDq = true, int W = kBwdWarps,
+          int QT = kBwdQTile, int ST = kBwdStages>
 struct BwdSmem {
-  static constexpr int KB = kBwdWarps * 16 * KT;
+  static constexpr int KB = W * 16 * KT;
   static constexpr int kDRow = row_units(D) * 16;
   static constexpr int kCRow = row_units(C) * 16;
   static constexpr int kV = KB * kDRow;              // offset of V's rows
   static constexpr int kRing = kV + KB * kCRow;      // offset of the ring
-  static constexpr int kG = kBwdQTile * kDRow;       // in a stage: dO
-  static constexpr int kLd = kG + kBwdQTile * kCRow;  // (-lse log2e, delta)
-  static constexpr int kStage = kLd + kBwdQTile * 8;
-  static constexpr int kRed = kRing + kBwdStages * kStage;  // dq sums
-  static constexpr int kBytes =
-      kRed + (kDq ? kBwdWarps * kBwdQTile * D * 4 : 0);
+  static constexpr int kG = QT * kDRow;              // in a stage: dO
+  static constexpr int kLd = kG + QT * kCRow;        // (-lse log2e, delta)
+  static constexpr int kStage = kLd + QT * 8;
+  static constexpr int kRed = kRing + ST * kStage;   // dq sums
+  static constexpr int kBytes = kRed + (kDq ? W * QT * D * 4 : 0);
 };
+// K6's
+template <int D, int C>
+using K6Smem = BwdSmem<D, C, k6_key_tiles<D, C>(), true, kK6Warps, kK6QTile,
+                       kK6Stages>;
 
 // (-lse log2e, delta = g . o) fp32 of every query row, rows n..npad-1
 // (the last query tile's padding) (-inf, 0)
@@ -1009,11 +1065,13 @@ __global__ void __launch_bounds__(kDeltaThreads)
   delta_body<C>(g, o, lse, ld, n, npad);
 }
 
-// K6's, K2's and K5's key-major pass: a block owns 8 x KT m16 key tiles
-// and writes their dk, dv and (kDq: K6, K2) its fp32 dq partial rows, from
-// the (-lse log2e, delta) pairs in `ld`. Without dQ there is no movmatrix,
-// no dQ mma and no warp sum through shared memory
-template <int D, int C, int KT, bool kDq>
+// K6's, K2's and K5's key-major pass: a block of W warps owns W x KT m16
+// key tiles and writes their dk, dv and (kDq: K6, K2) its fp32 dq partial
+// rows, from the (-lse log2e, delta) pairs in `ld`, walking the query rows
+// in tiles of QT through a cp.async ring of ST. Without dQ there is no
+// movmatrix, no dQ mma and no warp sum through shared memory
+template <int D, int C, int KT, bool kDq, int W = kBwdWarps,
+          int QT = kBwdQTile, int ST = kBwdStages>
 __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
                                               const bf16* __restrict__ k,
                                               const bf16* __restrict__ v,
@@ -1029,7 +1087,8 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
   constexpr int CS = kCK8 ? 1 : C / 16;
   constexpr int DT = (D + 7) / 8;     // n8 tiles of dK and dQ
   constexpr int NT = C / 8;           // n8 tiles of dV
-  using S = BwdSmem<D, C, KT, kDq>;
+  using S = BwdSmem<D, C, KT, kDq, W, QT, ST>;
+  constexpr int kThreads = 32 * W;
   extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.y;
@@ -1038,31 +1097,31 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
   const int gq = lane >> 2;  // C rows g, g + 8: keys (dQ: queries)
   const int t = lane & 3;    // C cols 2t, 2t + 1: queries (dims, channels)
   const int key0 = blockIdx.x * S::KB;
-  const int tiles = npad / kBwdQTile;
+  const int tiles = npad / QT;
   const bf16* qb = q + (size_t)b * n * D;
   const bf16* gb = g + (size_t)b * n * C;
   const float2* ldb = ld + (size_t)b * npad;
   float* red = reinterpret_cast<float*>(smem + S::kRed);
 
-  zero_smem(smem, S::kRed, kBwdThreads);  // padding of the staged rows
+  zero_smem(smem, S::kRed, kThreads);  // padding of the staged rows
   __syncthreads();
-  stage_rows<D, kBwdThreads>(smem, k + (size_t)b * m * D, key0, S::KB, m);
-  stage_rows<C, kBwdThreads>(smem + S::kV, v + (size_t)b * m * C, key0,
-                             S::KB, m);
+  stage_rows<D, kThreads>(smem, k + (size_t)b * m * D, key0, S::KB, m);
+  stage_rows<C, kThreads>(smem + S::kV, v + (size_t)b * m * C, key0,
+                          S::KB, m);
   cp_async_commit();
   auto load = [&](int tile) {
     if (tile < tiles) {
-      char* st = smem + S::kRing + (tile % kBwdStages) * S::kStage;
-      const int r0 = tile * kBwdQTile;
-      stage_rows<D, kBwdThreads>(st, qb, r0, kBwdQTile, n);
-      stage_rows<C, kBwdThreads>(st + S::kG, gb, r0, kBwdQTile, n);
-      for (int i = threadIdx.x; i < kBwdQTile; i += kBwdThreads)
+      char* st = smem + S::kRing + (tile % ST) * S::kStage;
+      const int r0 = tile * QT;
+      stage_rows<D, kThreads>(st, qb, r0, QT, n);
+      stage_rows<C, kThreads>(st + S::kG, gb, r0, QT, n);
+      for (int i = threadIdx.x; i < QT; i += kThreads)
         cp_async<8>(st + S::kLd + 8 * i, ldb + r0 + i, 8);
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int s = 0; s < kBwdStages - 1; ++s) load(s);
+  for (int s = 0; s < ST - 1; ++s) load(s);
 
   float dka[KT][DT][4], dva[KT][NT][4];
 #pragma unroll
@@ -1079,14 +1138,14 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
   const char* vst = smem + S::kV + (warp * KT * 16 + lrow) * S::kCRow;
 
   for (int it = 0; it < tiles; ++it) {
-    cp_async_wait<kBwdStages - 2>();  // the key block and tile `it`
+    cp_async_wait<ST - 2>();  // the key block and tile `it`
     __syncthreads();  // every thread is done with tile it - 1 and red
-    load(it + kBwdStages - 1);
-    const char* st = smem + S::kRing + (it % kBwdStages) * S::kStage;
+    load(it + ST - 1);
+    const char* st = smem + S::kRing + (it % ST) * S::kStage;
     const float2* lds = reinterpret_cast<const float2*>(st + S::kLd);
 
 #pragma unroll 1
-    for (int qc = 0; qc < kBwdQTile / 16; ++qc) {
+    for (int qc = 0; qc < QT / 16; ++qc) {
       // what the warp's key tiles share for these 16 queries: the B
       // fragments of Q^T and dO^T (queries as n, in two n8 groups), of dO
       // (queries as k, for dV) and of Q (queries as k, for dK), and the
@@ -1227,7 +1286,7 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
       if constexpr (kDq) {
         // this warp's dq of the 16 queries: rows g, g + 8, dims 8j + 2t,
         // + 1
-        float* rw = red + (warp * kBwdQTile + 16 * qc) * D;
+        float* rw = red + (warp * QT + 16 * qc) * D;
 #pragma unroll
         for (int j = 0; j < DT; ++j) {
           const int dim = 8 * j + 2 * t;
@@ -1243,14 +1302,14 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
 
     if constexpr (kDq) {
       __syncthreads();  // every warp's dq sums are in red
-      const int r0 = it * kBwdQTile;
+      const int r0 = it * QT;
       float* out =
           dq_part + ((size_t)(b * gridDim.x + blockIdx.x) * n + r0) * D;
-      const int valid = min(kBwdQTile, n - r0) * D;
-      for (int e = threadIdx.x; e < valid; e += kBwdThreads) {
+      const int valid = min(QT, n - r0) * D;
+      for (int e = threadIdx.x; e < valid; e += kThreads) {
         float sum = 0.f;
 #pragma unroll
-        for (int w = 0; w < kBwdWarps; ++w) sum += red[w * kBwdQTile * D + e];
+        for (int w = 0; w < W; ++w) sum += red[w * QT * D + e];
         out[e] = sum;
       }
     }
@@ -1277,7 +1336,7 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
 }
 
 template <int D, int C>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(32 * kK6Warps)
     attention_flash_dqkv_mma_kernel(const bf16* __restrict__ q,
                                     const bf16* __restrict__ k,
                                     const bf16* __restrict__ v,
@@ -1287,8 +1346,8 @@ __global__ void __launch_bounds__(kBwdThreads)
                                     bf16* __restrict__ dv,
                                     float* __restrict__ dq_part, int n,
                                     int m, int npad) {
-  dqkv_mma_body<D, C, bwd_key_tiles<D, C>(), true>(q, k, v, g, ld, dk, dv,
-                                                    dq_part, n, m, npad);
+  dqkv_mma_body<D, C, k6_key_tiles<D, C>(), true, kK6Warps, kK6QTile,
+                kK6Stages>(q, k, v, g, ld, dk, dv, dq_part, n, m, npad);
 }
 
 // K5: dk, dv from the (-lse log2e, delta) pairs, K6's body without dQ
@@ -1351,7 +1410,9 @@ __global__ void __launch_bounds__(kSumThreads)
 }
 
 // query rows of the (-lse log2e, delta) scratch: n padded to the tile
+// (K2's, K4's and K5's; K6's to its own query tile)
 int delta_rows(int n) { return (n + kBwdQTile - 1) / kBwdQTile * kBwdQTile; }
+int k6_delta_rows(int n) { return (n + kK6QTile - 1) / kK6QTile * kK6QTile; }
 // K2's stats pass writes every row of that scratch, one block a tile
 static_assert(kStatsRows == kBwdQTile, "stats rows a block: K6's query tile");
 
@@ -1498,8 +1559,8 @@ struct BwdArgs {
 template <int D>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   constexpr int C = SAGAN_ATTN_C;
-  using S = BwdSmem<D, C, bwd_key_tiles<D, C>()>;
-  const int npad = delta_rows(a.n);
+  using S = K6Smem<D, C>;
+  const int npad = k6_delta_rows(a.n);
   attention_flash_delta_kernel<C>
       <<<dim3((npad + kDeltaThreads - 1) / kDeltaThreads, a.b),
          kDeltaThreads, 0, st>>>(static_cast<const bf16*>(a.g),
@@ -1510,7 +1571,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   auto kernel = attention_flash_dqkv_mma_kernel<D, C>;
   static const cudaError_t allowed = allow_smem(kernel, S::kBytes);
   if (allowed != cudaSuccess) return allowed;
-  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), kBwdThreads, S::kBytes,
+  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), 32 * kK6Warps, S::kBytes,
            st>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
                  static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
                  a.ld, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
@@ -1723,20 +1784,23 @@ extern "C" int sagan_attention_flash_dkv_mma(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// Keys per block of K6 at head width d (0 for an unsupported d).
+// Keys per block of K6 at head width d, as this build's K6 defines set
+// them (0 for an unsupported d).
 extern "C" int sagan_attention_flash_mma_keys_per_block(int d) {
   constexpr int C = SAGAN_ATTN_C;
   switch (d) {
-    case 2: return bwd_keys_per_block<2, C>();
-    case 4: return bwd_keys_per_block<4, C>();
-    case 8: return bwd_keys_per_block<8, C>();
-    case 16: return bwd_keys_per_block<16, C>();
-    case 32: return bwd_keys_per_block<32, C>();
+    case 2: return k6_keys_per_block<2, C>();
+    case 4: return k6_keys_per_block<4, C>();
+    case 8: return k6_keys_per_block<8, C>();
+    case 16: return k6_keys_per_block<16, C>();
+    case 32: return k6_keys_per_block<32, C>();
   }
   return 0;
 }
 
-// Rows of K6's (-lse log2e, delta) scratch for n query rows.
+// Rows of K6's (-lse log2e, delta) scratch for n query rows: n padded to
+// this build's K6 query tile (the shipped build's 64 are also the rows of
+// K2's, K4's and K5's scratch, which no K6 define changes).
 extern "C" int sagan_attention_flash_mma_delta_rows(int n) {
-  return delta_rows(n);
+  return k6_delta_rows(n);
 }

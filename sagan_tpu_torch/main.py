@@ -16,8 +16,10 @@ Under the launcher (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) each process joins
 the group (``--dist_backend``: nccl on the card, gloo with ``--device
 cpu``), trains on ``cuda:<LOCAL_RANK>`` and prints its step and a digest
-of the whole state at the end (equal on every rank); the group is left at
-exit.  Without those variables nothing changes.
+of the whole state at the end (equal on every rank), each line written
+whole (``parallel/mesh.py`` ``whole_lines``: the ranks share the
+launcher's stdout); the group is left at exit.  Without those variables
+nothing changes.
 
 With ``model_parallel`` m in the config the W ranks run a (W/m) x m grid
 of tensor parallelism (``train/trainer.py``); two ranks may share one card
@@ -64,6 +66,7 @@ def main(argv=None):
     launched = "WORLD_SIZE" in os.environ
     device = args.device
     if launched:
+        mesh.whole_lines()     # the ranks share the launcher's stdout
         backend = args.dist_backend or (
             "gloo" if args.device.startswith("cpu") else "nccl")
         device = mesh.rank_device(args.device, backend)

@@ -60,9 +60,11 @@ their library at other tiles (``csrc/attention_fwd.cu``'s
 ``SAGAN_BWD_ROWS``, ``SAGAN_BWD_KEY_TILE``, ``SAGAN_BWD_THREADS``,
 ``SAGAN_BWD_KPT``; with ``engine="mma"``, ``csrc/attention_flash_mma.cu``'s
 ``SAGAN_MMA_*``, each of which flips one of K3's design choices, and
-``SAGAN_K1_*``, ``SAGAN_K2_*``, ``SAGAN_K4_*`` and ``SAGAN_K5_*``, K1's,
-K2's, K4's and K5's), for the studies; the
-default ``()`` is the shipped library.  Tile defines without an engine
+``SAGAN_K1_*``, ``SAGAN_K2_*``, ``SAGAN_K4_*``, ``SAGAN_K5_*`` and
+``SAGAN_K6_*``, K1's, K2's, K4's, K5's and K6's), for the studies; the
+default ``()`` is the shipped library.  A K6 built with other defines
+reports its own key block and delta rows, and the wrapper sizes its
+scratch from them.  Tile defines without an engine
 name the ``fma`` kernels.
 """
 
@@ -153,12 +155,12 @@ def _int_fn(source: str, name: str, c: int, tiles: tuple = (),
 @functools.cache
 def keys_per_block(d: int, c: int, tiles: tuple = (),
                    engine: str = "mma") -> int:
-    """Keys each block of K6 on ``engine`` (and of K5; the ``fma`` ones
-    built with ``tiles``) owns at widths (d, c), as its shipped library
-    reports it: K6 writes one fp32 dq partial [N, d] per block of them."""
+    """Keys each block of K6 on ``engine`` (and of the ``fma`` K5) owns at
+    widths (d, c), as its library built with ``tiles`` reports it: K6
+    writes one fp32 dq partial [N, d] per block of them."""
     if engine == "mma":
         return _int_fn(MMA_SOURCE, "sagan_attention_flash_mma_keys_per_block",
-                       c)(d)
+                       c, tiles)(d)
     return _int_fn(FLASH_BWD_SOURCE, "sagan_attention_flash_keys_per_block",
                    c, tiles)(d)
 
@@ -168,10 +170,9 @@ def dq_partial_shape(b: int, n: int, m: int, d: int, c: int,
     """Shape of the fp32 dq partials of K6 on ``engine``:
     [B, ceil(M / key block), N, d] (4 bytes an element).  The key block
     is :func:`~sagan_tpu_torch.ops.attention.fused_keys_per_block`'s,
-    which the route rule sizes the slab by, except for the ``fma`` K6 at
-    other ``tiles``, whose library reports its own (the ``mma`` defines
-    leave K6 as it is)."""
-    if tiles and engine == "fma":
+    which the route rule sizes the slab by, except for a K6 built with
+    ``tiles``, whose library reports its own (:func:`keys_per_block`)."""
+    if tiles:
         kb = keys_per_block(d, c, tiles, engine)
     else:
         kb = fused_keys_per_block(d, c, 2 if engine == "mma" else 4)
@@ -498,8 +499,13 @@ def attention_flash_dqkv(q, k, v, o, lse, g, tiles: tuple = (),
 
 
 @functools.cache
-def _delta_rows(n: int, c: int) -> int:
-    return _int_fn(MMA_SOURCE, "sagan_attention_flash_mma_delta_rows", c)(n)
+def _delta_rows(n: int, c: int, tiles: tuple = ()) -> int:
+    """Rows of the ``mma`` K6's (-lse log2e, delta) scratch for n query
+    rows, n padded to the query tile of its library built with ``tiles``.
+    The shipped library's are also the rows of K2's, K4's and K5's scratch
+    (64-row tiles, which no define of K6 changes)."""
+    return _int_fn(MMA_SOURCE, "sagan_attention_flash_mma_delta_rows", c,
+                   tiles)(n)
 
 
 def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = (),
@@ -507,7 +513,8 @@ def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = (),
     """K6's launch alone, on CUDA tensors: (the fp32 dq partials
     [B, NKB, N, d], dk, dv).  The ``mma`` K6 first writes, in a kernel of
     its own, each query row's (-lse log2e, delta) to fp32 scratch; the
-    pair counts as one launch."""
+    pair counts as one launch.  Both are sized by the library built with
+    ``tiles`` (its K6 defines set the key block and the query tile)."""
     global FLASH_DQKV_LAUNCHES, FLASH_DQKV_MMA_LAUNCHES
     _check(q, k, v, g, o, lse)
     engine = _engine(q, engine, tuple(tiles))
@@ -519,10 +526,10 @@ def attention_flash_dqkv_partials(q, k, v, o, lse, g, tiles: tuple = (),
                        dtype=torch.float32, device=q.device)
     if engine == "mma":
         _check_mma_alignment(q, k, v, g, o)
-        ld = torch.empty((b, _delta_rows(n, c), 2), dtype=torch.float32,
-                         device=q.device)
+        ld = torch.empty((b, _delta_rows(n, c, tuple(tiles)), 2),
+                         dtype=torch.float32, device=q.device)
         _launch("sagan_attention_flash_dqkv_mma",
-                (q, k, v, g, o, lse, dk, dv, part, ld), q, c)
+                (q, k, v, g, o, lse, dk, dv, part, ld), q, c, tiles)
         FLASH_DQKV_MMA_LAUNCHES += 1
     else:
         _launch("sagan_attention_flash_dqkv",

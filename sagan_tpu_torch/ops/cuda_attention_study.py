@@ -28,8 +28,9 @@ variant's counts here, not with K1's or K3's).
 The tile points of the studies' sweeps of the shipped kernels are here
 too (``FWD_POINTS``, ``BWD_POINTS``, and the design flips of the
 tensor-core kernels, ``MMA_POINTS``, ``K1_MMA_POINTS``,
-``K2_MMA_POINTS``, ``K45_MMA_POINTS``), with :func:`build_specs`, every
-library the studies load, for one parallel build.
+``K2_MMA_POINTS``, ``K45_MMA_POINTS``, ``K6_MMA_POINTS``), with
+:func:`build_specs`, every library the studies load, for one parallel
+build.
 """
 
 from __future__ import annotations
@@ -115,6 +116,26 @@ K45_MMA_DEFINES = {
     ("k5_two_blocks",): ("-DSAGAN_K5_MIN_BLOCKS=2",),
 }
 K45_MMA_POINTS = tuple(K45_MMA_DEFINES)
+# the tensor-core K6 (csrc/attention_flash_mma.cu) at other (query tile,
+# key block) points, the port of the TPU study's (BN, BM) sweep of its
+# fused backward, each its own library; the first is the shipped kernel:
+# 8 warps of 8 m16 key tiles (1,024 keys a block at d = 2, c = 8), 64
+# query rows a stage, a cp.async ring of 3.  A point flips one of them:
+# 2,048 or 512 keys a block through the warps (16, 4) or through the key
+# tiles a warp (16, 4), 128 query rows a stage, a ring of 2 or 4.  The key
+# block also sets the size of the fp32 dq partials.  -DSAGAN_K6_Q_TILE=32
+# is left out: ptxas spills it at 128 registers a thread (PERF.md §6)
+K6_MMA_DEFINES = {
+    ("shipped",): (),
+    ("keys_2048_warps16",): ("-DSAGAN_K6_WARPS=16",),
+    ("keys_2048_kt16",): ("-DSAGAN_K6_KEY_TILES=16",),
+    ("keys_512_warps4",): ("-DSAGAN_K6_WARPS=4",),
+    ("keys_512_kt4",): ("-DSAGAN_K6_KEY_TILES=4",),
+    ("q_tile_128",): ("-DSAGAN_K6_Q_TILE=128",),
+    ("ring_2",): ("-DSAGAN_K6_STAGES=2",),
+    ("ring_4",): ("-DSAGAN_K6_STAGES=4",),
+}
+K6_MMA_POINTS = tuple(K6_MMA_DEFINES)
 
 
 def fwd_tiles(point) -> tuple:
@@ -159,8 +180,8 @@ def build_specs() -> list:
     engine at every forward tile point (it takes K1's tile defines), S2,
     K1/K3 and K4-K6 at value width 8 at every tile point, and the
     tensor-core K1-K6 at every ``MMA_VARIANT_DEFINES``, ``MMA_POINTS``,
-    ``K1_MMA_POINTS``, ``K2_MMA_POINTS`` and ``K45_MMA_POINTS`` point (one
-    library a set of defines)."""
+    ``K1_MMA_POINTS``, ``K2_MMA_POINTS``, ``K45_MMA_POINTS`` and
+    ``K6_MMA_POINTS`` point (one library a set of defines)."""
     specs = [(SOURCE, fwd_tiles(p)) for p in FWD_POINTS]
     specs.append((FOLDED_SOURCE, ()))
     for p in FWD_POINTS:
@@ -169,7 +190,7 @@ def build_specs() -> list:
         specs += ca.build_specs((C,), ("attention_flash_bwd",), bwd_tiles(p))
     mma = [*MMA_VARIANT_DEFINES.values(), *MMA_DEFINES.values(),
            *K1_MMA_DEFINES.values(), *K2_MMA_DEFINES.values(),
-           *K45_MMA_DEFINES.values()]
+           *K45_MMA_DEFINES.values(), *K6_MMA_DEFINES.values()]
     for defines in dict.fromkeys(mma):
         specs += ca.build_specs((C,), ("attention_flash_mma",), defines)
     return specs

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 
 import torch
 import torch.distributed as dist
@@ -58,6 +59,20 @@ TIMEOUT = datetime.timedelta(seconds=60)
 _host_twin = None   # the gloo twin of NCCL's default group, for host values
 _grids: dict = {}   # the (data, model) grids made in this group, by m
 _grid = None        # the grid in use (None: 1 x 1, or W x 1 data-parallel)
+
+
+def whole_lines() -> None:
+    """Make this process write each line of its stdout and stderr in one
+    write: buffered until the line ends.  The ranks of a launcher share
+    its stdout and stderr, and unbuffered (as under ``PYTHONUNBUFFERED``)
+    a ``print`` is several writes (its text, each separator, the end), so
+    another rank's line could land inside one; a line of at most
+    ``PIPE_BUF`` (4,096) bytes written at once is never split."""
+    for stream in (sys.stdout, sys.stderr):
+        reconfigure = getattr(stream, "reconfigure", None)
+        if reconfigure is not None:
+            stream.flush()
+            reconfigure(line_buffering=True, write_through=False)
 
 
 def initialize_distributed(backend: str, coordinator: str | None = None,

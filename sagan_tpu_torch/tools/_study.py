@@ -208,10 +208,12 @@ class Study:
         """The sweep points to run: all, or the shipped one and the next."""
         return points[:2] if self.quick else points
 
-    def data(self):
-        """q, k, v, g of the study's shape in bf16 from numpy's
-        default_rng(0), drawn as the JAX studies draw theirs."""
+    def data(self, batch: int | None = None):
+        """q, k, v, g of the study's shape (at ``batch`` in place of its B)
+        in bf16 from numpy's default_rng(0), drawn as the JAX studies draw
+        theirs."""
         b, n, m, d, c = self.shape
+        b = batch or b
         rng = np.random.default_rng(0)
         return [torch.from_numpy(rng.standard_normal(s)).to(self.device,
                                                             torch.bfloat16)

@@ -20,9 +20,12 @@ bf16); their tile sweeps time the first, CUDA-core design
               its default, on both engines, the fma engine at the fastest
               K3 point, and ``mma_exp2``, the shipped K3 itself, each held
               against its plain version (as ``bench_attn_floor256``)
-  k6_mma      the shipped K6 with the size of its fp32 dq partials and
-              its max|Δ| against the CUDA-core K4 + K5 (within
-              ``BWD_TOL``, as ``bench_attn_bwd256``)
+  k6_mma      the tensor-core K6 at each (query tile, key block) point
+              (``K6_MMA_POINTS``), the TPU study's fused (BN, BM) sweep
+              (``bench_bwd_fused``), as ``bench_attn_bwd256``'s: ms, the
+              shape and size of its fp32 dq partials, their size at B = 8
+              (arithmetic, not a run) and its max|Δ| against the CUDA-core
+              K4 + K5 within ``BWD_TOL``
   k6_tiles    the CUDA-core K6 at each point (``BWD_POINTS``) with the
               size of its partials and its max|Δ| against the CUDA-core
               K4 + K5 at the shipped points
@@ -37,6 +40,11 @@ bf16); their tile sweeps time the first, CUDA-core design
   slab        the shipped K6's launch alone against K6 with the sum of its
               partials (``part.sum(dim=1)``)
   two_kernel  K4 + K5 on both engines against the shipped K6 at B = 4
+  past_budget the map at B = 8, church512's step past ``DQ_SLAB_BUDGET``
+              (the route takes K4 + K5 there): the shipped tensor-core
+              K4 + K5, then K6 at each ``k6_mma`` point of the run, each
+              held against the CUDA-core K4 + K5 within ``BWD_TOL``, with
+              its partials' size and whether it fits the budget
   library     ``sdpa_padded`` forward, and its backward through autograd
               (the plain versions at this map: chip_smoke phase 8)
   step        a church512 training step (example_configs/church512_attn.py,
@@ -49,19 +57,48 @@ v5e numbers.
 from __future__ import annotations
 
 from ..ops import cuda_attention as ca
-from ..ops.attention import attention_flash_bwd_reference
-from ..ops.cuda_attention_study import (BWD_POINTS, K45_MMA_DEFINES,
-                                        K45_MMA_POINTS, bwd_tiles)
-from ._study import (BWD_TOL, SHAPES, Study, church512_config, floors, held,
-                     k3_mma_sweep, k3_sweep, max_delta, sdpa_padded,
-                     step_segments)
-from .bench_attn_bwd256 import deltas, partials
+from ..ops.attention import DQ_SLAB_BUDGET
+from ..ops.cuda_attention_study import (BWD_POINTS, K6_MMA_DEFINES,
+                                        K6_MMA_POINTS, bwd_tiles)
+from ._study import (BWD_TOL, SHAPES, Study, church512_config, floors,
+                     k3_mma_sweep, k3_sweep, sdpa_padded, step_segments)
+from .bench_attn_bwd256 import (deltas, k6_mma_sweep, k45_mma_sweep,
+                                partials)
 
 SECTIONS = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "k45_mma",
-            "slab", "two_kernel", "library", "step")
+            "slab", "two_kernel", "past_budget", "library", "step")
 # as bench_attn_floor's
-HELD = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "k45_mma")
+HELD = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "k45_mma",
+        "past_budget")
 TIMING = (5, 3, 1)
+# church512's batch past the slab budget (its B = 8 step)
+PAST_BUDGET_BATCH = 8
+
+
+def past_budget(st: Study) -> None:
+    """The ``past_budget`` section at B = ``PAST_BUDGET_BATCH``: the
+    shipped tensor-core K4 + K5, then K6 at each ``k6_mma`` point of the
+    run, each held against the CUDA-core K4 + K5; a K6 point's row gives
+    its partials' MB (``k6_mma``'s arithmetic) and whether they fit
+    ``DQ_SLAB_BUDGET`` (null on the CPU)."""
+    q, k, v, g = st.data(PAST_BUDGET_BATCH)
+    o, lse = ca.attention_flash_fwd(q, k, v)
+    args = (q, k, v, o, lse, g)
+    want = ca.attention_flash_dq_dkv(*args, (), st.fma)
+    st.record("past_budget", "k4_k5", {
+        **st.time(ca.attention_flash_dq_dkv, *args, (), st.mma),
+        **deltas(ca.attention_flash_dq_dkv(*args, (), st.mma), want,
+                 BWD_TOL)})
+    for p in st.points(K6_MMA_POINTS):
+        tiles = K6_MMA_DEFINES[p]
+        mb = st.sections["k6_mma"]["x".join(p)][
+            f"partial_mb_b{PAST_BUDGET_BATCH}"]
+        st.record("past_budget", "x".join(p), {
+            **st.time(ca.attention_flash_dqkv, *args, tiles, st.mma),
+            **deltas(ca.attention_flash_dqkv(*args, tiles, st.mma), want,
+                     BWD_TOL),
+            "partial_mb": mb,
+            "fits_budget": None if mb is None else mb * 1e6 <= DQ_SLAB_BUDGET})
 
 
 def main(argv=None) -> dict:
@@ -73,10 +110,7 @@ def main(argv=None) -> dict:
     o, lse = ca.attention_flash_fwd(q, k, v)
     args = (q, k, v, o, lse, g)
     want = ca.attention_flash_dq_dkv(*args, (), st.fma)
-    fused = ca.attention_flash_dqkv(*args)
-    st.record("k6_mma", "shipped", {
-        **st.time(ca.attention_flash_dqkv, *args),
-        **deltas(fused, want, BWD_TOL), **partials(st, (), "mma")})
+    k6_mma_sweep(st, args, want, (PAST_BUDGET_BATCH,))
 
     def k6(p):
         tiles = bwd_tiles(p)
@@ -86,26 +120,7 @@ def main(argv=None) -> dict:
 
     st.sweep("k6_tiles", BWD_POINTS, k6)
     del want
-
-    def k45(p):
-        tiles = K45_MMA_DEFINES[p]
-        dq, dk, dv = ca.attention_flash_dq_dkv(*args, tiles, st.mma)
-        checks = [held(dq, lambda q, o, lse, g, k, v:
-                       attention_flash_bwd_reference(q, k, v, o, lse, g)[0],
-                       (q, o, lse, g), (k, v), BWD_TOL),
-                  max_delta(dk, fused[1], BWD_TOL),
-                  max_delta(dv, fused[2], BWD_TOL)]
-        alone = {f"{name}_{key}": x
-                 for name, fn in (("k4", ca.attention_flash_dq),
-                                  ("k5", ca.attention_flash_dkv))
-                 for key, x in st.time(fn, *args, tiles, st.mma).items()}
-        return ca.attention_flash_dq_dkv, (*args, tiles, st.mma), {
-            **alone, "max_abs_err": [x["max_abs_err"] for x in checks],
-            "limit": [x["limit"] for x in checks],
-            "ok": all(x["ok"] for x in checks)}
-
-    st.sweep("k45_mma", K45_MMA_POINTS, k45)
-    del fused
+    k45_mma_sweep(st, args, ca.attention_flash_dqkv(*args))
     if st.on_card:
         # the kernel alone writes the partials; the wrapper adds their sum
         st.record("slab", "k6_kernel", st.time(
@@ -125,6 +140,7 @@ def main(argv=None) -> dict:
     st.record("library", "sdpa", st.time(sdpa_padded, q, k, v))
     st.record("library", "sdpa_bwd", st.time(sdpa_padded(q, k, v, g)))
     del q, k, v, g
+    past_budget(st)
 
     st.record("step", "church512", step_segments(
         st, church512_config(), steps=3 if st.quick else 10))

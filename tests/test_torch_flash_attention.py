@@ -690,7 +690,8 @@ def test_the_dtype_picks_the_engine_and_mma_refuses_fp32(wrapper,
     monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
     monkeypatch.setattr(cuda_attention, "_launch",
                         lambda name, *a, **kw: launched.append(name))
-    monkeypatch.setattr(cuda_attention, "_delta_rows", lambda n, c: 64)
+    monkeypatch.setattr(cuda_attention, "_delta_rows",
+                        lambda n, c, tiles=(): 64)
     monkeypatch.setattr(cuda_attention, "bwd_mma_key_blocks",
                         lambda *a: 1)
     mma, fma, mma_count, fma_count = ENGINE_ENTRIES[wrapper]

@@ -33,7 +33,8 @@ print(" ".join(names), "|", leaked)
 # data.image_folder and the native reader's binding in data.native;
 # evaluation in evaluate, train.fid, train.inception and train.iscore, the
 # profiler window in utils.profiling, data parallelism in parallel.mesh;
-# the two-tree kernel check in tools.kernel_ab)
+# the two-tree kernel check in tools.kernel_ab, the SASS count of a
+# kernel's loop in tools.sass_mix)
 MODULES = {
     "convert", "evaluate", "generate", "legacy_main", "main", "serve",
     "data", "data.image_folder", "data.loader", "data.native",
@@ -47,7 +48,7 @@ MODULES = {
     "tools", "tools._study", "tools.bench_attn_bwd256",
     "tools.bench_attn_floor", "tools.bench_attn_floor256",
     "tools.bench_attn_floor512", "tools.kernel_ab", "tools.profiling",
-    "tools.serve_breakdown", "tools.train_breakdown",
+    "tools.sass_mix", "tools.serve_breakdown", "tools.train_breakdown",
     "train", "train.checkpoint", "train.fid", "train.inception",
     "train.iscore", "train.optim", "train.trainer",
     "utils", "utils.config", "utils.device", "utils.images",

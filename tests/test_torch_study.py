@@ -5,8 +5,12 @@ run in interpret-mode ``pallas_call``s, on the same numpy inputs at a tiny
 shape (B = 2, N = 64, M = 48, d = 2, c = 8, Cin = 16; the folded forward at
 one more); the tile-define plumbing of the shipped kernels' libraries; S1's
 tensor-core variants as builds of the shipped K1/K3 library and the entry
-each launches (the card's checks and launch stubbed out); and the four
-studies' wiring on the CPU.
+each launches (the card's checks and launch stubbed out); K6's (query
+tile, key block) points as builds of the shipped K6 whose scratch its own
+library sizes (stubbed too), and the plain backward they are held to
+against ``_flash_bwd_fused`` (``tools/bench_attn_bwd256.py``'s fused
+sweep) at each (BN, BM) of that sweep; the four studies' wiring on the
+CPU; and the SASS counter of ``tools/sass_mix.py``.
 
 Tolerances, as a share of max|JAX|: fp32 1e-5 (the same function, summed
 in another order; the JAX flash bodies rescale per key block); bf16 8e-3,
@@ -15,6 +19,7 @@ P in fp32 where a JAX body rounds it to bf16, as its noexp keeps e = s − max
 in fp32)."""
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sagan_tpu_torch.ops import _build
 from sagan_tpu_torch.ops import attention as attention_ops
 from sagan_tpu_torch.ops import cuda_attention, cuda_attention_study
+from sagan_tpu_torch.ops.attention import attention_flash_bwd_reference
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
 from sagan_tpu_torch.tools import (_study, bench_attn_bwd256, bench_attn_floor,
@@ -38,6 +44,7 @@ B, N, M, D, C, CIN = 2, 64, 48, 2, 8, 16
 BN, BM = 32, 16  # the interpret-mode blocks: query rows, keys (flash)
 TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 VMEM = pltpu.VMEM
+_TINY = {}  # each study's --tiny result, kept for the later tests of it
 
 
 def _arrays(*shapes, seed=0):
@@ -344,7 +351,7 @@ def test_mma_variant_launches_k1_or_k3_by_single_pass(site, variant,
                                    bench_attn_bwd256, bench_attn_floor512],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_study_runs_tiny_on_the_cpu(study, capsys):
-    result = study.main(["--device", "cpu", "--tiny"])
+    result = _TINY[study] = study.main(["--device", "cpu", "--tiny"])
     assert set(result["sections"]) >= set(study.SECTIONS)
     assert result["device"] == "cpu" and result["shape"] == [B, N, M, D, C]
     out = capsys.readouterr().out.strip().splitlines()
@@ -403,3 +410,252 @@ def test_sdpa_padded_is_attention_on_the_cpu(dtype):
                               (qr, kr, vr), g.float())
     for got, r in zip((dq[:, 0, :, :D], dk[:, 0, :, :D], dv[:, 0]), ref):
         assert _study.max_delta(got, r, 2 * TOL[dtype])["ok"]
+
+
+# -- the tensor-core K6's (query tile, key block) points (k6_mma) -----------
+
+K6_POINTS = list(cuda_attention_study.K6_MMA_POINTS)
+# each K6 define's default: the shipped K6 (attention_flash_mma.cu)
+K6_DEFAULTS = {"SAGAN_K6_Q_TILE": 64, "SAGAN_K6_WARPS": 8,
+               "SAGAN_K6_KEY_TILES": 8, "SAGAN_K6_STAGES": 3}
+
+
+def _k6_build(tiles: tuple) -> dict:
+    """The K6 define values of a point's build: the defaults, with the
+    point's own defines in their place."""
+    values = dict(K6_DEFAULTS)
+    for flag in tiles:
+        name, value = flag.removeprefix("-D").split("=")
+        values[name] = int(value)
+    return values
+
+
+@pytest.mark.parametrize("point", K6_POINTS, ids="x".join)
+def test_each_k6_point_is_one_define_set_and_its_own_library(point):
+    """Each point flips one K6 define away from its shipped value (the
+    shipped point none: the model's library itself), reaches 512, 1,024
+    or 2,048 keys a block at d = 2, c = 8, and builds a library of its
+    own, which ``build_specs()`` holds."""
+    cas = cuda_attention_study
+    tiles = cas.K6_MMA_DEFINES[point]
+    assert (tiles == ()) == (point == ("shipped",)) == (point == K6_POINTS[0])
+    assert len(tiles) <= 1 and all(t.startswith("-DSAGAN_K6_") for t in tiles)
+    build = _k6_build(tiles)
+    assert all(build[name] != K6_DEFAULTS[name] for name in
+               (t.removeprefix("-D").split("=")[0] for t in tiles))
+    assert build["SAGAN_K6_WARPS"] * 16 * build["SAGAN_K6_KEY_TILES"] in (
+        512, 1024, 2048)
+    assert build["SAGAN_K6_Q_TILE"] in (64, 128)   # 32 spills: left out
+    assert build["SAGAN_K6_STAGES"] in (2, 3, 4)
+    spec = ("attention_flash_mma", ("-DSAGAN_ATTN_C=8", *tiles))
+    assert spec in cas.build_specs()
+    paths = {_build.library_path(*cuda_attention.build_specs(
+        (8,), ("attention_flash_mma",), cas.K6_MMA_DEFINES[p])[0])
+        for p in K6_POINTS}
+    assert len(paths) == len(K6_POINTS)
+
+
+def _function(source: str, name: str) -> str:
+    """The text of the C++ function or kernel ``name`` in ``source``, from
+    its name in its definition to the brace that closes its body."""
+    for match in re.finditer(rf"\b{name}\(", source):
+        line = source[source.rfind("\n", 0, match.start()) + 1:
+                      match.start()]
+        rest = source[match.end():]
+        if "//" in line or -1 < rest.find(";") < rest.find("{"):
+            continue                      # a comment or a call
+        depth = 0
+        for i in range(match.end() + rest.find("{"), len(source)):
+            depth += {"{": 1, "}": -1}.get(source[i], 0)
+            if depth == 0:
+                return source[match.start():i + 1]
+    raise AssertionError(f"{name}: no definition")
+
+
+def test_k6_defines_reach_k6_alone_in_the_source():
+    """The K6 switches size K6's kernel, its launch, its delta rows and the
+    key block its library reports; K2's gradient pass, K5 and the delta
+    rows of K2, K4 and K5 take the shipped constants."""
+    source = (_build.CSRC / "attention_flash_mma.cu").read_text()
+    k6 = ("attention_flash_dqkv_mma_kernel", "launch_bwd", "k6_delta_rows",
+           "sagan_attention_flash_mma_keys_per_block",
+           "sagan_attention_flash_mma_delta_rows")
+    shipped = ("attention_flash_dkv_mma_kernel", "attention_bwd_grads_mma_kernel",
+               "launch_dkv", "launch_dq", "launch_k2", "launch_k2_grads",
+               "k2_key_tiles", "delta_rows", "sagan_attention_flash_delta_mma",
+               "sagan_attention_bwd_mma_key_blocks")
+    for name in k6:
+        assert "K6" in _function(source, name) or "k6_" in _function(
+            source, name), name
+    for name in shipped:
+        body = _function(source, name)
+        assert "kK6" not in body and "k6_" not in body \
+            and "K6Smem" not in body, name
+
+
+@pytest.fixture
+def fresh_k6_caches():
+    """``keys_per_block`` and ``_delta_rows`` cache what a library
+    reported: clear them around a test that stubs the libraries."""
+    cuda_attention.keys_per_block.cache_clear()
+    cuda_attention._delta_rows.cache_clear()
+    yield
+    cuda_attention.keys_per_block.cache_clear()
+    cuda_attention._delta_rows.cache_clear()
+
+
+@pytest.mark.parametrize("point", K6_POINTS, ids="x".join)
+def test_k6_point_sizes_its_scratch_from_its_own_library(point, monkeypatch,
+                                                         fresh_k6_caches):
+    """On the card (its checks, libraries and launches stubbed out: CPU
+    tensors stand in for CUDA ones) ``attention_flash_dqkv(..., tiles,
+    "mma")`` launches K6 from the point's own library, with fp32 dq
+    partials of that library's key block and (-lse log2e, delta) scratch
+    of its query tile, and the partials' shape says the same; K4 + K5 and
+    K2 called beside it carry no define and size their scratch by the
+    shipped library.  The shipped point asks no library for its shape."""
+    tiles = cuda_attention_study.K6_MMA_DEFINES[point]
+    build = _k6_build(tiles)
+    keys = build["SAGAN_K6_WARPS"] * 16 * build["SAGAN_K6_KEY_TILES"]
+    rows = build["SAGAN_K6_Q_TILE"]
+    asked, launched = [], []
+
+    def int_fn(source, name, c, tiles=(), ints=1):
+        asked.append((name, tiles))
+        got = _k6_build(tiles)
+        if name.endswith("keys_per_block"):
+            return lambda d: got["SAGAN_K6_WARPS"] * 16 * got[
+                "SAGAN_K6_KEY_TILES"]
+        assert name.endswith("delta_rows"), name
+        return lambda n: -(-n // got["SAGAN_K6_Q_TILE"]) * got[
+            "SAGAN_K6_Q_TILE"]
+
+    monkeypatch.setattr(cuda_attention, "_int_fn", int_fn)
+    monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_attention, "_check_mma_alignment",
+                        lambda *t: None)
+    monkeypatch.setattr(cuda_attention, "_launch",
+                        lambda name, ts, q, c, tiles=(): launched.append(
+                            (name, tuple(tiles), [tuple(t.shape)
+                                                  for t in ts])))
+    monkeypatch.setattr(cuda_attention, "bwd_mma_key_blocks",
+                        lambda *a: 1)
+    b, n, m = 2, 100, 2100
+    q, k, v, g = (torch.zeros(s, dtype=torch.bfloat16) for s in (
+        (b, n, D), (b, m, D), (b, m, C), (b, n, C)))
+    o, lse = torch.zeros(b, n, C, dtype=torch.bfloat16), torch.zeros(b, n, 1)
+    part = (b, -(-m // keys), n, D)
+    assert cuda_attention.dq_partial_shape(b, n, m, D, C, tiles,
+                                           "mma") == part
+    cuda_attention.attention_flash_dqkv(q, k, v, o, lse, g, tiles, "mma")
+    (name, got_tiles, shapes), = launched
+    assert name == "sagan_attention_flash_dqkv_mma" and got_tiles == tiles
+    assert shapes[8] == part
+    assert shapes[9] == (b, -(-n // rows) * rows, 2)
+    launched.clear()
+    cuda_attention.attention_flash_dq_dkv(q, k, v, o, lse, g, engine="mma")
+    cuda_attention.attention_bwd_fused(q, k, v, g, engine="mma")
+    assert [(name, t) for name, t, _ in launched] == [
+        ("sagan_attention_flash_delta_mma", ()),
+        ("sagan_attention_flash_dq_mma", ()),
+        ("sagan_attention_flash_dkv_mma", ()),
+        ("sagan_attention_bwd_mma", ())]
+    # K4 + K5's and K2's scratch: 100 rows padded to the shipped 64
+    assert launched[0][2][3] == (b, 128, 2)
+    assert launched[3][2][7] == (b, 128, 2)
+    assert ("sagan_attention_flash_mma_delta_rows", ()) in asked
+    if tiles:
+        assert ("sagan_attention_flash_mma_keys_per_block", tiles) in asked
+        assert ("sagan_attention_flash_mma_delta_rows", tiles) in asked
+    else:
+        assert ("sagan_attention_flash_mma_keys_per_block", ()) not in asked
+
+
+@pytest.mark.parametrize("study", [bench_attn_bwd256, bench_attn_floor512],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_backward_studies_carry_the_tensor_core_sweeps(study):
+    """T4 and T5 on the CPU: ``k6_mma`` and ``k45_mma`` sweep the
+    tensor-core points that ``--quick`` keeps (the shipped one and the
+    next), each row held and carrying its partials' fields (null on the
+    CPU); T5 also gives each K6 point's partials at B = 8 and runs the
+    ``past_budget`` section there."""
+    result = _TINY.get(study) or study.main(["--device", "cpu", "--tiny"])
+    sections = result["sections"]
+    cas = cuda_attention_study
+    for name, points in (("k6_mma", cas.K6_MMA_POINTS),
+                         ("k45_mma", cas.K45_MMA_POINTS)):
+        keys = ["x".join(p) for p in points[:2]]
+        assert list(sections[name]) == [*keys, "best"]
+        assert sections[name]["best"]["point"] == list(points[0])
+        for key in keys:
+            row = sections[name][key]
+            assert row["ok"] and len(row["max_abs_err"]) == 3
+            assert row["shipped"] is (key == keys[0])
+    for key in ("x".join(p) for p in cas.K6_MMA_POINTS[:2]):
+        row = sections["k6_mma"][key]
+        assert row["partials"] is None and row["partial_mb"] is None
+        if study is bench_attn_floor512:
+            assert row["partial_mb_b8"] is None
+            budget = sections["past_budget"][key]
+            assert budget["ok"] and budget["fits_budget"] is None
+    if study is bench_attn_floor512:
+        assert list(sections["past_budget"])[0] == "k4_k5"
+
+
+# the TPU study's fused (BN, BM) sweep (tools/bench_attn_bwd256.py
+# SWEEP_BN, SWEEP_BM) at a small shape that every point divides
+FUSED_SWEEP = [(bn, bm) for bn in (128, 256, 512) for bm in (512, 1024, 2048)]
+FUSED_SHAPE = (1, 512, 2048)
+
+
+@functools.cache
+def _fused_inputs():
+    """q, k, v, g in bf16 at ``FUSED_SHAPE``, d = 2, c = 8, and JAX's
+    flash forward's (o, lse) of them (interpret mode)."""
+    from sagan_tpu.ops import pallas_attention as pa
+    b, n, m = FUSED_SHAPE
+    q, k, v, g = _jax(_arrays((b, n, D), (b, m, D), (b, m, C), (b, n, C),
+                              seed=10), "bfloat16")
+    o, lse = pa._flash_fwd(q, k, v, 256, 512, 1, interpret=True)
+    return q, k, v, g, o, lse
+
+
+@pytest.mark.parametrize("bn,bm", FUSED_SWEEP)
+def test_plain_backward_matches_jax_fused_backward_at_the_study_blocks(bn,
+                                                                       bm):
+    """The plain backward, which every ``k6_mma`` point is held to (and
+    the CUDA-core K4 + K5 the studies hold them against), equals the TPU
+    kernel ``_flash_bwd_fused`` in interpret mode at each (BN, BM) of the
+    TPU study's fused sweep, on the same (o, lse): bf16 ``TOL``, both
+    round dl and p to bf16 before the products."""
+    from sagan_tpu.ops import pallas_attention as pa
+    q, k, v, g, o, lse = _fused_inputs()
+    want = pa._flash_bwd_fused(q, k, v, o, lse, g, bn, bm, interpret=True)
+    tq, tk, tv, tg, to = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                          .to(torch.bfloat16) for x in (q, k, v, g, o))
+    got = attention_flash_bwd_reference(tq, tk, tv, to,
+                                        torch.from_numpy(np.array(lse)), tg)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == w.shape, name
+        assert _share(x, w) <= TOL["bfloat16"], (name, _share(x, w))
+
+
+def test_sass_mix_counts_the_innermost_tensor_core_loop():
+    """``tools/sass_mix.py`` on a SASS listing of two nested loops, the
+    inner one holding the HMMAs: it finds that loop, its length, the
+    length of the loop around it, and its opcodes."""
+    from sagan_tpu_torch.tools import sass_mix
+
+    body = ["MOV R1, R2", "HMMA.1688.F32.BF16 R4, R8, R10, R4",
+            "MUFU.EX2 R5, R5", "@P0 FFMA R6, R6, R7, R6",
+            "BRA 0x20", "S2R R0, SR_TID.X", "BRA 0x10", "EXIT"]
+    listing = "Function : _Zkernel\n" + "\n".join(
+        f"        /*{16 * (i + 1):04x}*/                   {text} ;"
+        for i, text in enumerate(body))
+    (name, text), = sass_mix.functions(listing).items()
+    assert name == "_Zkernel"
+    mix = sass_mix.inner_mix(text)
+    assert mix["range"] == ["0x20", "0x50"] and mix["instructions"] == 4
+    assert mix["around"] == 7
+    assert mix["by_opcode"] == {"HMMA": 1, "MUFU": 1, "FFMA": 1, "BRA": 1}

@@ -2,7 +2,8 @@
 sagan_tpu_torch.main --device cpu``), on a copy of example_configs/test.py
 pointed at a small synthetic dataset: it writes a TensorBoard event file,
 PNG grids and a checkpoint; a re-run restores; two gloo ranks under
-``torch.distributed.run`` train it data-parallel; a SIGTERM mid-epoch and a
+``torch.distributed.run`` train it data-parallel, each rank's lines
+written whole to the shared stdout; a SIGTERM mid-epoch and a
 resume give bit-for-bit the state of an unbroken run; ``generate``
 without ``--weights`` samples the checkpoint's EMA generator; an FID epoch
 prints and writes the proxy FID and IS; ``profile_dir`` traces calls
@@ -220,6 +221,40 @@ def test_two_ranks_train_through_the_cli(tmp_path, data32):
     assert sorted(os.listdir(tmp_path / "images")) == [
         "epoch_0000.png", "epoch_0001.png"]
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["ckpt-00000008.pt"]
+
+
+# a rank of the test below: its lines to the shared stdout, each printed
+# as several pieces (argv: its index)
+_WRITER = """
+import sys
+from sagan_tpu_torch.parallel import mesh
+mesh.whole_lines()
+for k in range(2000):
+    print("rank", sys.argv[1], "line", k, "state", 40 * "f")
+"""
+
+
+def test_ranks_write_whole_lines_to_a_shared_stdout():
+    """Two processes printing to one pipe with ``PYTHONUNBUFFERED`` (a
+    print is then several writes), each after ``mesh.whole_lines()`` as
+    ``main`` calls it under the launcher: every line arrives whole, so no
+    rank's closing line is split by the other's (the two-rank CLI test
+    above read such a split line as a missing rank)."""
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+               OMP_NUM_THREADS="1")
+    read, write = os.pipe()
+    procs = [subprocess.Popen([sys.executable, "-c", _WRITER, str(rank)],
+                              cwd=ROOT, env=env, stdout=write)
+             for rank in range(2)]
+    os.close(write)
+    with os.fdopen(read) as pipe:
+        text = pipe.read()
+    assert [p.wait(timeout=180) for p in procs] == [0, 0]
+    lines = re.findall(r"^rank (\d) line (\d+) state f{40}$", text,
+                       re.MULTILINE)
+    assert len(lines) == len(text.splitlines()) == 4000
+    assert sorted({(r, int(k)) for r, k in lines}) == [
+        (str(r), k) for r in range(2) for k in range(2000)]
 
 
 def _summaries(logdir) -> list:
