@@ -31,6 +31,7 @@ from torch import nn
 
 from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
                          Dense, Embedding, global_sum_pool, remat)
+from ..utils.profiling import span
 from .vanilla import _attention, _power
 
 
@@ -139,19 +140,20 @@ class ResGenerator(nn.Module):
         self.eval()
 
     def forward(self, z, labels=None):
-        x = z.to(self.dtype)
-        if self.use_label:
-            one_hot = F.one_hot(labels.long(), self.num_classes)
-            x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
-        x = self.stem(x)
-        x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
-        for blk, attn in self.blocks:
-            def stage(x, labels, blk=blk, attn=attn):
-                x = blk(x, labels) if self.use_cond_bn else blk(x)
-                return x if attn is None else attn(x)
-            x = remat(stage, x, labels) if self.remat else stage(x, labels)
-        x = self.to_rgb(F.relu(self.bn_out(x)))
-        return torch.tanh(x.float()).to(self.dtype)
+        with span("G"):
+            x = z.to(self.dtype)
+            if self.use_label:
+                one_hot = F.one_hot(labels.long(), self.num_classes)
+                x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
+            x = self.stem(x)
+            x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
+            for blk, attn in self.blocks:
+                def stage(x, labels, blk=blk, attn=attn):
+                    x = blk(x, labels) if self.use_cond_bn else blk(x)
+                    return x if attn is None else attn(x)
+                x = remat(stage, x, labels) if self.remat else stage(x, labels)
+            x = self.to_rgb(F.relu(self.bn_out(x)))
+            return torch.tanh(x.float()).to(self.dtype)
 
 
 class ResDiscriminator(nn.Module):
@@ -208,21 +210,22 @@ class ResDiscriminator(nn.Module):
                                   rng=rng)
 
     def forward(self, img, labels=None):
-        x = img.to(self.dtype)
-        for blk, attn in self.blocks:
-            def stage(x, blk=blk, attn=attn):
-                x = blk(x)
-                return x if attn is None else attn(x)
-            x = remat(stage, x) if self.remat else stage(x)
-        x = self.final(x)
-        if self.use_label:
-            # projection discriminator: ReLU before the pool, as the JAX
-            # model does
-            feat = global_sum_pool(F.relu(x))               # [B, C] fp32
-            logit = self.head(feat)                         # [B, 1]
-            emb = self.embed(labels).float()
-            proj = (feat * emb).sum(dim=1, keepdim=True)
-            return logit.float() + proj
-        # no ReLU before the patch head: the reference applies it to the
-        # final block's (pre-activation residual) output
-        return self.head_conv(x).float()                    # [B, 1, 4, 4]
+        with span("D"):
+            x = img.to(self.dtype)
+            for blk, attn in self.blocks:
+                def stage(x, blk=blk, attn=attn):
+                    x = blk(x)
+                    return x if attn is None else attn(x)
+                x = remat(stage, x) if self.remat else stage(x)
+            x = self.final(x)
+            if self.use_label:
+                # projection discriminator: ReLU before the pool, as the JAX
+                # model does
+                feat = global_sum_pool(F.relu(x))               # [B, C] fp32
+                logit = self.head(feat)                         # [B, 1]
+                emb = self.embed(labels).float()
+                proj = (feat * emb).sum(dim=1, keepdim=True)
+                return logit.float() + proj
+            # no ReLU before the patch head: the reference applies it to the
+            # final block's (pre-activation residual) output
+            return self.head_conv(x).float()                    # [B, 1, 4, 4]

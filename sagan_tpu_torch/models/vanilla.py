@@ -29,6 +29,7 @@ from torch import nn
 from ..nn.attention import SelfAttention
 from ..nn.layers import (BatchNorm, ConditionalBatchNorm, Conv, ConvTranspose,
                          Dense, Embedding, global_sum_pool, leaky_relu, remat)
+from ..utils.profiling import span
 
 
 def _power(img_size: int) -> int:
@@ -94,21 +95,22 @@ class Generator(nn.Module):
         self.eval()
 
     def forward(self, z, labels=None):
-        x = z.to(self.dtype)
-        if self.use_label:
-            one_hot = F.one_hot(labels.long(), self.num_classes)
-            x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
-        x = self.stem(x)
-        x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
-        for convt, bn, attn in self.blocks:
-            def stage(x, labels, convt=convt, bn=bn, attn=attn):
-                x = convt(x)
-                x = bn(x, labels) if self.use_cond_bn else bn(x)
-                x = leaky_relu(x, 0.1)
-                return x if attn is None else attn(x)
-            x = remat(stage, x, labels) if self.remat else stage(x, labels)
-        x = self.to_rgb(x)
-        return torch.tanh(x.float()).to(self.dtype)
+        with span("G"):
+            x = z.to(self.dtype)
+            if self.use_label:
+                one_hot = F.one_hot(labels.long(), self.num_classes)
+                x = torch.cat([x, one_hot.to(self.dtype)], dim=-1)
+            x = self.stem(x)
+            x = x.reshape(x.shape[0], 4, 4, self.gf0).permute(0, 3, 1, 2)
+            for convt, bn, attn in self.blocks:
+                def stage(x, labels, convt=convt, bn=bn, attn=attn):
+                    x = convt(x)
+                    x = bn(x, labels) if self.use_cond_bn else bn(x)
+                    x = leaky_relu(x, 0.1)
+                    return x if attn is None else attn(x)
+                x = remat(stage, x, labels) if self.remat else stage(x, labels)
+            x = self.to_rgb(x)
+            return torch.tanh(x.float()).to(self.dtype)
 
 
 class Discriminator(nn.Module):
@@ -155,17 +157,18 @@ class Discriminator(nn.Module):
                                   rng=rng)
 
     def forward(self, img, labels=None):
-        x = img.to(self.dtype)
-        for conv, attn in self.blocks:
-            def stage(x, conv=conv, attn=attn):
-                x = leaky_relu(conv(x), 0.1)
-                return x if attn is None else attn(x)
-            x = remat(stage, x) if self.remat else stage(x)
-        if self.use_label:
-            # projection discriminator (Miyato & Koyama 2018)
-            feat = global_sum_pool(x)                       # [B, C] fp32
-            logit = self.head(feat)                         # [B, 1]
-            emb = self.embed(labels).float()
-            proj = (feat * emb).sum(dim=1, keepdim=True)
-            return logit.float() + proj
-        return self.head_conv(x).float()                    # [B, 1, 4, 4]
+        with span("D"):
+            x = img.to(self.dtype)
+            for conv, attn in self.blocks:
+                def stage(x, conv=conv, attn=attn):
+                    x = leaky_relu(conv(x), 0.1)
+                    return x if attn is None else attn(x)
+                x = remat(stage, x) if self.remat else stage(x)
+            if self.use_label:
+                # projection discriminator (Miyato & Koyama 2018)
+                feat = global_sum_pool(x)                       # [B, C] fp32
+                logit = self.head(feat)                         # [B, 1]
+                emb = self.embed(labels).float()
+                proj = (feat * emb).sum(dim=1, keepdim=True)
+                return logit.float() + proj
+            return self.head_conv(x).float()                    # [B, 1, 4, 4]

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention
+from ..utils.profiling import span
 from .layers import Conv, max_pool
 
 
@@ -51,15 +52,17 @@ class SelfAttention(nn.Module):
         self.sigma = nn.Parameter(torch.zeros(()))
 
     def forward(self, x):
-        b, _, h, w = x.shape
-        q = _tokens(self.theta(x))
-        k = self.phi(x)
-        v = self.g(x)
-        if self.downsample:
-            k = max_pool(k)
-            v = max_pool(v)
-        o = attention(q, _tokens(k), _tokens(v), use_pallas=self.use_pallas)
-        o = o.transpose(1, 2).reshape(b, self.v_dim, h, w)
-        o = self.out_proj(o)
-        # the fp32 gate promotes the sum to fp32, as in JAX
-        return (x.float() + self.sigma * o.float()).to(self.dtype)
+        with span("attention"):
+            b, _, h, w = x.shape
+            q = _tokens(self.theta(x))
+            k = self.phi(x)
+            v = self.g(x)
+            if self.downsample:
+                k = max_pool(k)
+                v = max_pool(v)
+            o = attention(q, _tokens(k), _tokens(v),
+                          use_pallas=self.use_pallas)
+            o = o.transpose(1, 2).reshape(b, self.v_dim, h, w)
+            o = self.out_proj(o)
+            # the fp32 gate promotes the sum to fp32, as in JAX
+            return (x.float() + self.sigma * o.float()).to(self.dtype)

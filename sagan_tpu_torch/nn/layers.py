@@ -60,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.cuda_spectral import spectral_norm_group
 from ..ops.spectral import spectral_normalize
 from ..parallel import mesh
+from ..utils.profiling import span
 from . import initializers as init
 
 BN_EPS = 1e-3  # Keras BatchNormalization's default, as in the JAX layers
@@ -162,13 +163,14 @@ class _SNLayer(nn.Module):
         if w_bar is not None:
             self.__dict__["_sn_w_bar"] = _TAKEN
             return w_bar
-        w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
-                                          out_dim=self.out_dim,
-                                          backend=self.sn_backend,
-                                          sharded=self.sharded)
-        if self.training:
-            with torch.no_grad():
-                self.u.copy_(u_new)
+        with span("sn"):
+            w_bar, u_new = spectral_normalize(self.w, self.u, self.sn_iters,
+                                              out_dim=self.out_dim,
+                                              backend=self.sn_backend,
+                                              sharded=self.sharded)
+            if self.training:
+                with torch.no_grad():
+                    self.u.copy_(u_new)
         return w_bar
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:
@@ -193,10 +195,12 @@ def _sn_group_pre_hook(root: nn.Module, args) -> None:
     grouped call (storing u for the layers in training mode), each
     layer's W̄ handed over."""
     group = root._sn_group
-    w_bars = spectral_norm_group(
-        [m.w for m in group], [m.u for m in group],
-        [m.sn_iters for m in group], [m.out_dim for m in group],
-        dtypes=[m.dtype for m in group], store=[m.training for m in group])
+    with span("sn"):
+        w_bars = spectral_norm_group(
+            [m.w for m in group], [m.u for m in group],
+            [m.sn_iters for m in group], [m.out_dim for m in group],
+            dtypes=[m.dtype for m in group],
+            store=[m.training for m in group])
     for m, w_bar in zip(group, w_bars):
         m.__dict__["_sn_w_bar"] = w_bar
 

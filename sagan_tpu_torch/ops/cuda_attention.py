@@ -76,6 +76,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import _build
 from .attention import (attention_bwd_reference, attention_flash_bwd_reference,
                         attention_flash_reference, attention_reference,
@@ -556,7 +557,8 @@ class FusedAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         # the cotangent arrives as a view through the caller's
         # transpose/reshape; the kernel takes contiguous rows
-        return attention_bwd_fused(q, k, v, g.contiguous())
+        with span("attention.bwd"):
+            return attention_bwd_fused(q, k, v, g.contiguous())
 
 
 class FlashAttention(torch.autograd.Function):
@@ -579,9 +581,10 @@ class FlashAttention(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        g = g.contiguous()
         b, n, d = q.shape
         m, c = v.shape[1], v.shape[2]
-        if flash_bwd_fused(b, n, m, d, c, q.element_size()):
-            return attention_flash_dqkv(q, k, v, o, lse, g)
-        return attention_flash_dq_dkv(q, k, v, o, lse, g)
+        with span("attention.bwd"):
+            g = g.contiguous()
+            if flash_bwd_fused(b, n, m, d, c, q.element_size()):
+                return attention_flash_dqkv(q, k, v, o, lse, g)
+            return attention_flash_dq_dkv(q, k, v, o, lse, g)

@@ -25,11 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..models import get_discriminator, get_generator
 from ..ops.attention import attention_flash_reference
 from ..ops.attention_study import study_attention_reference
 from ..ops.cuda_attention import attention_flash_fwd
 from ..ops.cuda_attention_study import (FWD_POINTS, MMA_DEFINES, MMA_POINTS,
                                         attention_study, fwd_tiles)
+from ..train.optim import make_gan_optimizers
+from ..train.trainer import TrainState, build_train_step
 from ..utils.config import load_config_file, resolve_config
 from ..utils.device import resolve_device
 from ..utils.timing import cuda_time_ms
@@ -321,20 +324,45 @@ def k3_mma_sweep(st: Study, q, k, v) -> tuple:
     return st.sweep("k3_mma", MMA_POINTS, point)
 
 
+def build_step(config: dict, device: torch.device):
+    """A closure that takes one step of the train step of ``config``, from
+    a seeded init on ``device``, on one batch of random uint8 images and
+    labels."""
+    gen = get_generator(config, rng=torch.Generator().manual_seed(0))
+    disc = get_discriminator(config, rng=torch.Generator().manual_seed(1))
+    gen.to(device)
+    disc.to(device)
+    (opt_g, sched_g), (opt_d, sched_d) = make_gan_optimizers(
+        config, gen.parameters(), disc.parameters(), steps_per_epoch=1000)
+    ema = ({n: p.detach().clone() for n, p in gen.named_parameters()}
+           if config.get("g_ema_decay", 0.0) > 0 else None)
+    state = TrainState(gen, disc, opt_g, opt_d, 0, ema)
+    step = build_train_step(config, sched_g, sched_d, gen, disc)
+    b, s = config["global_batch_size"], config["img_size"]
+    rng = torch.Generator(device=device).manual_seed(0)
+    images = torch.randint(0, 256, (1, b, s, s, 3), dtype=torch.uint8,
+                           device=device, generator=rng)
+    labels = torch.randint(0, config.get("num_classes", 1), (1, b),
+                           dtype=torch.int32, device=device, generator=rng)
+
+    def run():
+        step(state, images, labels)
+
+    return run
+
+
 def step_segments(study: Study, config: dict, steps: int) -> dict:
     """A training step of ``config`` (``--tiny``: cut to 32 px, B = 2)
     with attention, then without: ms a step on the host clock to the
     card's end, after 2 warm-up steps, and the attention share of the
     step, 1 − off/on (null on the CPU)."""
-    from .train_breakdown import build_step
-
     if study.tiny:
         config = dict(config, img_size=32, attn_dim_G=[32], attn_dim_D=[8],
                       batch_size=2, global_batch_size=2)
         steps = 1
     ms = {}
     for attn in (True, False):
-        _, run = build_step(dict(config, use_attention=attn), study.device)
+        run = build_step(dict(config, use_attention=attn), study.device)
         for _ in range(2):
             run()
         if study.on_card:

@@ -57,12 +57,12 @@ def card_line() -> str:
 def device_kernels(prof) -> dict:
     """{kernel name: (device ms, launches)} of a finished profile.
     Device-side records of host annotations (the optimizer's
-    "Optimizer.step#Adam.step") span kernels counted on their own and
-    are left out."""
+    "Optimizer.step#Adam.step", the program's ``sagan.*`` spans) span
+    kernels counted on their own and are left out."""
     out = {}
     for evt in prof.key_averages():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not evt.key.startswith("Optimizer.")):
+                and not evt.key.startswith(("Optimizer.", "sagan."))):
             out[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
     return out
 

@@ -80,7 +80,9 @@ run whole, in the format of m = 1, and restore at any m.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import itertools
 import os
 import signal
 import time
@@ -96,7 +98,7 @@ from ..ops.losses import get_loss
 from ..parallel import mesh, sharding
 from ..utils.device import resolve_device
 from ..utils.images import make_grid, save_image_grid
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span
 from ..utils.tb_writer import SummaryWriter
 from ..utils.timing import StepTimer
 from .checkpoint import CheckpointManager
@@ -202,9 +204,11 @@ class TrainStep:
     labels_k, latents_k=None)`` runs K = ``images_k.shape[0]`` steps and
     returns their metrics averaged over the K steps, as device tensors."""
 
-    # the spans of one step, in order; ``mark``, when set, is called with
-    # each span's name as it ends ("start" before the first), so a caller
-    # can time them (tools/train_breakdown.py records a CUDA event there)
+    # the phases of one step, in order, each a span (``sagan.<phase>``,
+    # inside ``sagan.step``, inside the call's ``sagan.train_step``);
+    # ``mark``, when set, is called with each phase's name as its span
+    # ends ("start" as the step begins), so a caller can time them with a
+    # CUDA event there
     SPANS = ("fakes", "d_fwd_bwd", "d_adam", "g_fwd_bwd", "g_adam", "ema",
              "metrics")
 
@@ -319,9 +323,16 @@ class TrainStep:
         return (self.dloss_fn(out_real, out_fake),
                 self._d_health(out_real, out_fake))
 
-    def _mark(self, span: str) -> None:
+    def _mark(self, name: str) -> None:
         if self.mark is not None:
-            self.mark(span)
+            self.mark(name)
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """One phase of the step: its span, then ``mark(name)``."""
+        with span(name):
+            yield
+        self._mark(name)
 
     def _accumulated(self, nets, micro_step, micro: int):
         """``micro_step(sl)`` -> (loss, grads, health) on the batch slice
@@ -370,23 +381,22 @@ class TrainStep:
         health_acc = dict.fromkeys(HEALTH_KEYS, 0.0)
         for i, (z, fake_labels) in enumerate(lat["d"]):
             def d_micro(sl, z=z, fake_labels=fake_labels):
-                with torch.no_grad():
+                with self._phase("fakes"), torch.no_grad():
                     fake = gen(z[sl], fake_labels[sl])
-                self._mark("fakes")
-                loss, health = self._d_loss(disc, images[sl], labels[sl],
-                                            fake, fake_labels[sl])
-                grads = torch.autograd.grad(loss, d_params)
-                self._mark("d_fwd_bwd")
+                with self._phase("d_fwd_bwd"):
+                    loss, health = self._d_loss(disc, images[sl], labels[sl],
+                                                fake, fake_labels[sl])
+                    grads = torch.autograd.grad(loss, d_params)
                 return loss, grads, health
 
             loss_d, grads_d, health = self._accumulated((gen, disc), d_micro,
                                                         micro)
-            grads_d = _mean_over_peers(grads_d, self._d_replicated)
-            grads_d, loss_d, health = _mean_over_ranks(grads_d, loss_d,
-                                                       health)
-            _apply(state.opt_d, d_params, grads_d,
-                   self.sched_d(state.step * self.update_ratio + i))
-            self._mark("d_adam")
+            with self._phase("d_adam"):
+                grads_d = _mean_over_peers(grads_d, self._d_replicated)
+                grads_d, loss_d, health = _mean_over_ranks(grads_d, loss_d,
+                                                           health)
+                _apply(state.opt_d, d_params, grads_d,
+                       self.sched_d(state.step * self.update_ratio + i))
             d_loss_acc = d_loss_acc + loss_d
             health_acc = {k: health_acc[k] + health[k] for k in HEALTH_KEYS}
 
@@ -397,41 +407,43 @@ class TrainStep:
                                       fake_labels[sl]))
             return loss, torch.autograd.grad(loss, g_params), {}
 
-        loss_g, grads_g, _ = self._accumulated((gen, disc), g_micro, micro)
-        grads_g = _mean_over_peers(grads_g, self._g_replicated)
-        grads_g, loss_g, _ = _mean_over_ranks(grads_g, loss_g, {})
-        self._mark("g_fwd_bwd")
-        _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
-        self._mark("g_adam")
+        with self._phase("g_fwd_bwd"):
+            loss_g, grads_g, _ = self._accumulated((gen, disc), g_micro,
+                                                   micro)
+            grads_g = _mean_over_peers(grads_g, self._g_replicated)
+            grads_g, loss_g, _ = _mean_over_ranks(grads_g, loss_g, {})
+        with self._phase("g_adam"):
+            _apply(state.opt_g, g_params, grads_g, self.sched_g(state.step))
 
-        if state.ema is not None:
-            # fp32 decay and 1 − decay, as the JAX step computes them
-            decay32 = torch.tensor(self.ema_decay if state.step >=
-                                   self.ema_start else 0.0)
-            decay, rest = float(decay32), float(1.0 - decay32)
-            ema = [state.ema[name] for name, _ in gen.named_parameters()]
-            with torch.no_grad():
-                torch._foreach_mul_(ema, decay)
-                torch._foreach_add_(ema, g_params, alpha=rest)
-        self._mark("ema")
+        with self._phase("ema"):
+            if state.ema is not None:
+                # fp32 decay and 1 − decay, as the JAX step computes them
+                decay32 = torch.tensor(self.ema_decay if state.step >=
+                                       self.ema_start else 0.0)
+                decay, rest = float(decay32), float(1.0 - decay32)
+                ema = [state.ema[name] for name, _ in gen.named_parameters()]
+                with torch.no_grad():
+                    torch._foreach_mul_(ema, decay)
+                    torch._foreach_add_(ema, g_params, alpha=rest)
 
-        ratio = self.update_ratio
-        # per-variable norms of the whole variables
-        g_norms = _whole(torch.stack(torch._foreach_norm(grads_g)),
-                         self._g_sharded, True)
-        d_norms = _whole(torch.stack(torch._foreach_norm(grads_d)),
-                         self._d_sharded, True)
-        metrics = {"G_loss": loss_g, "D_loss": d_loss_acc / ratio,
-                   "G_grad_norm": torch.linalg.vector_norm(g_norms),
-                   "D_grad_norm": torch.linalg.vector_norm(d_norms)}
-        metrics.update({k: v / ratio for k, v in health_acc.items()})
-        if self.summary_var:
-            means = _whole(torch.stack([p.detach().mean() for p in g_params]),
-                           self._g_sharded, False)
-            metrics["G_var_means"] = means[self._g_perm]
-            metrics["G_grad_norms"] = g_norms[self._g_perm]
-            metrics["D_grad_norms"] = d_norms[self._d_perm]
-        self._mark("metrics")
+        with self._phase("metrics"):
+            ratio = self.update_ratio
+            # per-variable norms of the whole variables
+            g_norms = _whole(torch.stack(torch._foreach_norm(grads_g)),
+                             self._g_sharded, True)
+            d_norms = _whole(torch.stack(torch._foreach_norm(grads_d)),
+                             self._d_sharded, True)
+            metrics = {"G_loss": loss_g, "D_loss": d_loss_acc / ratio,
+                       "G_grad_norm": torch.linalg.vector_norm(g_norms),
+                       "D_grad_norm": torch.linalg.vector_norm(d_norms)}
+            metrics.update({k: v / ratio for k, v in health_acc.items()})
+            if self.summary_var:
+                means = _whole(torch.stack([p.detach().mean()
+                                            for p in g_params]),
+                               self._g_sharded, False)
+                metrics["G_var_means"] = means[self._g_perm]
+                metrics["G_grad_norms"] = g_norms[self._g_perm]
+                metrics["D_grad_norms"] = d_norms[self._d_perm]
         state.step += 1
         return metrics
 
@@ -440,15 +452,17 @@ class TrainStep:
         """K steps on uint8 images [K, B, S, S, 3] and labels [K, B];
         ``latents_k`` (one :meth:`latents`-shaped dict per step) replaces
         the seeded draws."""
-        per_step = []
-        for k in range(images_k.shape[0]):
-            lat = (latents_k[k] if latents_k is not None else
-                   self.latents(state.step, images_k.shape[1],
-                                images_k.device))
-            per_step.append(self.one_step(state, images_k[k], labels_k[k],
-                                          lat))
-        return {key: torch.stack([m[key] for m in per_step]).mean(0)
-                for key in per_step[0]}
+        with span("train_step"):
+            per_step = []
+            for k in range(images_k.shape[0]):
+                with span("step", state.step):
+                    lat = (latents_k[k] if latents_k is not None else
+                           self.latents(state.step, images_k.shape[1],
+                                        images_k.device))
+                    per_step.append(self.one_step(state, images_k[k],
+                                                  labels_k[k], lat))
+            return {key: torch.stack([m[key] for m in per_step]).mean(0)
+                    for key in per_step[0]}
 
 
 def build_train_step(config, sched_g, sched_d, gen, disc) -> TrainStep:
@@ -764,17 +778,27 @@ class Trainer:
                            tuple(np.stack(a) for a in zip(*pack)))
                     pack = []
 
+        host = itertools.islice(packed(), skip_calls, None)
+
+        def sent():
+            # the next call's host batch on its way to the device (None
+            # past the epoch's end)
+            item = next(host, None)
+            return (None if item is None else
+                    tuple(self._to_device(a) for a in item))
+
         pending = None
-        for host_batch in packed():
-            if skip_calls > 0:
-                skip_calls -= 1
-                continue
-            ready = pending
-            pending = tuple(self._to_device(a) for a in host_batch)
-            if ready is not None:
-                yield self._gathered(ready)
-        if pending is not None:
-            yield self._gathered(pending)
+        for call in itertools.count():
+            # one span a call, closed before its yield
+            with span("feed"):
+                ready = pending if call else sent()
+                if ready is None:
+                    return
+                pending = sent()
+                batch = self._gathered(ready)
+            yield batch
+            if pending is None:
+                return
 
     # -- loop ------------------------------------------------------------------
     def _install_preemption_handler(self) -> dict:

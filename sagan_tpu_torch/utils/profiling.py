@@ -1,13 +1,49 @@
-"""A profiler window over a training loop, the port of
-``sagan_tpu/utils/profiling.py`` ``TraceWindow``: calls ``[start, stop)``
-traced with ``torch.profiler`` (host activity, and the card's kernels
-when the loop runs on one) into a TensorBoard-readable trace under
-``logdir`` (``torch.profiler.tensorboard_trace_handler``).
+"""The program's spans and a profiler window over a training loop.
+
+:func:`span` marks a layer of the program (the feed, the train step and
+its phases, the nets, spectral norm, attention) as a ``sagan.<name>``
+range in whatever ``torch.profiler`` trace is being taken, on the same
+clock as the kernels it launched; with no profiler running it costs one
+check of torch's own flag.  The profiler is the recorder: this module
+keeps no spans of its own.
+
+:class:`TraceWindow` is the port of ``sagan_tpu/utils/profiling.py``
+``TraceWindow``: calls ``[start, stop)`` traced with ``torch.profiler``
+(host activity, and the card's kernels when the loop runs on one) into a
+TensorBoard-readable trace under ``logdir``
+(``torch.profiler.tensorboard_trace_handler``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# what span() returns while no profiler runs: one shared no-op
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _recorded(name: str, args: tuple):
+    # record_function would take a string argument that no trace keeps;
+    # this form records ``args`` as the range's inputs, which a profiler
+    # with record_shapes=True keeps ("Concrete Inputs")
+    handle = torch.autograd._record_function_with_args_enter(name, *args)
+    try:
+        yield
+    finally:
+        torch.autograd._record_function_with_args_exit(handle)
+
+
+def span(name: str, args: int | None = None):
+    """A context manager: the range ``sagan.<name>`` (with ``args``, an
+    int such as the global step, as its input) in the running
+    ``torch.profiler`` trace; the shared no-op when no profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _recorded("sagan." + name, () if args is None else (args,))
 
 
 class TraceWindow:
@@ -38,8 +74,9 @@ class TraceWindow:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._barrier()   # calls < start are off the trace
+            # record_shapes: a span's args (sagan.step's global step)
             self._prof = torch.profiler.profile(
-                activities=activities,
+                activities=activities, record_shapes=True,
                 on_trace_ready=torch.profiler.tensorboard_trace_handler(
                     self.logdir))
             self._prof.start()

@@ -48,7 +48,7 @@ MODULES = {
     "tools", "tools._study", "tools.bench_attn_bwd256",
     "tools.bench_attn_floor", "tools.bench_attn_floor256",
     "tools.bench_attn_floor512", "tools.kernel_ab", "tools.profiling",
-    "tools.sass_mix", "tools.serve_breakdown", "tools.train_breakdown",
+    "tools.sass_mix", "tools.serve_breakdown",
     "train", "train.checkpoint", "train.fid", "train.inception",
     "train.iscore", "train.optim", "train.trainer",
     "utils", "utils.config", "utils.device", "utils.images",

@@ -59,7 +59,8 @@ def traces(monkeypatch):
 ], ids=["all_lost", "some_lost"])
 def test_a_trace_missing_records_is_taken_again(traces, lost):
     whole = [_event("k_a", 2.0, 20), _event("k_b", 1.0, 20),
-             _event("Optimizer.step#Adam.step", 9.0, 20)]
+             _event("Optimizer.step#Adam.step", 9.0, 20),
+             _event("sagan.attention.bwd", 9.0, 20)]
     fake = traces(lost, whole)
     calls = []
     ms = profiling.kernel_ms_per_call(lambda: calls.append(1), calls=20,

@@ -299,7 +299,9 @@ def test_an_fid_epoch_prints_and_writes_the_proxy_fid_and_is(
 
 def test_profile_dir_traces_calls_10_to_20(tmp_path, data32):
     """42 records at batch 2: 21 calls of one step.  The trace holds the
-    optimizer steps of calls [10, 20): 2 a call (D's and G's Adam)."""
+    optimizer steps of calls [10, 20): 2 a call (D's and G's Adam), and
+    the program's spans: a feed span a call, the call's train_step, its
+    step with the global step as its input."""
     config = resolve_config(load_config_file(_config_file(
         tmp_path, data32, epoch=1, data_size=42, batch_size=2,
         steps_per_call=1,
@@ -314,6 +316,12 @@ def test_profile_dir_traces_calls_10_to_20(tmp_path, data32):
         events = json.load(f)["traceEvents"]
     adam = [e for e in events if e.get("name") == "Optimizer.step#Adam.step"]
     assert len(adam) == 2 * 10
+    named = {n: [e for e in events if e.get("name") == n
+                 and e.get("cat") == "user_annotation"]
+             for n in ("sagan.feed", "sagan.train_step", "sagan.step")}
+    assert {n: len(v) for n, v in named.items()} == dict.fromkeys(named, 10)
+    assert [e["args"]["Concrete Inputs"] for e in named["sagan.step"]] == \
+        [[str(i)] for i in range(10, 20)]
 
 
 def test_summary_histograms_are_the_jax_encoding(tmp_path, data32):
