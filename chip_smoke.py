@@ -57,11 +57,11 @@ the build, and prints neither the kernels line nor the result line):
      --step`` on the first saved step equal to sampling that checkpoint
      loaded directly, a step not saved raising ``KeyError``;
   8. the flash kernels at the church512 512-map site (N=262144, M=65536,
-     d=2, c=8) at the config's B=4 and at B=8 (phase 13's, past the slab
-     budget), bf16 and fp32: the forward K3 (o and lse), the backward
-     kernels K4, K5 and K6 on K3's (o, lse), each on the dtype's engine
-     (bf16: the tensor cores, ``csrc/attention_flash_mma.cu``) and in
-     bf16 also on the CUDA cores (``engine="fma"``), each against its
+     d=2, c=8) at the config's B=4 and at B=8 (phase 13's; past the slab
+     budget in fp32), bf16 and fp32: the forward K3 (o and lse), the
+     backward kernels K4, K5 and K6 on K3's (o, lse), each on the dtype's
+     engine (bf16: the tensor cores, ``csrc/attention_flash_mma.cu``) and
+     in bf16 also on the CUDA cores (``engine="fma"``), each against its
      plain version run in query-row chunks, K6 against K4 + K5, the
      tensor-core K5's dk and dv against K6's bit for bit and two
      tensor-core K4 + K5 pairs bit for bit, and in fp32 each dq against
@@ -93,11 +93,13 @@ the build, and prints neither the kernels line nor the result line):
      tensor-core K6 1 a step, the tensor-core K1 and K2 2 a step, no
      CUDA-core kernel)
      and nonzero gradients of the 512 site's theta/phi/g;
- 13. one church512 training step at B=8, a shape past the route's slab
-     budget, whose G backward takes K4 + K5 (K6's fp32 dq partials would
-     be 1.07 GB, past ``DQ_SLAB_BUDGET``): in bf16 with exact launch
-     counts (the tensor-core K1, K2 and K3 2 each, K4 and K5 1 each, no
-     CUDA-core kernel), then in fp32 (the CUDA-core K1, K2, K3 2 each, K4
+ 13. one church512 training step at B=8: in bf16 its G backward takes
+     the tensor-core K6 (2,048 keys a block: 536.9 MB of dq partials,
+     inside ``DQ_SLAB_BUDGET``), with exact launch counts (the tensor-core
+     K1, K2 and K3 2 each, K6 1, no CUDA-core kernel); then at B=16 in
+     bf16, past the budget (1.07 GB), the tensor-core K4 and K5 1 each in
+     K6's place; then at B=8 in fp32, past the budget at the CUDA-core
+     K6's 1,024 keys a block (1.07 GB: the CUDA-core K1, K2, K3 2 each, K4
      and K5 1 each);
  14. the grouped spectral norm K7 against its plain version on the card,
      over G's and D's whole tables of SN weights of imagenet128_cond and
@@ -165,9 +167,9 @@ the build, and prints neither the kernels line nor the result line):
  23. one church512 step at B = 8 in bf16 with and without ``remat`` from
      the same state: losses, gradient norms, u and BN stats held within
      stated tolerances, launches (under remat K1 4 and K3 3: the stages'
-     attention runs again in the backward; K2 2, K4 and K5 1, as
-     without), device ms and peak memory of each; then the same step
-     with ``grad_accum_steps`` 2, whose micro-batches of 4 take K6;
+     attention runs again in the backward; K2 2, K6 1, as without),
+     device ms and peak memory of each; then the same step with
+     ``grad_accum_steps`` 2, whose micro-batches of 4 take K6 too;
  24. imagenet128_cond with ``use_pallas_sn`` in bf16 at batch 256 with
      ``grad_accum_steps`` 4: the G update's accumulated gradients against
      its four micro-batches' taken one at a time, the finalized BN stats
@@ -284,8 +286,9 @@ from sagan_tpu_torch.ops.attention import (attention, attention_bwd_reference,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference,
-                                           flash_bwd_fused,
+                                           MMA_K6_WARPS, flash_bwd_fused,
                                            fused_keys_per_block, k2_key_blocks,
+                                           k6_warps, mma_key_tiles,
                                            plain_chunk, single_pass)
 from sagan_tpu_torch.ops.attention_study import (VARIANTS, folded_reference,
                                                  study_attention_reference)
@@ -1161,8 +1164,8 @@ def _check_generate_step(config_file: Path, smoke: Path) -> None:
 CHURCH512 = ROOT / "example_configs" / "church512_attn.py"
 # church512's G site, the flash path's (B, N, M, d, c) at the config's B
 FLASH_SITE = (4, 512 * 512, 256 * 256, 2, 8)
-# phase 8's batches there: the config's, whose backward takes K6 (timed),
-# and that of phase 13's step, whose backward takes K4 + K5
+# phase 8's batches there: the config's, and that of phase 13's step,
+# whose backward takes K6 in bf16 and K4 + K5 in fp32
 FLASH_BATCHES = (4, 8)
 # church256 G's 256-map site (bench.py CHURCH256), where phase 8 also
 # times both engines of K3 and K6
@@ -1309,12 +1312,18 @@ def phase_flash_kernels(card: str) -> dict:
         chunk = plain_chunk(b, n, m)
         heads[b] = {}
         site = f"G 512map B={b} N={n} M={m} d={d} c={c}"
-        part = cuda_attention.dq_partial_shape(b, n, m, d, c)
-        print(f"phase 8 K6 dq partials at {site}: "
-              f"{cuda_attention.keys_per_block(d, c)} keys a block, {part} "
-              f"fp32, {4 * math.prod(part) / 1e6:.1f} MB (either engine); "
-              f"route {'K6' if flash_bwd_fused(b, n, m, d, c, 2) else 'K4 + K5'}"
-              f"; plain versions in chunks of {chunk} query rows", flush=True)
+        routes = []
+        for engine, itemsize in (("mma", 2), ("fma", 4)):
+            part = cuda_attention.dq_partial_shape(b, n, m, d, c,
+                                                   engine=engine)
+            fused = flash_bwd_fused(b, n, m, d, c, itemsize)
+            keys = cuda_attention.keys_per_block(d, c, engine=engine)
+            routes.append(f"{engine} {keys} keys a block, {part} fp32, "
+                          f"{4 * math.prod(part) / 1e6:.1f} MB, route "
+                          f"{'K6' if fused else 'K4 + K5'}")
+        print(f"phase 8 K6 dq partials at {site}: " + "; ".join(routes)
+              + f"; plain versions in chunks of {chunk} query rows",
+              flush=True)
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).removeprefix("torch.")
             bf16 = dtype == torch.bfloat16
@@ -1516,11 +1525,27 @@ def _flash_errors(q, k, v, g, dtype, engine=None) -> float:
 FLASH_RAGGED = ((3, 100, 37), (2, 9, 70), (2, 300, 2100))
 
 
+# phase 9's wide grids (B, N, M): 133 blocks or more at every (d, c)
+# (more than the H100's 132 SMs), and a ragged key tail in each of 140 x 2
+# blocks, where the 16-warp K6's last warps get part of a key tile or none
+FLASH_WIDE = ((133, 9, 70), (140, 64, 2100))
+
+
+# (B, M) of phase 9's checks of K2's key blocks: grids on either side of
+# K2's halving (church64 G's 64 map at B = 64, church512's 512 map)
+KEY_BLOCK_GRIDS = ((1, 100), (2, 2100), (2, 16384), (64, 1024), (2, 65536),
+                   (8, 65536), (13, 65536))
+
+
 def phase_flash_all_widths() -> None:
     """Every (dtype, engine, d, c) instance of K3-K6 against the plain
-    versions at ``FLASH_RAGGED``: bf16 on the tensor cores and on the CUDA
-    cores, fp32 on the CUDA cores; and each library's K6 key block against
-    the one the route rule sizes the slab by."""
+    versions at ``FLASH_RAGGED`` and ``FLASH_WIDE``: bf16 on the tensor
+    cores and on the CUDA cores, fp32 on the CUDA cores; each library's
+    K6 key block against the one the route rule sizes the slab by, the
+    tensor-core K6's 16 warps at d <= 16 (8 at d = 32); and at each of
+    ``KEY_BLOCK_GRIDS`` K2's gradient pass's key blocks against
+    ``k2_key_blocks``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for c in cuda_attention.SUPPORTED_C:
         for d in cuda_attention.SUPPORTED_D:
             for engine, itemsize in (("mma", 2), ("fma", 4)):
@@ -1528,9 +1553,18 @@ def phase_flash_all_widths() -> None:
                 want = fused_keys_per_block(d, c, itemsize)
                 require(got == want, f"K6 ({engine}) at d={d} c={c}: "
                         f"{got} keys a block, the route counts {want}")
+            warps = MMA_K6_WARPS if d <= 16 else 8
+            require(k6_warps(d) == warps and cuda_attention.keys_per_block(
+                d, c) == warps * 16 * mma_key_tiles(d, c),
+                f"K6 (mma) at d={d} c={c}: not {warps} warps a block")
+            for b, m in KEY_BLOCK_GRIDS:
+                got = cuda_attention.bwd_mma_key_blocks(b, m, d, c)
+                want = k2_key_blocks(b, m, d, c, sms)
+                require(got == want, f"K2 at B={b} M={m} d={d} c={c}: {got} "
+                        f"key blocks, the rule counts {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     worst, count = {}, 0
-    for b, n, m in FLASH_RAGGED:
+    for b, n, m in FLASH_RAGGED + FLASH_WIDE:
         for dtype, engine in ((torch.bfloat16, "mma"),
                               (torch.bfloat16, "fma"),
                               (torch.float32, "fma")):
@@ -1547,10 +1581,14 @@ def phase_flash_all_widths() -> None:
                             f"of tolerance")
     print(f"phase 9 kernels attention_flash_fwd/dq/dkv/dqkv, all {count} "
           f"(dtype, engine, d, c, shape) instances at (B, N, M) in "
-          f"{FLASH_RAGGED}: worst error as a share of its tolerance "
+          f"{FLASH_RAGGED + FLASH_WIDE}: worst error as a share of its "
+          "tolerance "
           + ", ".join(f"{key} {x:.3f}" for key, x in worst.items())
           + "; the tensor-core K5's dk, dv equal to K6's bit for bit; every "
-            "K6 key block as the route rule counts it", flush=True)
+            "K6 key block as the route rule counts it (the tensor-core K6 "
+            "16 warps at d <= 16, 8 at d = 32) and every K2 key block count "
+            f"as k2_key_blocks does, at {len(KEY_BLOCK_GRIDS)} grids",
+          flush=True)
 
 
 # the launch counters by kernel: K1-K6 on the CUDA cores ("K1" ... "K6")
@@ -1844,14 +1882,20 @@ def phase_train512(card: str) -> dict:
 
 def phase_step512_b8(card: str) -> dict:
     """One church512 training step at B=8 (the config's learning rates):
-    K6's dq partials would be 1.07 GB, past ``DQ_SLAB_BUDGET``, so the G
-    backward takes K4 + K5: in bf16 the tensor-core ones (after one delta
-    pass), then in fp32 the CUDA-core ones.  Returns {dtype: the launches
-    by kernel}."""
+    in bf16 the tensor-core K6's dq partials (2,048 keys a block) are
+    536.9 MB, inside ``DQ_SLAB_BUDGET``, so the G backward takes K6; at
+    B=16 in bf16 they would be 1.07 GB, past it, and at B=8 in fp32 the
+    CUDA-core K6's (1,024 keys a block) too, so those take K4 + K5 (the
+    tensor-core ones after one delta pass, then the CUDA-core ones).
+    Returns {"bfloat16" (B=8), "bfloat16_b16", "float32" (B=8): the
+    launches by kernel}."""
     out = {}
-    for dtype in ("bfloat16", "float32"):
+    for key, dtype, batch, backward in (
+            ("bfloat16", "bfloat16", 8, {"K6mma": 1}),
+            ("bfloat16_b16", "bfloat16", 16, {"K4mma": 1, "K5mma": 1}),
+            ("float32", "float32", 8, {"K4": 1, "K5": 1})):
         config = church512_config(dtype)
-        config.update(batch_size=8, global_batch_size=8)
+        config.update(batch_size=batch, global_batch_size=batch)
         gen, disc = _church512_nets(config, SEED + 40)
         gen.to("cuda").train()
         disc.to("cuda").train()
@@ -1860,10 +1904,11 @@ def phase_step512_b8(card: str) -> dict:
         state = TrainState(gen, disc, opt_g, opt_d, 0, None)
         step = build_train_step(config, sched_g, sched_d, gen, disc)
         images = torch.randint(
-            0, 256, (1, 8, 512, 512, 3), dtype=torch.uint8, device="cuda",
+            0, 256, (1, batch, 512, 512, 3), dtype=torch.uint8,
+            device="cuda",
             generator=torch.Generator("cuda").manual_seed(SEED))
-        labels = torch.zeros(1, 8, dtype=torch.int32, device="cuda")
-        _zero_counts()               # the B=8 step starts here
+        labels = torch.zeros(1, batch, dtype=torch.int32, device="cuda")
+        _zero_counts()               # the step starts here
         t0 = time.perf_counter()
         metrics = step(state, images, labels)
         torch.cuda.synchronize()
@@ -1872,19 +1917,19 @@ def phase_step512_b8(card: str) -> dict:
         norms = _site_norms(step.g_names, metrics["G_grad_norms"].cpu(), 512)
         losses = {k: float(metrics[k]) for k in ("G_loss", "D_loss")}
         mark = "mma" if dtype == "bfloat16" else ""
-        want = _launches(**{"K1" + mark: 2, "K2" + mark: 2, "K3" + mark: 2,
-                            "K4" + mark: 1, "K5" + mark: 1})
-        print(f"phase 13 church512 train step B=8 {dtype}: losses {losses}, "
-              f"{seconds:.2f} s (first step, host clock); launches {counts} "
-              f"(expected {want}); 512-site gradient norms {norms} on {card}",
-              flush=True)
+        want = _launches(**{"K1" + mark: 2, "K2" + mark: 2, "K3" + mark: 2},
+                         **backward)
+        print(f"phase 13 church512 train step B={batch} {dtype}: losses "
+              f"{losses}, {seconds:.2f} s (first step, host clock); "
+              f"launches {counts} (expected {want}); 512-site gradient "
+              f"norms {norms} on {card}", flush=True)
         require(all(math.isfinite(x) for x in losses.values()),
-                f"B=8 losses are not finite: {losses}")
-        require(counts == want, f"B=8 step launches {counts}, expected "
-                                f"{want}")
+                f"B={batch} losses are not finite: {losses}")
+        require(counts == want, f"B={batch} {dtype} step launches {counts}, "
+                                f"expected {want}")
         require(len(norms) == 3 and min(norms.values()) > 0,
                 f"512-site attention weights without a gradient: {norms}")
-        out[dtype] = counts
+        out[key] = counts
         del gen, disc, state, step, opt_g, opt_d
     return out
 
@@ -2756,7 +2801,7 @@ def phase_study_kernels(card: str) -> dict:
                 max(share, k6_points.get(point[0], (0.0,))[0]), keys)
             require(share <= 1, f"K6 (mma) {point[0]} at B={b} N={n} M={m}: "
                                 f"{share:.3f} of its tolerance")
-            require(keys in (512, 1024, 2048)
+            require(keys in (512, 1024, 2048, 4096)
                     and part == (b, -(-m // keys), n, 2),
                     f"K6 (mma) {point[0]}: {keys} keys a block, partials "
                     f"{part}")
@@ -3111,15 +3156,14 @@ def phase_remat512(card: str) -> None:
               f"on {card}", flush=True)
         require(loss <= REMAT_RTOL and norms <= REMAT_RTOL
                 and buf <= REMAT_ATOL, f"remat {remat} disagrees")
-    plain = _launches(K1mma=2, K2mma=2, K3mma=2, K4mma=1, K5mma=1)
+    plain = _launches(K1mma=2, K2mma=2, K3mma=2, K6mma=1)
     require(runs[0][2] == runs[2][2] == plain
-            and runs[1][2] == _launches(K1mma=4, K2mma=2, K3mma=3, K4mma=1,
-                                        K5mma=1),
+            and runs[1][2] == _launches(K1mma=4, K2mma=2, K3mma=3, K6mma=1),
             f"launches without remat {runs[0][2]}, with {runs[1][2]}")
 
     # grad_accum_steps 2: micro-batches of 4, whose fp32 dq partials fit
-    # the slab budget, so each micro backward of G takes K6, not K4 + K5
-    # (the route goes by the call's shape)
+    # the slab budget as the whole batch's do, so each micro backward of G
+    # takes K6 too (the route goes by the call's shape)
     state, step = _step_state(dict(config, grad_accum_steps=2), gen0, disc0,
                               False)
     _zero_counts()
@@ -4705,9 +4749,10 @@ def main(argv=None) -> int:
     # (phase 6), the tensor-core K3 and K6 on the church512 one (phase 12;
     # phase 11 checks church512 serving's), the CUDA-core K3 on the fp32
     # church512 G forward (phase 11) and the CUDA-core K6 on the fp32
-    # FlashAttention run (phase 10), K4 and K5 on the B=8 church512 steps
-    # (phase 13: the tensor-core ones in bf16, the CUDA-core ones in fp32;
-    # their times at B=8, the main path's batch), K7 and its backward on the imagenet128_cond training
+    # FlashAttention run (phase 10), K4 and K5 on phase 13's church512
+    # steps past the slab budget (the tensor-core ones at B=16 in bf16, the
+    # CUDA-core ones at B=8 in fp32; their times at B=8), K7 and its
+    # backward on the imagenet128_cond training
     # entry point's run (phase 16; phase 17 checks its serving path's own
     # count), the study
     # kernels on the four studies' runs (phase 21)
@@ -4739,7 +4784,7 @@ def main(argv=None) -> int:
                {"name": "attention_flash_dq_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "444",
-                "launches": step_b8["bfloat16"]["K4mma"], **b8["dq"]},
+                "launches": step_b8["bfloat16_b16"]["K4mma"], **b8["dq"]},
                {"name": "attention_flash_dq", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
                 "replaces": ref + "444",
@@ -4747,7 +4792,8 @@ def main(argv=None) -> int:
                {"name": "attention_flash_dkv_mma", "route": "cuda",
                 "source": src + "attention_flash_mma.cu",
                 "replaces": ref + "515",
-                "launches": step_b8["bfloat16"]["K5mma"], **b8["dkv"]},
+                "launches": step_b8["bfloat16_b16"]["K5mma"],
+                **b8["dkv"]},
                {"name": "attention_flash_dkv", "route": "cuda",
                 "source": src + "attention_flash_bwd.cu",
                 "replaces": ref + "515",

@@ -30,7 +30,7 @@
 //  * _flash_dq_kernel (K4, launched by _flash_bwd, :444) and
 //    _flash_dkv_kernel (K5, :515), the two-kernel backward that the route
 //    takes where K6's dq partials would pass the slab budget (church512's
-//    512 map at B >= 7): attention_flash_dq_mma_kernel and
+//    512 map at B >= 13): attention_flash_dq_mma_kernel and
 //    attention_flash_dkv_mma_kernel here, after one delta pass
 //    (attention_flash_dq_delta_kernel) that both read. The same p, delta
 //    and roundings as K6: dl in bf16 (k's type) before the dQ and dK
@@ -113,10 +113,11 @@
 //  * attention_flash_delta_kernel first writes, for every query row,
 //    (-lse log2e, delta = g . o) fp32, rows padded to the query tile with
 //    (-inf, 0) so that a padded row's p is exactly 0;
-//  * a block of 8 warps owns a key block of 8 x KT m16 key tiles (KT from
+//  * a block of W warps owns a key block of W x KT m16 key tiles (KT from
 //    the register budget of the dK and dV accumulators: 8 at d = 2,
-//    c = 8, so 1,024 keys), staged once in shared memory; dK and dV
-//    accumulate in fp32 C fragments;
+//    c = 8), staged once in shared memory; dK and dV accumulate in fp32 C
+//    fragments. W is 16 (2,048 keys at d = 2, c = 8) at d <= 16, 8 at
+//    d = 32: k6_warps, below;
 //  * the block walks the query rows in 64-row tiles (Q, dO and the
 //    (-lse log2e, delta) pairs) staged by cp.async in a ring of 3;
 //  * the query tile, the warps, the key tiles a warp and the ring are
@@ -918,7 +919,8 @@ __global__ void __launch_bounds__(32 * kStatsWarps)
 
 // ---- K6 and K2's gradient pass: the key-major backward ----------------------
 
-// the shipped key-major pass: K6's, K2's gradient pass's and K5's
+// the shipped key-major pass: K2's gradient pass's and K5's (K6's block:
+// k6_warps)
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdQTile = 64;  // query rows a stage
@@ -930,8 +932,9 @@ constexpr int kDeltaThreads = 256;
 // k6_mma: the TPU study's (BN, BM) sweep of its fused backward):
 // -DSAGAN_K6_Q_TILE=128 walks the query rows in tiles of that many (BN;
 // else 64; 32 builds, but spills at 128 registers a thread, and the
-// studies leave it out), -DSAGAN_K6_WARPS=4 or 16 makes K6's block that
-// many warps (else 8), -DSAGAN_K6_KEY_TILES=4 or 16 gives each warp that
+// studies leave it out), -DSAGAN_K6_WARPS=4 or 8 makes K6's block that
+// many warps at every width (else k6_warps' 16 or 8, below),
+// -DSAGAN_K6_KEY_TILES=4 or 16 gives each warp that
 // many m16 key tiles at d = 2, c = 8 (else 8; other widths scale their
 // count alike, down to 1), so that a block owns warps x 16 x key tiles
 // keys (BM), and -DSAGAN_K6_STAGES=2 or 4 makes the cp.async ring of
@@ -942,11 +945,6 @@ constexpr int kDeltaThreads = 256;
 constexpr int kK6QTile = SAGAN_K6_Q_TILE;
 #else
 constexpr int kK6QTile = kBwdQTile;
-#endif
-#ifdef SAGAN_K6_WARPS
-constexpr int kK6Warps = SAGAN_K6_WARPS;
-#else
-constexpr int kK6Warps = kBwdWarps;
 #endif
 #ifdef SAGAN_K6_KEY_TILES
 constexpr int kK6KeyTiles = SAGAN_K6_KEY_TILES;
@@ -960,7 +958,10 @@ constexpr int kK6Stages = kBwdStages;
 #endif
 static_assert(kK6QTile % 16 == 0 && kK6QTile > 0,
               "SAGAN_K6_Q_TILE: a multiple of 16 query rows");
-static_assert(kK6Warps >= 1 && kK6Warps <= 32, "SAGAN_K6_WARPS: 1 to 32");
+#ifdef SAGAN_K6_WARPS
+static_assert(SAGAN_K6_WARPS >= 1 && SAGAN_K6_WARPS <= 32,
+              "SAGAN_K6_WARPS: 1 to 32");
+#endif
 static_assert(kK6KeyTiles >= 1, "SAGAN_K6_KEY_TILES: at least 1");
 static_assert(kK6Stages >= 2, "SAGAN_K6_STAGES: a ring of at least 2");
 
@@ -980,9 +981,29 @@ __host__ __device__ constexpr int k6_key_tiles() {
              ? bwd_key_tiles<D, C>() * kK6KeyTiles / 8
              : 1;
 }
+// K6's warps a block at head width D. The shipped block at d <= 16: 16
+// warps, 512 threads, __launch_bounds__(512), so at most 128 registers a
+// thread (128 at d = 2, c = 8, no spill; the 8-warp block spills 4 bytes
+// there), one block an SM, 2,048 keys a block at d = 2, c = 8 and 81,408
+// bytes of shared memory. It takes the SM that two 8-warp blocks would
+// share and writes half their fp32 dq partials. At church512's 512 map
+// (N 262,144, M 65,536; NVIDIA H100 80GB HBM3, 700 W): B = 4 29.750 ms
+// against the 8-warp block's 31.130, B = 8 59.364 against 61.591, with
+// 536.9 MB of partials against 1,073.7 (K4 + K5: 50.895, 101.265). At
+// d = 32 the 16-warp block's dq sums (16 x 64 rows x 32 floats) take its
+// shared memory past the SM's 227 KB at c >= 32, so d = 32 keeps 8 warps.
+// A SAGAN_K6_WARPS build: that many at every width.
+template <int D>
+__host__ __device__ constexpr int k6_warps() {
+#ifdef SAGAN_K6_WARPS
+  return SAGAN_K6_WARPS;
+#else
+  return D <= 16 ? 16 : kBwdWarps;
+#endif
+}
 template <int D, int C>
 __host__ __device__ constexpr int k6_keys_per_block() {
-  return kK6Warps * 16 * k6_key_tiles<D, C>();
+  return k6_warps<D>() * 16 * k6_key_tiles<D, C>();
 }
 // K5's: the shipped count, times kK5KtScale
 template <int D, int C>
@@ -1008,8 +1029,8 @@ struct BwdSmem {
 };
 // K6's
 template <int D, int C>
-using K6Smem = BwdSmem<D, C, k6_key_tiles<D, C>(), true, kK6Warps, kK6QTile,
-                       kK6Stages>;
+using K6Smem = BwdSmem<D, C, k6_key_tiles<D, C>(), true, k6_warps<D>(),
+                       kK6QTile, kK6Stages>;
 
 // (-lse log2e, delta = g . o) fp32 of every query row, rows n..npad-1
 // (the last query tile's padding) (-inf, 0)
@@ -1336,7 +1357,7 @@ __device__ __forceinline__ void dqkv_mma_body(const bf16* __restrict__ q,
 }
 
 template <int D, int C>
-__global__ void __launch_bounds__(32 * kK6Warps)
+__global__ void __launch_bounds__(32 * k6_warps<D>())
     attention_flash_dqkv_mma_kernel(const bf16* __restrict__ q,
                                     const bf16* __restrict__ k,
                                     const bf16* __restrict__ v,
@@ -1346,7 +1367,7 @@ __global__ void __launch_bounds__(32 * kK6Warps)
                                     bf16* __restrict__ dv,
                                     float* __restrict__ dq_part, int n,
                                     int m, int npad) {
-  dqkv_mma_body<D, C, k6_key_tiles<D, C>(), true, kK6Warps, kK6QTile,
+  dqkv_mma_body<D, C, k6_key_tiles<D, C>(), true, k6_warps<D>(), kK6QTile,
                 kK6Stages>(q, k, v, g, ld, dk, dv, dq_part, n, m, npad);
 }
 
@@ -1560,6 +1581,7 @@ template <int D>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   constexpr int C = SAGAN_ATTN_C;
   using S = K6Smem<D, C>;
+  static_assert(S::kBytes <= 227 * 1024, "K6's shared memory passes the SM's");
   const int npad = k6_delta_rows(a.n);
   attention_flash_delta_kernel<C>
       <<<dim3((npad + kDeltaThreads - 1) / kDeltaThreads, a.b),
@@ -1571,11 +1593,12 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t st) {
   auto kernel = attention_flash_dqkv_mma_kernel<D, C>;
   static const cudaError_t allowed = allow_smem(kernel, S::kBytes);
   if (allowed != cudaSuccess) return allowed;
-  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), 32 * kK6Warps, S::kBytes,
-           st>>>(static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-                 static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
-                 a.ld, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-                 a.dq_part, a.n, a.m, npad);
+  kernel<<<dim3((a.m + S::KB - 1) / S::KB, a.b), 32 * k6_warps<D>(),
+           S::kBytes, st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g), a.ld,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.dq_part, a.n,
+      a.m, npad);
   return cudaGetLastError();
 }
 
@@ -1784,8 +1807,8 @@ extern "C" int sagan_attention_flash_dkv_mma(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// Keys per block of K6 at head width d, as this build's K6 defines set
-// them (0 for an unsupported d).
+// Keys per block of K6 at head width d, as this build's K6 defines and
+// k6_warps set them (0 for an unsupported d).
 extern "C" int sagan_attention_flash_mma_keys_per_block(int d) {
   constexpr int C = SAGAN_ATTN_C;
   switch (d) {

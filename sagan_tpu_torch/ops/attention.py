@@ -178,17 +178,22 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 VMEM_BUDGET = 12 * 1024 * 1024              # pallas_attention.py:81
 # bytes of K6's fp32 dq partials a backward may write: a memory cap on
 # the call's scratch, not a speed rule (in bf16 K6 is 1.7x faster than
-# the tensor-core K4 + K5 at church512's map, B = 4, NVIDIA H100 80GB HBM3
-# at 700 W, PERF.md §6).  At 768 MiB the port takes K6 wherever the JAX package takes its
-# fused backward at a model shape with B <= 4 (church512's 512 map at
-# B = 4: 537 MB) and K4 + K5 where it does not (the 512 map without
-# attn_downsample at B = 2: 1.07 GB), and church512 at B = 8 (1.07 GB)
-# takes K4 + K5
+# the tensor-core K4 + K5 at church512's map, B = 4 and 8, NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md §6).  At 768 MiB the port takes K6 wherever
+# the JAX package takes its fused backward at a model shape with B <= 4,
+# and K4 + K5 at most shapes where it does not; the bf16 K6's 2,048-key
+# block halves its partials, so the 512 map without attn_downsample takes
+# K6 at B = 2 and 3 (537 and 805 MB) where the JAX package takes its
+# two-kernel backward.  church512's 512 map writes 536.9 MB at B = 8 and
+# takes K6 in bf16 up to B = 12 (805 MB), K4 + K5 from B = 13; in fp32
+# (1,024 keys a block) K6 up to B = 6
 DQ_SLAB_BUDGET = 768 * 1024 * 1024
-# warps a block of the bf16 K6 (csrc/attention_flash_mma.cu kBwdWarps)
-# and threads a block of the fp32 K6 (csrc/attention_flash_bwd.cu
-# kThreads)
+# warps a block of the bf16 K2's gradient pass and K5
+# (csrc/attention_flash_mma.cu kBwdWarps) and of the bf16 K6 at d <= 16
+# (k6_warps), and threads a block of the fp32 K6
+# (csrc/attention_flash_bwd.cu kThreads)
 MMA_BWD_WARPS = 8
+MMA_K6_WARPS = 16
 FMA_BWD_THREADS = 256
 
 
@@ -208,17 +213,32 @@ def single_pass(m: int, d: int, c: int) -> bool:
             <= VMEM_BUDGET)
 
 
+def mma_key_tiles(d: int, c: int) -> int:
+    """m16 key tiles a warp of the bf16 key-major pass owns (K6, K2's
+    gradient pass; ``attention_flash_mma.cu`` bwd_key_tiles): as many (8,
+    4, 2 or 1) as keep a lane's dK and dV accumulators, 4 floats an n8
+    tile of d and of c, within 64 registers."""
+    acc = 4 * (-(-d // 8) + c // 8)
+    return 8 if acc <= 8 else 4 if acc <= 16 else 2 if acc <= 32 else 1
+
+
+def k6_warps(d: int) -> int:
+    """Warps a block of the bf16 K6 at head width d
+    (``attention_flash_mma.cu`` k6_warps): 16 at d <= 16, where one block
+    takes the SM two 8-warp blocks would share and writes half their dq
+    partials; 8 at d = 32, where 16 warps' shared memory would pass the
+    SM's."""
+    return MMA_K6_WARPS if d <= 16 else MMA_BWD_WARPS
+
+
 def fused_keys_per_block(d: int, c: int, itemsize: int) -> int:
     """Keys a block of K6 owns, for each of which it writes one fp32 dq
-    partial [N, d].  bf16 (``attention_flash_mma.cu``): 8 warps of KT
-    16-key tiles, KT as many (8, 4, 2 or 1) as keep a lane's dK and dV
-    accumulators, 4 floats an n8 tile of d and of c, within 64 registers.
-    fp32 (``attention_flash_bwd.cu``): 256 threads of 4, 2 or 1 keys by
+    partial [N, d].  bf16 (``attention_flash_mma.cu``): :func:`k6_warps`
+    warps of :func:`mma_key_tiles` 16-key tiles.  fp32
+    (``attention_flash_bwd.cu``): 256 threads of 4, 2 or 1 keys by
     d + c."""
     if itemsize == 2:
-        acc = 4 * (-(-d // 8) + c // 8)
-        tiles = 8 if acc <= 8 else 4 if acc <= 16 else 2 if acc <= 32 else 1
-        return MMA_BWD_WARPS * 16 * tiles
+        return k6_warps(d) * 16 * mma_key_tiles(d, c)
     return FMA_BWD_THREADS * (4 if d + c <= 10 else 2 if d + c <= 20 else 1)
 
 
@@ -232,12 +252,12 @@ K2_FILL = 1
 def k2_key_blocks(b: int, m: int, d: int, c: int, sms: int,
                   fill: int = K2_FILL) -> int:
     """Key blocks of the bf16 K2's gradient pass on a card of ``sms`` SMs,
-    each of which writes one fp32 dq partial [N, d]: K6's 8 warps of KT
-    16-key tiles, KT halved (down to 1) while B x blocks < ``fill`` x
-    ``sms`` (``fill`` 0: K6's key block).  The Python copy of the
-    library's rule (``k2_key_tiles``), which chip_smoke holds against
-    it."""
-    tiles = fused_keys_per_block(d, c, 2) // (MMA_BWD_WARPS * 16)
+    each of which writes one fp32 dq partial [N, d]: 8 warps of KT 16-key
+    tiles, KT from :func:`mma_key_tiles` and halved (down to 1) while
+    B x blocks < ``fill`` x ``sms`` (``fill`` 0: K6's 8-warp key block).
+    The Python copy of the library's rule (``k2_key_tiles``), which
+    chip_smoke holds against it."""
+    tiles = mma_key_tiles(d, c)
     while fill > 0 and tiles > 1 and \
             b * -(-m // (MMA_BWD_WARPS * 16 * tiles)) < fill * sms:
         tiles //= 2

@@ -119,18 +119,20 @@ K45_MMA_POINTS = tuple(K45_MMA_DEFINES)
 # the tensor-core K6 (csrc/attention_flash_mma.cu) at other (query tile,
 # key block) points, the port of the TPU study's (BN, BM) sweep of its
 # fused backward, each its own library; the first is the shipped kernel:
-# 8 warps of 8 m16 key tiles (1,024 keys a block at d = 2, c = 8), 64
-# query rows a stage, a cp.async ring of 3.  A point flips one of them:
-# 2,048 or 512 keys a block through the warps (16, 4) or through the key
-# tiles a warp (16, 4), 128 query rows a stage, a ring of 2 or 4.  The key
-# block also sets the size of the fp32 dq partials.  -DSAGAN_K6_Q_TILE=32
-# is left out: ptxas spills it at 128 registers a thread (PERF.md §6)
+# 16 warps of 8 m16 key tiles (2,048 keys a block at d = 2, c = 8), 64
+# query rows a stage, a cp.async ring of 3.  A point flips one of them,
+# its label giving its keys a block at d = 2, c = 8: 1,024 or 512 keys
+# through the warps (8, the block K6 shipped with before 16, or 4),
+# 4,096 or 1,024 through the key tiles a warp (16, 4), 128 query rows a
+# stage, a ring of 2 or 4.  The key block also sets
+# the size of the fp32 dq partials.  -DSAGAN_K6_Q_TILE=32 is left out:
+# ptxas spills it at 128 registers a thread (PERF.md §6)
 K6_MMA_DEFINES = {
     ("shipped",): (),
-    ("keys_2048_warps16",): ("-DSAGAN_K6_WARPS=16",),
-    ("keys_2048_kt16",): ("-DSAGAN_K6_KEY_TILES=16",),
+    ("keys_1024_warps8",): ("-DSAGAN_K6_WARPS=8",),
+    ("keys_4096_kt16",): ("-DSAGAN_K6_KEY_TILES=16",),
     ("keys_512_warps4",): ("-DSAGAN_K6_WARPS=4",),
-    ("keys_512_kt4",): ("-DSAGAN_K6_KEY_TILES=4",),
+    ("keys_1024_kt4",): ("-DSAGAN_K6_KEY_TILES=4",),
     ("q_tile_128",): ("-DSAGAN_K6_Q_TILE=128",),
     ("ring_2",): ("-DSAGAN_K6_STAGES=2",),
     ("ring_4",): ("-DSAGAN_K6_STAGES=4",),

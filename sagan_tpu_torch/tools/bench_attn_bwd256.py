@@ -20,12 +20,13 @@ the shipped K3's (o, lse), the tensor-core K3 in bf16:
             its dq, dk, dv max|Δ| against K4 + K5 at the shipped points,
             and the size of its fp32 dq partials
   k6_mma    the tensor-core K6 at each (query tile, key block) point
-            (``K6_MMA_POINTS``, builds of the shipped K6: 2,048 or 512
-            keys a block through the warps or the key tiles a warp, 128
-            query rows a stage, a ring of 2 or 4), the TPU study's
-            fused (BN, BM) sweep: its ms, the shape and size of its fp32
-            dq partials (its own library's key block) and its dq, dk, dv
-            max|Δ| against the CUDA-core K4 + K5 at the shipped points
+            (``K6_MMA_POINTS``, builds of the shipped K6: 1,024 or 512
+            keys a block through the warps, 4,096 or 1,024 through the
+            key tiles a warp, 128 query rows a stage, a ring of 2 or 4),
+            the TPU study's fused (BN, BM) sweep: its ms, the shape and
+            size of its fp32 dq partials (its own library's key block)
+            and its dq, dk, dv max|Δ| against the CUDA-core K4 + K5 at
+            the shipped points
             within ``BWD_TOL`` (it rounds dl and p to bf16 before the
             products, as the TPU kernel and the plain version do; K4 and
             K5 keep them fp32)

@@ -40,8 +40,9 @@ bf16); their tile sweeps time the first, CUDA-core design
   slab        the shipped K6's launch alone against K6 with the sum of its
               partials (``part.sum(dim=1)``)
   two_kernel  K4 + K5 on both engines against the shipped K6 at B = 4
-  past_budget the map at B = 8, church512's step past ``DQ_SLAB_BUDGET``
-              (the route takes K4 + K5 there): the shipped tensor-core
+  past_budget the map at B = 8, church512's step (past
+              ``DQ_SLAB_BUDGET`` at 1,024 keys a block, inside it at the
+              shipped K6's 2,048): the shipped tensor-core
               K4 + K5, then K6 at each ``k6_mma`` point of the run, each
               held against the CUDA-core K4 + K5 within ``BWD_TOL``, with
               its partials' size and whether it fits the budget
@@ -71,7 +72,7 @@ SECTIONS = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "k45_mma",
 HELD = ("k3_mma", "k3_tiles", "floors", "k6_mma", "k6_tiles", "k45_mma",
         "past_budget")
 TIMING = (5, 3, 1)
-# church512's batch past the slab budget (its B = 8 step)
+# church512's B = 8 step, past the slab budget at 1,024 keys a block
 PAST_BUDGET_BATCH = 8
 
 

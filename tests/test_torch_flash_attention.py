@@ -47,13 +47,15 @@ from sagan_tpu_torch.nn.attention import SelfAttention
 from sagan_tpu_torch.ops import attention as attention_ops
 from sagan_tpu_torch.ops import cuda_attention
 from sagan_tpu_torch.ops.attention import (DQ_SLAB_BUDGET, K2_FILL,
+                                           MMA_BWD_WARPS, MMA_K6_WARPS,
                                            PLAIN_KEY_BLOCK, attention,
                                            attention_flash_bwd_reference,
                                            attention_flash_reference,
                                            attention_reference, dq_slab_bytes,
                                            flash_bwd_fused,
                                            fused_keys_per_block,
-                                           k2_key_blocks, plain_chunk,
+                                           k2_key_blocks, k6_warps,
+                                           mma_key_tiles, plain_chunk,
                                            single_pass)
 from sagan_tpu_torch.tools.profiling import attention_kernels
 from sagan_tpu_torch.utils.config import resolve_config
@@ -219,15 +221,25 @@ def _model_sites():
     return sorted(sites)
 
 
+# the model shapes with B <= 4 where the port's route is not the JAX
+# dispatch's: the 512 map without attn_downsample in bf16 at B = 2 and 3,
+# where the bf16 K6's 2,048-key block writes 536.9 and 805.3 MB of
+# partials, inside DQ_SLAB_BUDGET, and the JAX package's fused backward
+# (d padded to 8 sublanes) would pass DQ_SLAB_LIMIT
+ROUTES_APART = {(2, 512 * 512, 512 * 512, 2, 8, 2),
+                (3, 512 * 512, 512 * 512, 2, 8, 2)}
+
+
 def test_routing_matches_jax_dispatch_at_every_model_shape():
     """The JAX dispatch's route at every model shape with B <= 4 whose
     widths the kernels take (the port's fused-backward rule is its own:
-    it means to agree there); past B = 4 the port's rule is the slab
-    budget alone."""
+    it means to agree there), except at ``ROUTES_APART``, where the port
+    takes K6 within its budget and the JAX package its two-kernel
+    backward; past B = 4 the port's rule is the slab budget alone."""
     sites = _model_sites()
     assert (512 * 512, 256 * 256, 2, 8) in sites      # church512's G site
     assert (64 * 64, 32 * 32, 8, 32) in sites         # and its D site
-    routes, compared = set(), 0
+    routes, compared, apart = set(), 0, set()
     for n, m, d, c in sites:
         taken = (d in cuda_attention.SUPPORTED_D
                  and c in cuda_attention.SUPPORTED_C)
@@ -237,13 +249,21 @@ def test_routing_matches_jax_dispatch_at_every_model_shape():
                 routes.add(got)
                 if b <= 4 and taken:
                     want = _jax_route(b, n, m, d, c, itemsize)
-                    assert got == want, (b, n, m, d, c, itemsize, want)
+                    if (b, n, m, d, c, itemsize) in ROUTES_APART:
+                        assert (got, want) == ("flash_fused",
+                                               "flash_two_kernel")
+                        assert pa.DQ_SLAB_LIMIT \
+                            < b * (m // 2048) * 8 * n * 4
+                        apart.add((b, n, m, d, c, itemsize))
+                    else:
+                        assert got == want, (b, n, m, d, c, itemsize, want)
                     compared += 1
                 elif got != "single":
                     fits = dq_slab_bytes(b, n, m, d, c, itemsize) \
                         <= DQ_SLAB_BUDGET
                     assert got == ("flash_fused" if fits
                                    else "flash_two_kernel")
+    assert apart == ROUTES_APART
     assert compared > 100
     assert routes == {"single", "flash_fused", "flash_two_kernel"}
 
@@ -348,47 +368,63 @@ def test_two_kernel_backward_launches_delta_k4_and_k5(dtype, monkeypatch):
 
 
 def test_church512_takes_k6_at_its_batch_and_k4_k5_past_it():
+    """In bf16 K6 up to B = 12 at church512's 512 map (2,048 keys a block:
+    805 MB, the budget's edge), K4 + K5 from B = 13; in fp32 (1,024 keys)
+    K6 up to B = 6, K4 + K5 from B = 7."""
     n, m, d, c = 512 * 512, 256 * 256, 2, 8
     assert not single_pass(m, d, c) and single_pass(32 * 32, 8, 32)
     assert flash_bwd_fused(4, n, m, d, c, 2)
     assert flash_bwd_fused(4, n, m, d, c, 4)
-    assert flash_bwd_fused(6, n, m, d, c, 2)      # 805 MB: at the budget
-    assert not flash_bwd_fused(7, n, m, d, c, 2)
-    assert not flash_bwd_fused(8, n, m, d, c, 2)
+    assert flash_bwd_fused(6, n, m, d, c, 2)
+    assert flash_bwd_fused(6, n, m, d, c, 4)  # 805 MB: the edge
+    assert not flash_bwd_fused(7, n, m, d, c, 4)
+    assert flash_bwd_fused(8, n, m, d, c, 2)
+    assert flash_bwd_fused(12, n, m, d, c, 2)  # 805 MB: the edge
+    assert not flash_bwd_fused(13, n, m, d, c, 2)
     assert not flash_bwd_fused(8, n, m, d, c, 4)
 
 
 @pytest.mark.parametrize("b,n,m,itemsize,nbytes,fused", [
-    (4, 512 * 512, 256 * 256, 2, 536870912, True),    # church512, B = 4
+    (4, 512 * 512, 256 * 256, 2, 268435456, True),    # church512, B = 4
     (4, 512 * 512, 256 * 256, 4, 536870912, True),
-    (8, 512 * 512, 256 * 256, 2, 1073741824, False),  # its B = 8 step
-    (16, 256 * 256, 128 * 128, 2, 134217728, True),   # church256, B = 16
-    (2, 512 * 512, 512 * 512, 2, 1073741824, False),  # past the budget
+    (8, 512 * 512, 256 * 256, 2, 536870912, True),    # its B = 8 step
+    (16, 256 * 256, 128 * 128, 2, 67108864, True),    # church256, B = 16
+    (4, 512 * 512, 512 * 512, 2, 1073741824, False),  # past the budget
     (1, 512 * 512, 1000, 2, 2097152, True),           # one ragged block
+    (16, 512 * 512, 256 * 256, 2, 1073741824, False),  # church512, B = 16
+    (8, 512 * 512, 256 * 256, 4, 1073741824, False),  # its B = 8, fp32
 ], ids=["church512_b4", "church512_b4_fp32", "church512_b8", "church256",
-        "past_budget", "ragged"])
+        "past_budget", "ragged", "church512_b16", "church512_b8_fp32"])
 def test_fused_backward_rule_counts_the_dq_slab(b, n, m, itemsize, nbytes,
                                                  fused):
     """[B, ceil(M / key block), N, d] fp32 at d = 2, c = 8, whose key block
-    is 1,024 on both engines; K6 up to DQ_SLAB_BUDGET (768 MiB)."""
-    assert fused_keys_per_block(2, 8, itemsize) == 1024
+    is 2,048 in bf16 (16 warps) and 1,024 in fp32; K6 up to
+    DQ_SLAB_BUDGET (768 MiB)."""
+    assert fused_keys_per_block(2, 8, itemsize) == (
+        2048 if itemsize == 2 else 1024)
     assert dq_slab_bytes(b, n, m, 2, 8, itemsize) == nbytes
     assert flash_bwd_fused(b, n, m, 2, 8, itemsize) is fused
     assert DQ_SLAB_BUDGET == 768 * 1024 * 1024
 
 
 @pytest.mark.parametrize("d,c,itemsize,keys", [
-    (2, 8, 2, 1024), (8, 8, 2, 1024), (16, 8, 2, 512), (2, 16, 2, 512),
-    (32, 8, 2, 256), (2, 32, 2, 256), (32, 128, 2, 128), (2, 128, 2, 128),
+    (2, 8, 2, 2048), (8, 8, 2, 2048), (16, 8, 2, 1024), (2, 16, 2, 1024),
+    (32, 8, 2, 256), (2, 32, 2, 512), (32, 128, 2, 128), (2, 128, 2, 256),
     (2, 8, 4, 1024), (4, 16, 4, 512), (32, 8, 4, 256), (8, 128, 4, 256),
 ])
 def test_key_blocks_of_both_engines_set_the_partials_shape(d, c, itemsize,
                                                             keys):
     """The Python copy of each K6's key block (``attention_flash_mma.cu``
-    bwd_keys_per_block, ``attention_flash_bwd.cu`` kThreads x KPT), which
-    chip_smoke holds against the libraries; ``dq_partial_shape`` at the
-    shipped libraries needs no build."""
+    k6_warps x 16 x key tiles, ``attention_flash_bwd.cu`` kThreads x KPT),
+    which chip_smoke holds against the libraries: the bf16 K6 takes 16
+    warps where d <= 16, twice K2's gradient pass's 8, and 8 at d = 32;
+    ``dq_partial_shape`` at the shipped libraries needs no build."""
     assert fused_keys_per_block(d, c, itemsize) == keys
+    if itemsize == 2:
+        assert (k6_warps(d) == MMA_K6_WARPS) is (d <= 16)
+        assert keys == k6_warps(d) * 16 * mma_key_tiles(d, c)
+        assert keys == (2 if d <= 16 else 1) * MMA_BWD_WARPS * 16 \
+            * mma_key_tiles(d, c)
     engine = "mma" if itemsize == 2 else "fma"
     assert cuda_attention.dq_partial_shape(3, 100, 3 * keys + 1, d, c,
                                            engine=engine) == (3, 4, 100, d)
@@ -404,21 +440,24 @@ def test_key_blocks_of_both_engines_set_the_partials_shape(d, c, itemsize,
     (64, 1024, 4, 16, 4),    # imagenet128_cond G's 64 map
     (64, 256, 8, 32, 2),     # imagenet128_cond G's 32 map
     (1024, 1024, 2, 8, 1),   # a grid that fills the card at K6's block
+    (8, 65536, 2, 8, 64),    # church512 G's 512 map at B = 8
 ])
 def test_k2_key_blocks_fill_the_card_and_set_its_scratch(b, m, d, c, blocks,
                                                          monkeypatch):
-    """The bf16 K2's gradient pass halves K6's key block while the grid
-    holds fewer than ``K2_FILL`` blocks an SM (132 SMs, the H100's); its
-    fp32 dq partials are [B, blocks, N, d] and its (-lse log2e, delta)
-    scratch [B, N padded to 64, 2], both from ``torch.empty`` in the
-    wrapper (the launch stubbed out: CPU tensors stand in for CUDA
-    ones)."""
-    k6 = -(-m // fused_keys_per_block(d, c, 2))
+    """The bf16 K2's gradient pass halves K6's 8-warp key block while the
+    grid holds fewer than ``K2_FILL`` blocks an SM (132 SMs, the H100's),
+    and keeps 8 warps where K6 takes 16 (d <= 16); its fp32 dq
+    partials are [B, blocks, N, d] and its (-lse log2e, delta) scratch
+    [B, N padded to 64, 2], both from ``torch.empty`` in the wrapper (the
+    launch stubbed out: CPU tensors stand in for CUDA ones)."""
+    block8 = MMA_BWD_WARPS * 16 * mma_key_tiles(d, c)
     assert k2_key_blocks(b, m, d, c, 132) == blocks
-    assert k2_key_blocks(b, m, d, c, 132, fill=0) == k6
+    assert k2_key_blocks(b, m, d, c, 132, fill=0) == -(-m // block8)
+    assert fused_keys_per_block(d, c, 2) == (
+        2 * block8 if d <= 16 else block8)
     keys = -(-m // blocks)
     assert b * blocks >= K2_FILL * 132 or keys <= 128
-    assert keys <= fused_keys_per_block(d, c, 2)
+    assert keys <= block8
 
     shapes = []
     monkeypatch.setattr(cuda_attention, "_on_cpu", lambda *t: False)

@@ -415,8 +415,9 @@ def test_sdpa_padded_is_attention_on_the_cpu(dtype):
 # -- the tensor-core K6's (query tile, key block) points (k6_mma) -----------
 
 K6_POINTS = list(cuda_attention_study.K6_MMA_POINTS)
-# each K6 define's default: the shipped K6 (attention_flash_mma.cu)
-K6_DEFAULTS = {"SAGAN_K6_Q_TILE": 64, "SAGAN_K6_WARPS": 8,
+# each K6 define's default: the shipped K6 (attention_flash_mma.cu) at
+# d = 2
+K6_DEFAULTS = {"SAGAN_K6_Q_TILE": 64, "SAGAN_K6_WARPS": 16,
                "SAGAN_K6_KEY_TILES": 8, "SAGAN_K6_STAGES": 3}
 
 
@@ -433,9 +434,9 @@ def _k6_build(tiles: tuple) -> dict:
 @pytest.mark.parametrize("point", K6_POINTS, ids="x".join)
 def test_each_k6_point_is_one_define_set_and_its_own_library(point):
     """Each point flips one K6 define away from its shipped value (the
-    shipped point none: the model's library itself), reaches 512, 1,024
-    or 2,048 keys a block at d = 2, c = 8, and builds a library of its
-    own, which ``build_specs()`` holds."""
+    shipped point none: the model's library itself), reaches 512, 1,024,
+    2,048 or 4,096 keys a block at d = 2, c = 8, as its label says, and
+    builds a library of its own, which ``build_specs()`` holds."""
     cas = cuda_attention_study
     tiles = cas.K6_MMA_DEFINES[point]
     assert (tiles == ()) == (point == ("shipped",)) == (point == K6_POINTS[0])
@@ -443,8 +444,11 @@ def test_each_k6_point_is_one_define_set_and_its_own_library(point):
     build = _k6_build(tiles)
     assert all(build[name] != K6_DEFAULTS[name] for name in
                (t.removeprefix("-D").split("=")[0] for t in tiles))
-    assert build["SAGAN_K6_WARPS"] * 16 * build["SAGAN_K6_KEY_TILES"] in (
-        512, 1024, 2048)
+    keys = build["SAGAN_K6_WARPS"] * 16 * build["SAGAN_K6_KEY_TILES"]
+    assert keys in (512, 1024, 2048, 4096)
+    assert point[0] == "shipped" and keys == 2048 \
+        or not point[0].startswith("keys_") \
+        or point[0].startswith(f"keys_{keys}_")
     assert build["SAGAN_K6_Q_TILE"] in (64, 128)   # 32 spills: left out
     assert build["SAGAN_K6_STAGES"] in (2, 3, 4)
     spec = ("attention_flash_mma", ("-DSAGAN_ATTN_C=8", *tiles))
